@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's AL-DRAM main path on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases (any failure exits non-zero and prints no result line):
+
+  1. build both CUDA kernels from the sources in this checkout (nvcc,
+     in parallel) and print the compiler's register / spill report;
+  2. the main path at full width, kernel launch counts reset just
+     before and read just after: sample the calibrated 115-module
+     population (176,640 cells); profile it (one refresh launch, one
+     176,640 x 8,505 margin-grid launch); report the Sec. 5.2 / Fig. 3
+     reductions at 55C and 85C; verify the zero-error invariant (12
+     launches); replay the 70-trace pool under the profiled rows
+     (`evaluate_system`, n = 4096) and under the paper's 55C set
+     (`perf_model.evaluate`, n = 8192);
+     then the same path once more under `torch.profiler` for the
+     device busy share and device time by kernel;
+  3. each kernel against its plain PyTorch version on the card:
+     margin_grid on the first 8 modules' 12,288 cells x all 8,505
+     campaign combos (rtol = atol = 2e-4), replay_blocks at both Fig. 4
+     shapes (bitwise); each kernel's device time (mean of 5 launches
+     after a warm-up, from torch.profiler's kernel records) and its
+     wrapper call's time (median of 5, CUDA events) beside its bound and
+     the plain version's time;
+  4. the same main path at --fast scale (24 modules, 8 cells, 2.5 ns
+     grid) on the card and on the CPU: chosen combos must agree (a flip
+     only where the CPU's deciding margin is within 2e-4 of 0) and the
+     Fig. 4 gmeans within 1e-5 relative.
+
+The last lines are the card (`nvidia-smi` name and power limit), one
+JSON object of per-kernel numbers, and the result object.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+TOL = 2e-4
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
+# tensor cores (both at the full 700 W power limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+REPLAY_OPS_PER_STEP = 25     # service_math: adds, maxes, compares, selects
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    """Median device time of `fn` in ms (CUDA events, after warm-up)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
+    """Mean device time in ms of one launch of the CUDA kernel whose
+    name contains `kernel`, over `reps` calls of `fn` after a warm-up
+    (torch.profiler's CUPTI kernel records).  Unlike `cuda_ms` it leaves
+    out what the wrapper does around the launch, such as input checks
+    that wait for the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key
+            and e.self_device_time_total > 0]
+    check(len(hits) == 1 and hits[0].count == reps,
+          f"profiler saw {[(e.key, e.count) for e in hits]} for {kernel}")
+    return hits[0].self_device_time_total / reps / 1e3
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wall(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------- phases
+
+def main_path(env) -> dict:
+    """Phase 2: the full-width main path through the kernels."""
+    import torch
+    from repro_torch.core import perf_model
+    from repro_torch.core.aldram import ALDRAMController
+    from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
+                                              CALIBRATED_VARIATION)
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.core.sim_engine import SimEngine
+    from repro_torch.core.sweep import Op
+    from repro_torch.core.variation import sample_population
+    from repro_torch.kernels.charge_sim import ops as charge_ops
+    from repro_torch.kernels.replay import ops as replay_ops
+
+    torch.cuda.reset_peak_memory_stats()
+    charge_ops.margin_grid.launches = 0
+    replay_ops.replay_blocks.launches = 0
+
+    pop, t_pop = wall(lambda: sample_population(
+        torch.Generator().manual_seed(SEED), CALIBRATED_VARIATION,
+        device="cuda"))
+    ctrl = ALDRAMController(Profiler(CALIBRATED_CONSTANTS, grid_step=1.25),
+                            device="cuda")
+    table, t_prof = wall(lambda: ctrl.profile(pop))
+    red = {t: ctrl.average_reductions(t) for t in (55.0, 85.0)}
+    res = ctrl.sweep_result
+    fig3 = {}
+    for t in (55.0, 85.0):
+        ti = res.temps.index(t)
+        r, w = res.reductions(Op.READ)[ti], res.reductions(Op.WRITE)[ti]
+        fig3[t] = {"read_sum": r["latency_sum"], "write_sum": w["latency_sum"],
+                   "trcd": r["trcd"], "tras": r["tras"], "twr": w["twr"],
+                   "trp": r["trp"]}
+    d_prof = ctrl.engine.dispatch_count
+    ok, t_ver = wall(lambda: ctrl.verify(pop))
+    d_ver = ctrl.engine.dispatch_count - d_prof
+    eng_sys, eng_ev = SimEngine(device="cuda"), SimEngine(device="cuda")
+    sys_res, t_sys = wall(lambda: ctrl.evaluate_system(pop, n=4096,
+                                                       engine=eng_sys))
+    ev, t_ev = wall(lambda: perf_model.evaluate(n=8192, engine=eng_ev))
+    launches = {"margin_grid": charge_ops.margin_grid.launches,
+                "replay_blocks": replay_ops.replay_blocks.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    print(f"population: {tuple(pop.cells.shape)} = "
+          f"{pop.flat_cells().shape[0]} cells ({t_pop:.3f} s)")
+    print(f"profile: table {table.params.shape}, {d_prof} launches "
+          f"({t_prof:.3f} s); verify: {ok}, {d_ver} launches ({t_ver:.3f} s)")
+    for t in (55.0, 85.0):
+        f = fig3[t]
+        print(f"fig3 @{t:.0f}C: read_sum {f['read_sum']:.2%} write_sum "
+              f"{f['write_sum']:.2%} | tRCD {f['trcd']:.2%} tRAS "
+              f"{f['tras']:.2%} tWR {f['twr']:.2%} tRP {f['trp']:.2%}")
+        print(f"average_reductions({t:.0f}): " + " ".join(
+            f"{k} {v:.2%}" for k, v in red[t].items()))
+    for t, d in sys_res["per_temp"].items():
+        print(f"evaluate_system @{t:.0f}C: " + " ".join(
+            f"{k} {v:.2%}" for k, v in d.items()))
+    s = ev["summary"]
+    print(f"evaluate (55C set): multi intensive {s['multi_intensive_gmean']:.2%}"
+          f" non-intensive {s['multi_nonintensive_gmean']:.2%} all "
+          f"{s['multi_all_gmean']:.2%} best {s['best_multi'][0]} "
+          f"{s['best_multi'][1]:.2%}")
+    print(f"dispatches: profile+verify {ctrl.engine.dispatch_count}, "
+          f"evaluate_system {eng_sys.dispatch_count}, evaluate "
+          f"{eng_ev.dispatch_count}")
+    print(f"phase seconds: profile {t_prof:.3f} verify {t_ver:.3f} "
+          f"evaluate_system {t_sys:.3f} evaluate {t_ev:.3f}; peak device "
+          f"memory {peak_gb:.2f} GB")
+    print("kernels: " + json.dumps(launches))
+
+    check(ok is True, "verify() found a negative margin")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main path never launched: {launches}")
+    check(table.params.shape == (115, 5, 8, 4), str(table.params.shape))
+    check(d_prof == 2 and d_ver == 12, f"launches {d_prof}+{d_ver}")
+    for t in (55.0, 85.0):
+        check(all(0.0 < v < 1.0 for v in fig3[t].values()), str(fig3[t]))
+    check(fig3[55.0]["read_sum"] > fig3[85.0]["read_sum"],
+          "55C must allow deeper cuts than 85C")
+    vals = [v for d in sys_res["per_temp"].values() for v in d.values()]
+    vals += [s["multi_intensive_gmean"], s["multi_nonintensive_gmean"],
+             s["multi_all_gmean"]]
+    check(all(-1.0 < v < 1.0 for v in vals), f"speedups {vals}")
+    check(s["multi_intensive_gmean"] > s["multi_nonintensive_gmean"] > 0,
+          "intensive workloads must gain more than non-intensive ones")
+    env.update(pop=pop, ctrl=ctrl, sys_res=sys_res, launches=launches)
+    return env
+
+
+def time_breakdown(env) -> None:
+    """Phase 2b: the main path once more under `torch.profiler` —
+    device busy share and device time by kernel.  A measurement only:
+    if the profiler records no device time it reports "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import perf_model
+    from repro_torch.core.aldram import ALDRAMController
+
+    pop = env["pop"]
+    ctrl = ALDRAMController(env["ctrl"].profiler, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t = wall(lambda: (ctrl.profile(pop), ctrl.verify(pop),
+                             ctrl.evaluate_system(pop, n=4096),
+                             perf_model.evaluate(n=8192, device="cuda")))
+    events = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    if dev_us <= 0:
+        print("device busy share: not measured (the profiler recorded no "
+              "device time)")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"main path under torch.profiler: {t:.3f} s wall, device busy "
+          f"{dev_us / 1e6:.3f} s = {dev_us / 1e6 / t:.1%} (idle "
+          f"{1 - dev_us / 1e6 / t:.1%})")
+    for e in top:
+        print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
+def kernel_margin_grid(env) -> dict:
+    """Phase 3a: margin_grid vs its plain version, and its times."""
+    import torch
+    from repro_torch.core.calibration import CALIBRATED_CONSTANTS as C
+    from repro_torch.core.sweep import Op
+    from repro_torch.kernels.charge_sim import ops, ref
+
+    pop, ctrl = env["pop"], env["ctrl"]
+    combos, temps, _, tc = ctrl.engine.campaign_columns(
+        pop, ctrl.sweep_result.spec)
+    dev = torch.device("cuda")
+    cells_t, combos_t = ops.pack_inputs(
+        pop.flat_cells(), torch.tensor(combos, device=dev),
+        torch.tensor(temps, device=dev), torch.tensor(tc[Op.READ], device=dev),
+        torch.tensor(tc[Op.WRITE], device=dev))
+    n, m = cells_t.shape[1], combos_t.shape[1]
+    n_slice = 8 * 8 * 8 * 24
+    sl = cells_t[:, :n_slice].contiguous()
+    err_abs = err_rel = 0.0
+    viol = nonbit = 0
+    for k_out, p_out in zip(ops.margin_grid(sl, combos_t, C),
+                            ref.margin_grid(sl, combos_t, C)):
+        d = (k_out - p_out).abs()
+        err_abs = max(err_abs, d.max().item())
+        err_rel = max(err_rel, (d / p_out.abs().clamp(min=1e-30)).max().item())
+        viol += int((d > TOL + TOL * p_out.abs()).sum())
+        nonbit += int((k_out.view(torch.int32)
+                       != p_out.view(torch.int32)).sum())
+    print(f"margin_grid vs plain on {n_slice} x {m} (x2 outputs): max abs "
+          f"{err_abs:.3e}, max rel {err_rel:.3e}, {viol} elements beyond "
+          f"rtol=atol={TOL:g}, {nonbit} not bitwise equal")
+    check(viol == 0, f"margin_grid disagrees with its plain version at "
+                     f"{viol} elements")
+
+    call = cuda_ms(lambda: ops.margin_grid(cells_t, combos_t, C))
+    ms = kernel_ms(lambda: ops.margin_grid(cells_t, combos_t, C),
+                   "margin_grid_kernel")
+    plain = cuda_ms(lambda: ref.margin_grid(cells_t, combos_t, C), reps=2)
+    n_bytes = 4 * (7 * n + 6 * m) + 2 * 4 * n * m
+    b_ms, b_by = bound_ms(n_bytes, ops.margin_grid_flops(n, m))
+    print(f"margin_grid at {n} x {m}: kernel {ms:.3f} ms (wrapper call "
+          f"{call:.3f} ms), plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {n_bytes / 1e9:.2f} GB, "
+          f"{ops.margin_grid_flops(n, m):.3e} flop, "
+          f"{ops.TRANSCENDENTALS_PER_ELEM * n * m:.3e} expf/logf)")
+    return {"name": "margin_grid", "route": "cuda",
+            "source": "src/repro_torch/kernels/charge_sim/margin_grid.cu",
+            "replaces": "src/repro/kernels/charge_sim/charge_sim.py:119",
+            "launches": env["launches"]["margin_grid"],
+            "max_abs_err": err_abs, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def kernel_replay(env) -> dict:
+    """Phase 3b: replay_blocks vs its plain version at both Fig. 4
+    shapes, and its times."""
+    import torch
+    from repro_torch.core import dram_sim, perf_model
+    from repro_torch.core import timing as T
+    from repro_torch.kernels.replay import ops, ref
+
+    dev = torch.device("cuda")
+    shapes = (("evaluate", 8192, T.stack_timing([T.DDR3_1600,
+                                                 T.ALDRAM_55C_EVAL])),
+              ("evaluate_system", 4096, env["sys_res"]["rows"]))
+    entry = None
+    for name, n, rows in shapes:
+        tb = perf_model.trace_batch(n, SEED, device=dev)
+        g = tb.arrival.shape[0]
+        cells = ref.to_cells(*(f[:, None] for f in tb),
+                             torch.ones((g, n), dtype=torch.bool, device=dev),
+                             torch.tensor([False], device=dev))
+        tim = torch.tensor(rows, device=dev)
+        tim_t = tim.T.contiguous()
+        s = tim.shape[0]
+        lat, total = ops.replay_blocks(*cells, tim_t)
+        closed, arr, bank, row, wr, valid = cells
+        plain_fn = lambda: dram_sim.replay_cells(   # noqa: E731
+            arr, bank, row, wr.bool(), valid.bool(), tim, closed > 0.5)
+        (lat2, total2), _ = wall(plain_fn)
+        lanes = ((lat.view(torch.int32) != lat2.view(torch.int32)).any(1)
+                 | (total.view(torch.int32) != total2.view(torch.int32)))
+        n_bad = int(lanes.sum())
+        err = max((lat - lat2).abs().max().item(),
+                  (total - total2).abs().max().item())
+        call = cuda_ms(lambda: ops.replay_blocks(*cells, tim_t))
+        ms = kernel_ms(lambda: ops.replay_blocks(*cells, tim_t),
+                       "replay_kernel")
+        plain = cuda_ms(plain_fn, reps=1, warmup=0)
+        n_bytes = g * n * 5 * 4 + g * n * s * 4 + g * s * 4 + 6 * s * 4 + g * 4
+        b_ms, b_by = bound_ms(n_bytes, REPLAY_OPS_PER_STEP * g * n * s)
+        print(f"replay_blocks ({name}) G={g} N={n} S={s}: {n_bad} of "
+              f"{g * s} lanes not bitwise equal to plain (max abs "
+              f"{err:.3e}); kernel {ms:.3f} ms (wrapper call {call:.3f} ms "
+              f"with its host-side input checks), plain {plain:.3f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
+              f"path {n} dependent requests")
+        check(n_bad == 0, f"replay_blocks: {n_bad} lanes differ ({name})")
+        if entry is None:
+            entry = {"name": "replay_blocks", "route": "cuda",
+                     "source": "src/repro_torch/kernels/replay/replay.cu",
+                     "replaces": "src/repro/kernels/replay/replay.py:640",
+                     "launches": env["launches"]["replay_blocks"],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return entry
+
+
+def cross_device() -> None:
+    """Phase 4: the --fast-scale main path on the card vs on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import perf_model
+    from repro_torch.core.aldram import ALDRAMController
+    from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
+                                              CALIBRATED_VARIATION)
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.core.sweep import Op
+    from repro_torch.core.variation import sample_population
+
+    cfg = dataclasses.replace(CALIBRATED_VARIATION, n_modules=24, n_cells=8)
+    pop_cpu = sample_population(torch.Generator().manual_seed(SEED), cfg,
+                                device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pop = pop_cpu.to(dev)
+        ctrl = ALDRAMController(Profiler(CALIBRATED_CONSTANTS, grid_step=2.5,
+                                         device=dev), device=dev)
+        t0 = time.perf_counter()
+        tbl = ctrl.profile(pop)
+        ok = ctrl.verify(pop)
+        sys_res = ctrl.evaluate_system(pop, n=1024)
+        ev = perf_model.evaluate(n=2048, device=dev)
+        out[dev] = dict(ctrl=ctrl, tbl=tbl, ok=ok, sys=sys_res, ev=ev,
+                        pop=pop, s=time.perf_counter() - t0)
+    g, c = out["cuda"], out["cpu"]
+    check(g["ok"] and c["ok"], "verify failed at --fast scale")
+    diff_rows = int((g["tbl"].params != c["tbl"].params).any(-1).sum()
+                    + (g["tbl"].params_module
+                       != c["tbl"].params_module).any(-1).sum())
+    flips = unexplained = 0
+    if diff_rows:
+        # a differing choice must come from a pass/fail flip whose
+        # deciding (bank-minimum) margin lies within TOL of zero
+        spec = c["ctrl"].sweep_result.spec
+        rg = g["ctrl"].engine.sweep(g["pop"], spec)
+        rc = c["ctrl"].engine.sweep(c["pop"], spec)
+        m, ch, bk, kc = c["pop"].cells.shape[:4]
+        for op in Op:
+            k = rc.index(op)
+            flip = rg.ok_bank[k] != rc.ok_bank[k]
+            mm = rc.margins[k].reshape(m, ch, bk, kc, *rc.margins[k].shape[1:])
+            mmin = mm.amin(dim=(1, 3)).numpy()
+            flips += int(flip.sum())
+            unexplained += int((np.abs(mmin[flip]) > TOL).sum())
+    rel = []
+    for tc_, d in g["sys"]["per_temp"].items():
+        same = np.array_equal(g["sys"]["rows"][1 + list(
+            g["sys"]["temps"]).index(tc_)], c["sys"]["rows"][1 + list(
+                c["sys"]["temps"]).index(tc_)])
+        if same:
+            rel += [abs(v / c["sys"]["per_temp"][tc_][k] - 1)
+                    for k, v in d.items()]
+    for k in ("multi_intensive_gmean", "multi_nonintensive_gmean",
+              "multi_all_gmean", "single_intensive_gmean"):
+        rel.append(abs(g["ev"]["summary"][k] / c["ev"]["summary"][k] - 1))
+    max_rel = max(rel)
+    print(f"cross-device --fast (24 modules, 8 cells, 2.5 ns grid): "
+          f"{diff_rows} differing chosen rows, {flips} pass/fail flips "
+          f"({unexplained} unexplained), max rel gmean diff {max_rel:.3e}; "
+          f"card {g['s']:.2f} s, CPU {c['s']:.2f} s")
+    check(unexplained == 0, "card and CPU choices differ beyond 2e-4")
+    check(max_rel <= 1e-5, f"card vs CPU gmeans differ by {max_rel:.3e}")
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    try:
+        card = card_line()
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+              f"{torch.cuda.get_device_name(0)} ({card})")
+        t0 = time.perf_counter()
+        build.build_all()
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        for name in build.SOURCES:
+            for line in build.log_path(name).read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}")
+        env = main_path({})
+        time_breakdown(env)
+        k1 = kernel_margin_grid(env)
+        k2 = kernel_replay(env)
+        del env
+        torch.cuda.empty_cache()
+        cross_device()
+    except Exception:                       # report and fail the run
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""Carry the JAX reference's state across into the port's objects.
+
+Every function takes plain numpy arrays (or Python numbers) as the
+reference produces them — `np.asarray(jax_array)` — so the port can
+compute on exactly the reference's inputs without importing it.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.aldram import TimingTable
+from repro_torch.core.charge import ChargeConstants
+from repro_torch.core.dram_sim import Trace
+from repro_torch.core.variation import Population
+from repro_torch.device import resolve_device
+
+
+def population(cells: np.ndarray,
+               device: str | torch.device = "cuda") -> Population:
+    """[modules, chips, banks, K, 5] cells (`Population.cells`)."""
+    cells = np.asarray(cells, np.float32)
+    if cells.ndim != 5 or cells.shape[-1] != 5:
+        raise ValueError(f"cells must be [modules, chips, banks, K, 5], "
+                         f"got {cells.shape}")
+    return Population(torch.tensor(cells, device=resolve_device(device)))
+
+
+def trace(arrival: np.ndarray, bank: np.ndarray, row: np.ndarray,
+          is_write: np.ndarray,
+          device: str | torch.device = "cuda") -> Trace:
+    """One [N] trace or a batched [T, N] trace."""
+    dev = resolve_device(device)
+    return Trace(torch.tensor(np.asarray(arrival, np.float32), device=dev),
+                 torch.tensor(np.asarray(bank, np.int32), device=dev),
+                 torch.tensor(np.asarray(row, np.int32), device=dev),
+                 torch.tensor(np.asarray(is_write, bool), device=dev))
+
+
+def charge_constants(fields: Mapping[str, float]) -> ChargeConstants:
+    """`ChargeConstants` from the reference's field values (e.g.
+    `dataclasses.asdict(constants)`); every field must be given."""
+    return ChargeConstants(**{k: float(v) for k, v in fields.items()})
+
+
+def timing_table(temp_bins, params: np.ndarray, safe_trefi_read: np.ndarray,
+                 safe_trefi_write: np.ndarray,
+                 params_module: np.ndarray | None = None) -> TimingTable:
+    """A module-level ([modules, bins, 4]) or per-bank ([modules, bins,
+    banks, 4] with its module-envelope table) `TimingTable`."""
+    return TimingTable(
+        tuple(float(t) for t in temp_bins),
+        np.asarray(params, np.float32),
+        np.asarray(safe_trefi_read, np.float32),
+        np.asarray(safe_trefi_write, np.float32),
+        params_module=(None if params_module is None
+                       else np.asarray(params_module, np.float32)))

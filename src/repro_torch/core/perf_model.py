@@ -1,0 +1,202 @@
+"""Real-system evaluation model (paper Sec. 6, Fig. 4), port of the
+static part of `repro.core.perf_model`.
+
+35 workloads (SPEC-like, STREAM, GUPS-like), each characterised by
+(MPKI, row-buffer hit rate, write fraction, memory-level parallelism).
+A miss-overlap CPU model converts the replayed average DRAM latency
+into CPI:
+
+    CPI = CPI_exe + (MPKI/1000) * lat_mem * (1 - overlap)
+
+Single-core runs replay each workload's trace alone; multi-core runs
+model four instances sharing the channel (less row locality, four times
+the arrival pressure).  AL-DRAM's speedup comes ONLY from swapping the
+timing rows.  `evaluate_many` replays the whole 70-trace pool under any
+number of timing rows in ONE `SimEngine` launch; the traces are drawn on
+the host from `torch.Generator`s (one per trace, seeded from `seed` and
+the trace's pool offset) and moved to the engine's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import dram_sim
+from repro_torch.core import timing as T
+from repro_torch.core.sim_engine import SimEngine, SimSpec
+from repro_torch.core.timing import ALDRAM_55C_EVAL, DDR3_1600, TimingParams
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    name: str
+    mpki: float
+    row_hit: float
+    write_frac: float
+    overlap: float = 0.50       # memory-level parallelism factor
+    cpi_exe: float = 0.7
+    intensive: bool = True
+
+
+# The paper's pool: SPEC CPU2006 + STREAM variants + GUPS (35 workloads).
+WORKLOADS: list[Workload] = [
+    # memory-intensive (MPKI >= 10 per the paper's classification)
+    Workload("mcf", 67.7, 0.45, 0.25),
+    Workload("lbm", 31.9, 0.70, 0.40),
+    Workload("milc", 25.8, 0.55, 0.25),
+    Workload("libquantum", 25.4, 0.90, 0.15),
+    Workload("soplex", 26.8, 0.55, 0.25),
+    Workload("gems", 24.9, 0.50, 0.30),
+    Workload("omnetpp", 21.6, 0.40, 0.30),
+    Workload("leslie3d", 20.9, 0.65, 0.30),
+    Workload("bwaves", 18.7, 0.70, 0.25),
+    Workload("sphinx3", 17.1, 0.60, 0.20),
+    Workload("zeusmp", 4.9, 0.60, 0.30),
+    Workload("cactusADM", 5.3, 0.55, 0.35),
+    Workload("xalancbmk", 23.9, 0.45, 0.25),
+    Workload("astar", 10.2, 0.45, 0.30),
+    Workload("wrf", 8.1, 0.65, 0.30),
+    # STREAM kernels (very memory-bandwidth-intensive)
+    Workload("s.copy", 52.0, 0.88, 0.50, overlap=0.45),
+    Workload("s.scale", 51.0, 0.88, 0.50, overlap=0.45),
+    Workload("s.add", 55.0, 0.90, 0.34, overlap=0.45),
+    Workload("s.triad", 56.0, 0.90, 0.34, overlap=0.45),
+    # GUPS-like random access
+    Workload("gups", 48.0, 0.10, 0.50, overlap=0.50),
+    # non-intensive
+    Workload("perlbench", 2.0, 0.60, 0.25, intensive=False),
+    Workload("bzip2", 3.6, 0.55, 0.30, intensive=False),
+    Workload("gcc", 4.2, 0.55, 0.30, intensive=False),
+    Workload("gobmk", 1.5, 0.50, 0.25, intensive=False),
+    Workload("hmmer", 2.2, 0.75, 0.20, intensive=False),
+    Workload("sjeng", 1.2, 0.45, 0.25, intensive=False),
+    Workload("h264ref", 2.8, 0.70, 0.20, intensive=False),
+    Workload("tonto", 1.3, 0.65, 0.25, intensive=False),
+    Workload("namd", 1.0, 0.70, 0.20, intensive=False),
+    Workload("dealII", 3.2, 0.65, 0.25, intensive=False),
+    Workload("povray", 0.7, 0.60, 0.20, intensive=False),
+    Workload("calculix", 2.6, 0.70, 0.25, intensive=False),
+    Workload("gromacs", 1.8, 0.65, 0.25, intensive=False),
+    Workload("sixtrack", 1.1, 0.70, 0.20, intensive=False),
+    Workload("gamess", 0.8, 0.65, 0.20, intensive=False),
+]
+
+MODES = (False, True)           # single-core, multi-core
+
+
+def _knobs(w: Workload, multi_core: bool) -> tuple[float, float, float]:
+    """(row_hit, write_frac, inter_arrival_ns) of one workload trace.
+    Multi-core: 4 instances share the channel — locality drops and
+    arrival pressure quadruples."""
+    row_hit = w.row_hit * (0.55 if multi_core else 1.0)
+    inter = max(4.0, 400.0 / w.mpki) / (4.0 if multi_core else 1.0)
+    return row_hit, w.write_frac, inter
+
+
+def _pool_knobs():
+    """(offsets, row_hits, write_fracs, inter_arrivals) of the full
+    70-trace pool — single-core block then multi-core block, each in
+    WORKLOADS order."""
+    offs, rhs, wfs, ias = [], [], [], []
+    for multi in MODES:
+        for i, w in enumerate(WORKLOADS):
+            rh, wf, ia = _knobs(w, multi)
+            offs.append(i + (1000 if multi else 0))
+            rhs.append(rh)
+            wfs.append(wf)
+            ias.append(ia)
+    return offs, rhs, wfs, ias
+
+
+def _trace_generator(seed: int, offset: int) -> torch.Generator:
+    """Independent CPU generator of pool trace `offset` under `seed`."""
+    state = np.random.SeedSequence([seed, offset]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def trace_batch(n: int = 8192, seed: int = 0, n_banks: int = 8,
+                device: str | torch.device = "cuda") -> dram_sim.Trace:
+    """All 35 workloads x (single, multi) as one batched `Trace` with a
+    [70, n] leading axis on `device` — rows ordered single-block then
+    multi-block, each in WORKLOADS order."""
+    traces = [dram_sim.synth_trace(_trace_generator(seed, off), n,
+                                   n_banks=n_banks, row_hit=rh,
+                                   write_frac=wf, inter_arrival_ns=ia,
+                                   device="cpu")
+              for off, rh, wf, ia in zip(*_pool_knobs())]
+    return dram_sim.Trace(*(torch.stack(f).to(device)
+                            for f in zip(*traces)))
+
+
+def evaluate_many(timings, n: int = 8192, seed: int = 0,
+                  engine: SimEngine | None = None,
+                  policies: tuple[dram_sim.Policy, ...] = (dram_sim.OPEN_FCFS,),
+                  n_banks: int = 8, traces: dram_sim.Trace | None = None,
+                  device: str | torch.device = "cuda") -> dict:
+    """Replay the workload pool under [S, 6] stacked timing rows (and
+    policies) in ONE replay launch on the engine's device (a new
+    `SimEngine(device=device)` when none is given).  `traces` replaces
+    the synthesized pool with a given [70, N] batch.
+
+    Returns mean latencies as [modes(2), workloads(35), P, S] plus the
+    raw `SimResult` (trace axis = mode-major flattening)."""
+    engine = engine or SimEngine(device=device)
+    if traces is None:
+        traces = trace_batch(n, seed, n_banks, device=engine.device)
+    res = engine.run(SimSpec(traces=traces, timings=timings,
+                             policies=policies, n_banks=n_banks))
+    nw = len(WORKLOADS)
+    grid = res.mean_latency_ns.reshape((len(MODES), nw)
+                                       + res.mean_latency_ns.shape[1:])
+    return {"result": res, "mean_latency_ns": grid,
+            "workloads": [w.name for w in WORKLOADS]}
+
+
+def cpi_speedups(mean_lat_ns: np.ndarray) -> np.ndarray:
+    """CPI speedup of every timing row vs row 0 (the standard-timing
+    baseline): [modes, workloads, P, S] latencies -> same-shape
+    speedups (column 0 is identically 0)."""
+    mpki = np.array([w.mpki for w in WORKLOADS])[None, :, None, None]
+    ov = np.array([w.overlap for w in WORKLOADS])[None, :, None, None]
+    ce = np.array([w.cpi_exe for w in WORKLOADS])[None, :, None, None]
+    cpi = ce + mpki / 1000.0 * mean_lat_ns.astype(np.float64) * (1 - ov)
+    return cpi[..., :1] / cpi - 1.0
+
+
+def gmean_speedup(vals) -> float:
+    return float(np.exp(np.mean(np.log1p(list(vals)))) - 1.0)
+
+
+def evaluate(std: TimingParams = DDR3_1600,
+             fast: TimingParams = ALDRAM_55C_EVAL,
+             n: int = 8192, seed: int = 0,
+             engine: SimEngine | None = None,
+             device: str | torch.device = "cuda") -> dict:
+    """Fig. 4's aggregate numbers — all 35 workloads, both core modes
+    and both timing sets in ONE replay launch."""
+    engine = engine or SimEngine(device=device)
+    d0 = engine.dispatch_count
+    em = evaluate_many(T.stack_timing([std, fast]), n=n, seed=seed,
+                       engine=engine)
+    sp = cpi_speedups(em["mean_latency_ns"])         # [2, 35, 1, 2]
+    out: dict = {"single": {}, "multi": {}}
+    for mi, multi in enumerate(MODES):
+        tag = "multi" if multi else "single"
+        for i, w in enumerate(WORKLOADS):
+            out[tag][w.name] = float(sp[mi, i, 0, 1])
+
+    mi_ = [out["multi"][w.name] for w in WORKLOADS if w.intensive]
+    mn = [out["multi"][w.name] for w in WORKLOADS if not w.intensive]
+    out["summary"] = {
+        "multi_intensive_gmean": gmean_speedup(mi_),
+        "multi_nonintensive_gmean": gmean_speedup(mn),
+        "multi_all_gmean": gmean_speedup(mi_ + mn),
+        "single_intensive_gmean": gmean_speedup(
+            [out["single"][w.name] for w in WORKLOADS if w.intensive]),
+        "best_multi": max(out["multi"].items(), key=lambda kv: kv[1]),
+    }
+    out["dispatches"] = {"replay": engine.dispatch_count - d0}
+    return out

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's AL-DRAM main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's AL-DRAM main and thermal paths on one
+NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
 Phases (any failure exits non-zero and prints no result line):
 
-  1. build both CUDA kernels from the sources in this checkout (nvcc,
-     in parallel) and print the compiler's register / spill report;
+  1. build every CUDA kernel from the sources in this checkout (nvcc,
+     one process per source, in parallel) and print the compiler's
+     register / spill report;
   2. the main path at full width, kernel launch counts reset just
      before and read just after: sample the calibrated 115-module
      population (176,640 cells); profile it (one refresh launch, one
@@ -17,17 +19,37 @@ Phases (any failure exits non-zero and prints no result line):
      (`perf_model.evaluate`, n = 8192);
      then the same path once more under `torch.profiler` for the
      device busy share and device time by kernel;
-  3. each kernel against its plain PyTorch version on the card:
-     margin_grid on the first 8 modules' 12,288 cells x all 8,505
-     campaign combos (rtol = atol = 2e-4), replay_blocks at both Fig. 4
-     shapes (bitwise); each kernel's device time (mean of 5 launches
-     after a warm-up, from torch.profiler's kernel records) and its
-     wrapper call's time (median of 5, CUDA events) beside its bound and
-     the plain version's time;
-  4. the same main path at --fast scale (24 modules, 8 cells, 2.5 ns
-     grid) on the card and on the CPU: chosen combos must agree (a flip
-     only where the CPU's deciding margin is within 2e-4 of 0) and the
-     Fig. 4 gmeans within 1e-5 relative.
+  3. margin_grid against its plain PyTorch version on the card, on the
+     first 8 modules' 12,288 cells x all 8,505 campaign combos (rtol =
+     atol = 2e-4); its device time (mean of 5 launches after a warm-up,
+     from torch.profiler's kernel records) and its wrapper call's time
+     (median of 5, CUDA events) beside its bound and the plain
+     version's time (the same for every kernel below);
+  4. the thermal path at full width on the table the main path
+     profiled, launch counts reset just before and read just after:
+     `evaluate_dynamic(n=4096)` with the default scenarios (70 traces,
+     4 scenarios + 4 oracles, 5 bins + JEDEC) per-module and per-bank,
+     each through the two-launch path and `fused=True` (`run_bracket`),
+     which must agree (worst_bin equal, gmeans within 1e-5 relative);
+     adaptive >= static_worst - 1e-9 for every scenario and policy; then
+     `evaluate_bank_system(n=4096)`; then the same path under
+     `torch.profiler` for the device busy share;
+  5. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
+     (b) and adaptive_blocks (module and per-bank tables, raw temps and
+     bins emitted) against their plain versions on the card at the
+     thermal path's full shapes (bins
+     identical on every request, latencies within rtol 1e-5,
+     temperatures / heat / diagnostics within rtol 1e-5, atol 1e-4;
+     the per-bank replay bitwise), with their times;
+  6. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
+     the card and on the CPU: chosen combos must agree (a flip only
+     where the CPU's deciding margin is within 2e-4 of 0) and the
+     Fig. 4 gmeans within 1e-5 relative; then `evaluate_dynamic(n=1024)`
+     on both: worst_bin equal, gmeans within 1e-4 relative, and a
+     selected bin may differ only where the CPU's sensed temperature
+     lies within 1e-3 C of a switching threshold (an edge, or an edge
+     minus the hysteresis) or where the lane's previous request already
+     differed (the hysteresis carries the earlier choice).
 
 The last lines are the card (`nvidia-smi` name and power limit), one
 JSON object of per-kernel numbers, and the result object.
@@ -52,6 +74,10 @@ TOL = 2e-4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 REPLAY_OPS_PER_STEP = 25     # service_math: adds, maxes, compares, selects
+# thermal step on top of service_math: decay and sum of 8 bank heats,
+# ambient (sin, fmod, compares), 2 x 5 bin compares, energy and deposit
+ADAPTIVE_OPS_PER_STEP = 75
+HYST_EDGE_TOL = 1e-3         # C: a bin may flip only this close to a threshold
 
 
 class SmokeFailure(RuntimeError):
@@ -117,6 +143,28 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.charge_sim import ops as charge_ops
+    from repro_torch.kernels.replay import ops as replay_ops
+    charge_ops.margin_grid.launches = 0
+    for fn in (replay_ops.replay_blocks, replay_ops.adaptive_blocks):
+        fn.launches = 0
+        fn.launches_banked = 0
+
+
+def read_counts() -> dict:
+    """Launches per kernel variant since `reset_counts`."""
+    from repro_torch.kernels.charge_sim import ops as charge_ops
+    from repro_torch.kernels.replay import ops as replay_ops
+    rb, ab = replay_ops.replay_blocks, replay_ops.adaptive_blocks
+    return {"margin_grid": charge_ops.margin_grid.launches,
+            "replay_blocks (a)": rb.launches - rb.launches_banked,
+            "replay_blocks (b)": rb.launches_banked,
+            "adaptive_blocks (a)": ab.launches - ab.launches_banked,
+            "adaptive_blocks (b)": ab.launches_banked}
+
+
 def wall(fn):
     import torch
     torch.cuda.synchronize()
@@ -139,12 +187,9 @@ def main_path(env) -> dict:
     from repro_torch.core.sim_engine import SimEngine
     from repro_torch.core.sweep import Op
     from repro_torch.core.variation import sample_population
-    from repro_torch.kernels.charge_sim import ops as charge_ops
-    from repro_torch.kernels.replay import ops as replay_ops
 
     torch.cuda.reset_peak_memory_stats()
-    charge_ops.margin_grid.launches = 0
-    replay_ops.replay_blocks.launches = 0
+    reset_counts()
 
     pop, t_pop = wall(lambda: sample_population(
         torch.Generator().manual_seed(SEED), CALIBRATED_VARIATION,
@@ -168,8 +213,7 @@ def main_path(env) -> dict:
     sys_res, t_sys = wall(lambda: ctrl.evaluate_system(pop, n=4096,
                                                        engine=eng_sys))
     ev, t_ev = wall(lambda: perf_model.evaluate(n=8192, engine=eng_ev))
-    launches = {"margin_grid": charge_ops.margin_grid.launches,
-                "replay_blocks": replay_ops.replay_blocks.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     print(f"population: {tuple(pop.cells.shape)} = "
@@ -200,7 +244,7 @@ def main_path(env) -> dict:
     print("kernels: " + json.dumps(launches))
 
     check(ok is True, "verify() found a negative margin")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in ("margin_grid", "replay_blocks (a)")),
           f"a kernel of the main path never launched: {launches}")
     check(table.params.shape == (115, 5, 8, 4), str(table.params.shape))
     check(d_prof == 2 and d_ver == 12, f"launches {d_prof}+{d_ver}")
@@ -214,34 +258,28 @@ def main_path(env) -> dict:
     check(all(-1.0 < v < 1.0 for v in vals), f"speedups {vals}")
     check(s["multi_intensive_gmean"] > s["multi_nonintensive_gmean"] > 0,
           "intensive workloads must gain more than non-intensive ones")
-    env.update(pop=pop, ctrl=ctrl, sys_res=sys_res, launches=launches)
+    env.update(pop=pop, ctrl=ctrl, sys_res=sys_res, launches=launches,
+               launches_main=launches)
     return env
 
 
-def time_breakdown(env) -> None:
-    """Phase 2b: the main path once more under `torch.profiler` —
-    device busy share and device time by kernel.  A measurement only:
-    if the profiler records no device time it reports "not measured"."""
-    import torch
+def busy_share(label: str, fn) -> None:
+    """Run `fn` once under `torch.profiler`: wall time, device busy and
+    idle share, device time by name.  A measurement only: if the
+    profiler records no device time it reports "not measured"."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import perf_model
-    from repro_torch.core.aldram import ALDRAMController
 
-    pop = env["pop"]
-    ctrl = ALDRAMController(env["ctrl"].profiler, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, t = wall(lambda: (ctrl.profile(pop), ctrl.verify(pop),
-                             ctrl.evaluate_system(pop, n=4096),
-                             perf_model.evaluate(n=8192, device="cuda")))
+        _, t = wall(fn)
     events = prof.key_averages()
     dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
     if dev_us <= 0:
-        print("device busy share: not measured (the profiler recorded no "
-              "device time)")
+        print(f"{label}: device busy share not measured (the profiler "
+              "recorded no device time)")
         return
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"main path under torch.profiler: {t:.3f} s wall, device busy "
+    print(f"{label} under torch.profiler: {t:.3f} s wall, device busy "
           f"{dev_us / 1e6:.3f} s = {dev_us / 1e6 / t:.1%} (idle "
           f"{1 - dev_us / 1e6 / t:.1%})")
     for e in top:
@@ -249,8 +287,30 @@ def time_breakdown(env) -> None:
               f"x{e.count:<5d} {e.key[:90]}")
 
 
+def time_breakdown(env) -> None:
+    """Phase 2b: the main path once more under `torch.profiler`."""
+    from repro_torch.core import perf_model
+    from repro_torch.core.aldram import ALDRAMController
+
+    pop = env["pop"]
+    ctrl = ALDRAMController(env["ctrl"].profiler, device="cuda")
+    busy_share("main path", lambda: (
+        ctrl.profile(pop), ctrl.verify(pop),
+        ctrl.evaluate_system(pop, n=4096),
+        perf_model.evaluate(n=8192, device="cuda")))
+
+
+def path_launches(env, kernel: str) -> dict:
+    """A kernel variant's launches: the total over the paths driven,
+    and per path."""
+    by_path = {path: env[f"launches_{path}"][kernel]
+               for path in ("main", "thermal")
+               if f"launches_{path}" in env}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
 def kernel_margin_grid(env) -> dict:
-    """Phase 3a: margin_grid vs its plain version, and its times."""
+    """Phase 3: margin_grid vs its plain version, and its times."""
     import torch
     from repro_torch.core.calibration import CALIBRATED_CONSTANTS as C
     from repro_torch.core.sweep import Op
@@ -297,12 +357,13 @@ def kernel_margin_grid(env) -> dict:
             "source": "src/repro_torch/kernels/charge_sim/margin_grid.cu",
             "replaces": "src/repro/kernels/charge_sim/charge_sim.py:119",
             "launches": env["launches"]["margin_grid"],
+            "launches_by_path": {"main": env["launches"]["margin_grid"]},
             "max_abs_err": err_abs, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def kernel_replay(env) -> dict:
-    """Phase 3b: replay_blocks vs its plain version at both Fig. 4
+    """Phase 5a: replay_blocks (a) vs its plain version at both Fig. 4
     shapes, and its times."""
     import torch
     from repro_torch.core import dram_sim, perf_model
@@ -347,17 +408,235 @@ def kernel_replay(env) -> dict:
               f"path {n} dependent requests")
         check(n_bad == 0, f"replay_blocks: {n_bad} lanes differ ({name})")
         if entry is None:
-            entry = {"name": "replay_blocks", "route": "cuda",
+            entry = {"name": "replay_blocks", "variant": "a",
+                     "route": "cuda",
                      "source": "src/repro_torch/kernels/replay/replay.cu",
                      "replaces": "src/repro/kernels/replay/replay.py:640",
-                     "launches": env["launches"]["replay_blocks"],
+                     **path_launches(env, "replay_blocks (a)"),
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return entry
 
 
-def cross_device() -> None:
-    """Phase 4: the --fast-scale main path on the card vs on the CPU."""
+def thermal_path(env) -> None:
+    """Phase 4: the thermal closed loop at full width on the table the
+    main path profiled, kernel launch counts reset just before and read
+    just after."""
+    import numpy as np
+    from repro_torch.core.sim_engine import SimEngine
+
+    pop, ctrl = env["pop"], env["ctrl"]
+    runs, secs, calls = {}, {}, {}
+    reset_counts()
+    for per_bank in (False, True):
+        for fused in (False, True):
+            eng = SimEngine(device="cuda")
+            key = (per_bank, fused)
+            runs[key], secs[key] = wall(lambda: ctrl.evaluate_dynamic(
+                pop, n=4096, per_bank=per_bank, fused=fused, engine=eng))
+            calls[key] = eng.dispatch_count
+    bank, t_bank = wall(lambda: ctrl.evaluate_bank_system(pop, n=4096))
+    launches = read_counts()
+
+    for key, res in runs.items():
+        tag = (("per-bank" if key[0] else "per-module") + " "
+               + ("fused" if key[1] else "two-launch"))
+        print(f"evaluate_dynamic {tag}: {secs[key]:.3f} s, {calls[key]} "
+              f"engine calls, worst_bin {res['worst_bin'].tolist()}")
+        for name, d in res["per_scenario"].items():
+            print(f"  {name}: adaptive {d['adaptive_gmean']:.4%} "
+                  f"static_worst {d['static_worst_gmean']:.4%} oracle "
+                  f"{d['oracle_gmean']:.4%} temp_peak {d['temp_peak']:.3f} "
+                  f"worst_bin {d['worst_bin']} mean_bin_switches "
+                  f"{d['mean_bin_switches']:.3f}")
+    for t, d in bank["per_temp"].items():
+        print(f"evaluate_bank_system @{t:.0f}C: " + " ".join(
+            f"{k} {v:.3%}" for k, v in d.items()))
+    print("evaluate_bank_system reductions: " + json.dumps(
+        bank["reductions"]))
+    print("thermal path seconds: " + " ".join(
+        f"dynamic[{'bank' if k[0] else 'module'},"
+        f"{'fused' if k[1] else 'two'}] {v:.3f}" for k, v in secs.items())
+        + f" bank_system {t_bank:.3f}")
+    print("thermal path kernels: " + json.dumps(launches))
+
+    for per_bank in (False, True):
+        a, b = runs[(per_bank, False)], runs[(per_bank, True)]
+        check(np.array_equal(a["worst_bin"], b["worst_bin"]),
+              f"worst_bin two-launch {a['worst_bin']} vs fused "
+              f"{b['worst_bin']}")
+        for name, d in a["per_scenario"].items():
+            for k in ("adaptive_gmean", "static_worst_gmean",
+                      "oracle_gmean"):
+                x, y = d[k], b["per_scenario"][name][k]
+                check(abs(x - y) <= 1e-5 * max(abs(x), abs(y)),
+                      f"{name} {k}: two-launch {x} vs fused {y}")
+    for key, res in runs.items():
+        check(calls[key] == (1 if key[1] else 2), f"engine calls {calls}")
+        check(res["adaptive"].shape == (2, 35, 1, 4),
+              str(res["adaptive"].shape))
+        for pd in res["per_policy"]:
+            for name, d in pd.items():
+                check(all(np.isfinite(v) for v in d.values()
+                          if isinstance(v, float)), f"{name}: {d}")
+                check(d["adaptive_gmean"] >= d["static_worst_gmean"] - 1e-9,
+                      f"adaptive < static_worst for {name}: {d}")
+    check(all(np.isfinite(v) and -1.0 < v < 1.0
+              for d in bank["per_temp"].values() for v in d.values()),
+          str(bank["per_temp"]))
+    check(all(launches[k] > 0 for k in ("replay_blocks (a)",
+                                        "replay_blocks (b)",
+                                        "adaptive_blocks (a)",
+                                        "adaptive_blocks (b)")),
+          f"a kernel of the thermal path never launched: {launches}")
+    env.update(launches_thermal=launches, bank_res=bank)
+
+
+def thermal_breakdown(env) -> None:
+    """Phase 4b: the thermal path once more under `torch.profiler`."""
+    pop, ctrl = env["pop"], env["ctrl"]
+    busy_share("thermal path", lambda: (
+        [ctrl.evaluate_dynamic(pop, n=4096, per_bank=pb, fused=f)
+         for pb in (False, True) for f in (False, True)],
+        ctrl.evaluate_bank_system(pop, n=4096)))
+
+
+def _campaign_cells(n: int):
+    """The 70-trace pool at length n as kernel cells (open page)."""
+    import torch
+    from repro_torch.core import perf_model
+    from repro_torch.kernels.replay import ref
+
+    dev = torch.device("cuda")
+    tb = perf_model.trace_batch(n, SEED, device=dev)
+    g = tb.arrival.shape[0]
+    return ref.to_cells(*(f[:, None] for f in tb),
+                        torch.ones((g, n), dtype=torch.bool, device=dev),
+                        torch.tensor([False], device=dev))
+
+
+def kernel_adaptive(env) -> list:
+    """Phase 5c: adaptive_blocks (module and per-bank tables) against
+    its plain version at the thermal path's full shape (70 cells x 4096
+    requests x 8 lanes, raw temps and bins emitted), and its times."""
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.core import thermal as TH
+    from repro_torch.core.aldram import default_scenarios
+    from repro_torch.kernels.replay import ops, ref
+
+    dev = torch.device("cuda")
+    n = 4096
+    cells = _campaign_cells(n)
+    closed, arr, bank, row, wr, valid = cells
+    g = arr.shape[0]
+    scns = default_scenarios()
+    scns = scns + tuple(x.oracle() for x in scns)
+    scn_t = torch.tensor(TH.stack_scenarios(scns).T.copy(), device=dev)
+    tcfg = torch.tensor(TH.ThermalConfig().as_row(), device=dev)
+    table = env["ctrl"].table
+    entries = []
+    for variant, (rows, edges) in (("a", table.safe_stack()),
+                                   ("b", table.safe_stack_banks())):
+        tile = ref.table_tile(ref.lane_tables(
+            torch.tensor(rows, device=dev)[None], len(scns)))
+        bins = torch.tensor(edges, device=dev)
+        lanes = tile.shape[-1]
+        out = ops.adaptive_blocks(*cells, tile, scn_t, bins, tcfg,
+                                  emit_raw=True)
+        plain, plain_s = wall(lambda: dram_sim.replay_adaptive_cells(
+            arr, bank, row, wr.bool(), valid.bool(), ref.lane_stacks(tile),
+            bins, scn_t.T, tcfg, closed > 0.5))
+        lat, total, tmax, tmean, sw, heat, temps, sel = out
+        plat, ptot, ptemps, psel, pheat, (ptmax, ptmean, psw) = plain
+        pairs = ((lat, plat), (total, ptot), (temps, ptemps), (heat, pheat),
+                 (tmax, ptmax), (tmean, ptmean))
+        err = max((a - b).abs().max().item() for a, b in pairs)
+        same_bins = bool(torch.equal(sel, psel) and torch.equal(sw, psw))
+
+        def lane_bits(a, b):
+            d = a.view(torch.int32) != b.view(torch.int32)
+            return d.reshape(g, -1, lanes).any(1)
+
+        lanes_off = lane_bits(lat, plat) | lane_bits(temps, ptemps) \
+            | lane_bits(heat, pheat) | lane_bits(total, ptot) \
+            | lane_bits(tmean, ptmean) | (sel != psel).any(1)
+        n_off = int(lanes_off.sum())
+        close = all(torch.allclose(a, b, rtol=1e-5, atol=0)
+                    for a, b in pairs[:2]) and all(
+            torch.allclose(a, b, rtol=1e-5, atol=1e-4) for a, b in pairs[2:])
+        call = cuda_ms(lambda: ops.adaptive_blocks(*cells, tile, scn_t, bins,
+                                                   tcfg))
+        ms = kernel_ms(lambda: ops.adaptive_blocks(*cells, tile, scn_t, bins,
+                                                   tcfg), "adaptive_kernel")
+        n_bytes = (g * n * 5 * 4 + g * n * lanes * 4 + g * 4
+                   + tile.numel() * 4 + scn_t.numel() * 4 + bins.numel() * 4
+                   + 24 + g * lanes * 4 * 4 + heat.numel() * 4)
+        b_ms, b_by = bound_ms(n_bytes, (REPLAY_OPS_PER_STEP
+                                        + ADAPTIVE_OPS_PER_STEP) * g * n * lanes)
+        print(f"adaptive_blocks ({variant}, {'per-bank' if variant == 'b' else 'module'} "
+              f"tables) G={g} N={n} L={lanes}: bins identical {same_bins}, "
+              f"{int(sw.sum())} switches, {n_off} of {g * lanes} lanes not "
+              f"bitwise equal to plain (max abs {err:.3e}); kernel {ms:.3f} ms "
+              f"(wrapper call {call:.3f} ms), plain {plain_s * 1e3:.1f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
+              f"path {n} dependent requests")
+        check(same_bins, f"adaptive_blocks ({variant}): bins differ")
+        check(close, f"adaptive_blocks ({variant}): outputs beyond tolerance "
+                     f"(max abs {err:.3e})")
+        entries.append({
+            "name": "adaptive_blocks", "variant": variant, "route": "cuda",
+            "source": "src/repro_torch/kernels/replay/adaptive.cu",
+            "replaces": "src/repro/kernels/replay/replay.py:522",
+            **path_launches(env, f"adaptive_blocks ({variant})"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return entries
+
+
+def kernel_replay_banked(env) -> dict:
+    """Phase 5b: replay_blocks (b), the per-bank tile, against its plain
+    version at `evaluate_bank_system`'s shape, and its times."""
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.kernels.replay import ops, ref
+
+    n = 4096
+    cells = _campaign_cells(n)
+    closed, arr, bank, row, wr, valid = cells
+    g = arr.shape[0]
+    tim = torch.tensor(env["bank_res"]["rows"], device=arr.device)
+    tile = ref.timing_tile(tim)
+    s, banks = tim.shape[0], tim.shape[1]
+    lat, total = ops.replay_blocks(*cells, tile)
+    (lat2, total2), plain_s = wall(lambda: dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(), tim, closed > 0.5))
+    lanes = ((lat.view(torch.int32) != lat2.view(torch.int32)).any(1)
+             | (total.view(torch.int32) != total2.view(torch.int32)))
+    n_bad = int(lanes.sum())
+    err = max((lat - lat2).abs().max().item(),
+              (total - total2).abs().max().item())
+    call = cuda_ms(lambda: ops.replay_blocks(*cells, tile))
+    ms = kernel_ms(lambda: ops.replay_blocks(*cells, tile), "replay_kernel")
+    n_bytes = (g * n * 5 * 4 + g * n * s * 4 + g * s * 4 + banks * 6 * s * 4
+               + g * 4)
+    b_ms, b_by = bound_ms(n_bytes, REPLAY_OPS_PER_STEP * g * n * s)
+    print(f"replay_blocks (b, per-bank tile) G={g} N={n} S={s} banks={banks}: "
+          f"{n_bad} of {g * s} lanes not bitwise equal to plain (max abs "
+          f"{err:.3e}); kernel {ms:.3f} ms (wrapper call {call:.3f} ms), "
+          f"plain {plain_s * 1e3:.1f} ms, bound {b_ms:.5f} ms ({b_by}: "
+          f"{n_bytes / 1e6:.2f} MB)")
+    check(n_bad == 0, f"replay_blocks (b): {n_bad} lanes differ")
+    return {"name": "replay_blocks", "variant": "b", "route": "cuda",
+            "source": "src/repro_torch/kernels/replay/replay.cu",
+            "replaces": "src/repro/kernels/replay/replay.py:640",
+            **path_launches(env, "replay_blocks (b)"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def cross_device() -> dict:
+    """Phase 6a: the --fast-scale main path on the card vs on the CPU."""
     import numpy as np
     import torch
     from repro_torch.core import perf_model
@@ -421,6 +700,78 @@ def cross_device() -> None:
           f"card {g['s']:.2f} s, CPU {c['s']:.2f} s")
     check(unexplained == 0, "card and CPU choices differ beyond 2e-4")
     check(max_rel <= 1e-5, f"card vs CPU gmeans differ by {max_rel:.3e}")
+    return out
+
+
+def cross_device_thermal(out) -> None:
+    """Phase 6b: `evaluate_dynamic` at --fast scale (n = 1024) on the
+    card and on the CPU, both on the CPU controller's table, and the
+    selected bin of every request of the same campaign on both."""
+    import numpy as np
+    from repro_torch.core import perf_model
+    from repro_torch.core import thermal as TH
+    from repro_torch.core.aldram import default_scenarios
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+
+    table = out["cpu"]["tbl"]
+    out["cuda"]["ctrl"].table = table
+    dyn, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        o = out[dev]
+        t0 = time.perf_counter()
+        dyn[dev] = {pb: o["ctrl"].evaluate_dynamic(o["pop"], n=1024,
+                                                    per_bank=pb)
+                    for pb in (False, True)}
+        secs[dev] = time.perf_counter() - t0
+    rel = 0.0
+    for pb in (False, True):
+        g, c = dyn["cuda"][pb], dyn["cpu"][pb]
+        check(np.array_equal(g["worst_bin"], c["worst_bin"]),
+              f"worst_bin card {g['worst_bin']} vs CPU {c['worst_bin']}")
+        for name, d in c["per_scenario"].items():
+            for k in ("adaptive_gmean", "static_worst_gmean",
+                      "oracle_gmean"):
+                x, y = g["per_scenario"][name][k], d[k]
+                rel = max(rel, abs(x - y) / max(abs(y), 1e-12))
+
+    scns = default_scenarios()
+    scns = scns + tuple(x.oracle() for x in scns)
+    cfg = TH.ThermalConfig()
+    hyst = cfg.hyst_c * TH.stack_scenarios(scns)[:, 8]          # [C]
+    diff = near = carried = total = 0
+    max_dt = 0.0
+    for rows, edges in (table.safe_stack(), table.safe_stack_banks()):
+        spec_kw = dict(timings=rows[None], collect=("temps", "bins"),
+                       thermal=TH.ThermalSpec(scns, tuple(edges.tolist()),
+                                              cfg))
+        res = {dev: SimEngine(device=dev).run(SimSpec(
+            traces=perf_model.trace_batch(1024, SEED, device=dev),
+            **spec_kw)) for dev in ("cuda", "cpu")}
+        bg, bc = res["cuda"].bins, res["cpu"].bins          # [T, 1, 1, C, N]
+        temp = res["cpu"].temps
+        max_dt = max(max_dt, float(np.abs(res["cuda"].temps - temp).max()))
+        d = bg != bc
+        thr = np.concatenate([np.broadcast_to(edges, hyst.shape + edges.shape),
+                              edges[None, :] - hyst[:, None]], axis=1)
+        dist = np.abs(temp[..., None] - thr[None, None, None, :, None, :])
+        is_near = (dist <= HYST_EDGE_TOL).any(-1)
+        prev = np.zeros_like(d)
+        prev[..., 1:] = d[..., :-1]
+        diff += int(d.sum())
+        near += int((d & is_near).sum())
+        carried += int((d & ~is_near & prev).sum())
+        total += d.size
+    unexplained = diff - near - carried
+    print(f"cross-device evaluate_dynamic --fast (n=1024, module + per-bank): "
+          f"worst_bin equal, max rel gmean diff {rel:.3e}; {diff} of {total} "
+          f"selected bins differ ({near} within {HYST_EDGE_TOL:g} C of a "
+          f"threshold, {carried} carried by hysteresis from a differing "
+          f"previous request, {unexplained} unexplained); max sensed-temp "
+          f"diff {max_dt:.3e} C; card {secs['cuda']:.2f} s, CPU "
+          f"{secs['cpu']:.2f} s")
+    check(rel <= 1e-4, f"card vs CPU dynamic gmeans differ by {rel:.3e}")
+    check(unexplained == 0, f"{unexplained} bins differ away from a "
+                            "switching threshold")
 
 
 def main() -> int:
@@ -450,16 +801,20 @@ def main() -> int:
         env = main_path({})
         time_breakdown(env)
         k1 = kernel_margin_grid(env)
+        thermal_path(env)
+        thermal_breakdown(env)
         k2 = kernel_replay(env)
+        k3 = kernel_replay_banked(env)
+        k4 = kernel_adaptive(env)
         del env
         torch.cuda.empty_cache()
-        cross_device()
+        cross_device_thermal(cross_device())
     except Exception:                       # report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3, *k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.aldram import TimingTable
 from repro_torch.core.charge import ChargeConstants
 from repro_torch.core.dram_sim import Trace
+from repro_torch.core.thermal import SCN_COLS, ThermalScenario
 from repro_torch.core.variation import Population
 from repro_torch.device import resolve_device
 
@@ -58,3 +59,12 @@ def timing_table(temp_bins, params: np.ndarray, safe_trefi_read: np.ndarray,
         np.asarray(safe_trefi_write, np.float32),
         params_module=(None if params_module is None
                        else np.asarray(params_module, np.float32)))
+
+
+def scenario(row: np.ndarray, name: str = "scenario") -> ThermalScenario:
+    """A `ThermalScenario` from the reference's [SCN_COLS] scenario row
+    (`ThermalScenario.as_row()` / one row of `stack_scenarios`)."""
+    r = np.asarray(row, np.float32)
+    if r.shape != (SCN_COLS,):
+        raise ValueError(f"scenario row must be [{SCN_COLS}], got {r.shape}")
+    return ThermalScenario(name, *(float(x) for x in r))

@@ -32,6 +32,18 @@ from repro_torch.device import resolve_device
 DEFAULT_TEMP_BINS = (45.0, 55.0, 65.0, 75.0, 85.0)
 
 
+def default_scenarios():
+    """The stock dynamic-ambient suite of `evaluate_dynamic`: steady
+    (the near-static case), a diurnal ramp spanning several bins, a
+    cooling failure stepping into the hot bins mid-trace, and a bursty
+    square wave hovering around a bin edge (the hysteresis stress)."""
+    from repro_torch.core import thermal
+    return (thermal.steady(42.0),
+            thermal.diurnal(38.0, 72.0, period_ns=1.2e5),
+            thermal.cooling_failure(44.0, 28.0, at_ns=3.0e4),
+            thermal.bursty(42.0, 16.0, period_ns=6.0e4, duty=0.5))
+
+
 def _combine(cr: np.ndarray, cw: np.ndarray) -> np.ndarray:
     """One register set must satisfy both tests: the safer (larger) of
     the read/write choices per parameter; tRAS from the read test, tWR
@@ -148,16 +160,45 @@ class TimingTable:
             temps_c, lambda bi: self.bank_params[modules, bi, banks])
 
     def safe_stack(self) -> tuple[np.ndarray, np.ndarray]:
-        """([bins + 1, 6] rows, [bins] edges): row b is the
-        all-module-safe row of bin b (max over modules per parameter),
-        forced bin-monotone by a running max; the JEDEC fallback row is
-        last."""
+        """The table stack the adaptive replay selects over: ([bins + 1,
+        6] rows, [bins] edges).  Row b is the all-module-safe row of
+        bin b (max over modules per parameter), forced bin-monotone by
+        a running max over bins; the JEDEC fallback row is last.
+        Switching up through these rows is immediate, switching down
+        waits for the hysteresis margin (`thermal.ThermalConfig`)."""
+        return self._stack_rows(
+            lambda mods, tc: self.lookup_many(
+                mods, np.full(mods.shape[0], tc)).max(axis=0))
+
+    def safe_stack_banks(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-bank `safe_stack`: ([bins + 1, banks, 6] rows, [bins]
+        edges) — one all-module-safe row per (bin, bank), bin-monotone
+        per bank, the JEDEC row last (broadcast across banks).  The
+        adaptive replay gathers row (selected bin, request's bank)."""
+        if not self.per_bank:
+            raise ValueError("per-module table has no bank axis")
+        banks = self.n_banks
+
+        def bin_rows(mods, tc):
+            m = mods.shape[0]
+            return np.stack([self.lookup_many_banks(
+                mods, np.full(m, b), np.full(m, tc)).max(axis=0)
+                for b in range(banks)])
+
+        return self._stack_rows(bin_rows)
+
+    def _stack_rows(self, bin_rows) -> tuple[np.ndarray, np.ndarray]:
+        """The stack-construction core of both granularities:
+        `bin_rows(modules, bin_temp)` -> the all-module-safe row(s) of
+        that bin ([6] or [banks, 6]); a running max forces the stack
+        bin-monotone and the JEDEC fallback row rides last."""
         nb = len(self.temp_bins)
         mods = np.arange(self.params.shape[0])
-        rows = np.empty((nb + 1, 6), np.float32)
-        for bi, tc in enumerate(self.temp_bins):
-            rows[bi] = self.lookup_many(
-                mods, np.full(mods.shape[0], tc)).max(axis=0)
+        first = bin_rows(mods, self.temp_bins[0])
+        rows = np.empty((nb + 1,) + first.shape, np.float32)
+        rows[0] = first
+        for bi, tc in enumerate(self.temp_bins[1:], start=1):
+            rows[bi] = bin_rows(mods, tc)
         rows[:nb] = np.maximum.accumulate(rows[:nb], axis=0)
         rows[nb] = T.DDR3_1600.as_row()
         return rows, np.asarray(self.temp_bins, np.float32)
@@ -354,20 +395,119 @@ class ALDRAMController:
                 "per_policy": per_policy, "policies": policies,
                 "source": "profiled-table"}
 
-    def evaluate_bank_system(self, *args, **kwargs) -> dict:
-        raise NotImplementedError(
-            "evaluate_bank_system (per-bank replay rows) is not ported "
-            "yet: ROADMAP queue A item 8")
+    def evaluate_bank_system(self, pop: Population,
+                             temps: tuple[float, ...] | None = None,
+                             n: int = 4096, seed: int = 0,
+                             policies=None, engine=None,
+                             traces=None) -> dict:
+        """FLY-DRAM's headline on the system side: replay the workload
+        pool under the all-module-safe PER-BANK rows of every
+        temperature bin against the per-module envelope rows of the
+        same bins, in ONE campaign.  The timing axis is a [1 + 2*T,
+        banks, 6] per-bank stack: the JEDEC baseline and the module
+        rows ride it constant across banks (which replays bit-identical
+        to the per-module path), the per-bank rows vary per bank.
+        `traces` replaces the synthesized pool with a given [70, N]
+        batch.  Also reports the table-level mean latency-sum
+        reductions per test at both granularities."""
+        from repro_torch.core import dram_sim, perf_model
+        from repro_torch.core.sim_engine import SimEngine
+        if self.table is None:
+            self.profile(pop)
+        tbl = self.table
+        if not tbl.per_bank:
+            raise ValueError("profile() a per_bank controller first")
+        temps = tuple(temps if temps is not None else tbl.temp_bins)
+        policies = policies or (dram_sim.OPEN_FCFS,)
+        engine = engine or SimEngine(device=self.device)
+        m, banks = tbl.module_params.shape[0], tbl.n_banks
+        if banks != pop.n_banks:
+            raise ValueError(f"table has {banks} banks, population "
+                             f"{pop.n_banks}")
+        nt = len(temps)
+        rows = np.empty((1 + 2 * nt, banks, 6), np.float32)
+        rows[0] = T.DDR3_1600.as_row()[None, :]
+        mods = np.arange(m)
+        for si, tc in enumerate(temps):
+            rows[1 + si] = tbl.lookup_many(
+                mods, np.full(m, tc)).max(axis=0)[None, :]
+            for bb in range(banks):
+                rows[1 + nt + si, bb] = tbl.lookup_many_banks(
+                    mods, np.full(m, bb), np.full(m, tc)).max(axis=0)
+
+        em = perf_model.evaluate_many(rows, n=n, seed=seed, engine=engine,
+                                      policies=policies, n_banks=banks,
+                                      traces=traces)
+        sp = perf_model.cpi_speedups(em["mean_latency_ns"])
+        intensive = np.array([w.intensive for w in perf_model.WORKLOADS])
+        gm = perf_model.gmean_speedup
+        per_temp = {}
+        for si, tc in enumerate(temps):
+            s_mod = sp[1, :, 0, 1 + si]              # multi-core
+            s_bank = sp[1, :, 0, 1 + nt + si]
+            per_temp[float(tc)] = {
+                "module_all_gmean": gm(s_mod),
+                "bank_all_gmean": gm(s_bank),
+                "module_intensive_gmean": gm(s_mod[intensive]),
+                "bank_intensive_gmean": gm(s_bank[intensive]),
+                "bank_minus_module": gm(s_bank) - gm(s_mod),
+            }
+        red = {}
+        res_sweep = self.sweep_result
+        std = self.profiler.std
+        for op in Op:
+            k = res_sweep.index(op)
+            base = std.read_sum() if op is Op.READ else std.write_sum()
+            red[op.value] = {
+                "module": float(
+                    1 - (res_sweep.latency_sum[k] / base).mean()),
+                "bank": float(
+                    1 - (res_sweep.latency_sum_bank[k] / base).mean()),
+            }
+        return {"temps": temps, "rows": rows, "speedups": sp,
+                "mean_latency_ns": em["mean_latency_ns"],
+                "workloads": em["workloads"], "per_temp": per_temp,
+                "reductions": red, "policies": policies,
+                "source": "profiled-bank-table"}
 
     def evaluate_region_system(self, *args, **kwargs) -> dict:
         raise NotImplementedError(
             "evaluate_region_system is not ported yet: ROADMAP queue A "
             "item 8")
 
-    def evaluate_dynamic(self, *args, **kwargs) -> dict:
-        raise NotImplementedError(
-            "evaluate_dynamic (closed thermal loop) is not ported yet: "
-            "ROADMAP queue A item 6")
+    def evaluate_dynamic(self, pop: Population, scenarios=None,
+                         config=None, n: int = 4096, seed: int = 0,
+                         policies=None, engine=None,
+                         per_bank: bool = False, fused: bool = False,
+                         traces=None) -> dict:
+        """The paper's mechanism end to end: profile the population,
+        stack the per-bin all-module-safe rows (`safe_stack`, or
+        `safe_stack_banks` with `per_bank=True`), and replay the
+        workload pool with the controller's bin switching — sensing,
+        round-up, hysteresis, JEDEC fallback — running per request
+        inside the replay launch under dynamic thermal scenarios
+        (`default_scenarios()` when None), bracketed by the
+        static-worst-case and oracle deployments
+        (`perf_model.evaluate_adaptive`: two launches; `fused=True`
+        rounds the peaks up on the device with no host round trip).
+        `traces` replaces the synthesized pool with a given batch."""
+        from repro_torch.core import dram_sim, perf_model
+        from repro_torch.core.sim_engine import SimEngine
+        if self.table is None:
+            self.profile(pop)
+        if scenarios is None:
+            scenarios = default_scenarios()
+        policies = policies or (dram_sim.OPEN_FCFS,)
+        rows, bins = (self.table.safe_stack_banks() if per_bank
+                      else self.table.safe_stack())
+        out = perf_model.evaluate_adaptive(
+            rows, bins, scenarios, config=config, n=n, seed=seed,
+            engine=engine or SimEngine(device=self.device),
+            policies=policies, n_banks=pop.n_banks, fused=fused,
+            traces=traces)
+        out["source"] = "profiled-table-dynamic"
+        out["policies"] = policies
+        return out
 
     # ----------------------------------------------------------- reporting
     def average_reductions(self, temp_c: float,

@@ -12,11 +12,18 @@ per request under the default open-page policy:
 
 `replay_cells` is the plain version of the `replay_blocks` CUDA kernel
 (`repro_torch.kernels.replay`): G request streams replayed under S
-timing rows each, one Python step per request over [G, ..., S] lane
-tensors, updating the controller state in place.  `replay_rows` (one
-stream, S rows) and `replay_one` (one stream, one row) are its
-single-stream views.  The arithmetic is float32 add, max and select
-only, so every layout is bitwise equal to the JAX reference.
+timing rows each — module rows [S, 6] or per-bank rows [S, banks, 6],
+gathered per request from its bank — one Python step per request over
+[G, ..., S] lane tensors, updating the controller state in place.
+`replay_rows` (one stream, S rows) and `replay_one` (one stream, one
+row) are its single-stream views.  The arithmetic is float32 add, max
+and select only, so every layout is bitwise equal to the JAX reference.
+
+`replay_adaptive_cells` is the plain version of the `adaptive_blocks`
+CUDA kernel: the closed thermal loop (`repro_torch.core.thermal`) over
+G streams x L lanes, each lane a (timing-table stack, thermal
+scenario) pair that re-selects its temperature bin per request;
+`replay_adaptive` is its single-stream view.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.power import access_energy_from_terms
+from repro_torch.core.thermal import ambient_at
 from repro_torch.core.timing import TimingParams
 from repro_torch.device import resolve_device
 
@@ -179,23 +188,29 @@ def _service(st: BankState, t, b, rf, w, v, tc, closed, mlp_window: int):
     """Service one request of every stream ([G] fields) under every
     timing lane: gather the request's bank row and ring gate, apply
     `service_math`, write the update back where the request is valid.
-    `tc` = (trcd, tras, twr, trp, tcl), each [S].  Returns the [G, S]
-    latency (0 at padding)."""
+    `tc` = (trcd, tras, twr, trp, tcl), each [S] or per stream [G, S].
+    Returns the [G, S] latency (0 at padding) and the [G, S] row-hit
+    flags."""
     g_ix = torch.arange(st.bank.shape[0], device=st.bank.device)
     rowb = st.bank[g_ix, b]                          # [G, 4, S]
     slot = st.idx % mlp_window
     gate = st.done_ring[g_ix, slot]                  # [G, S]
     (latched, act_new, wrd_new, rdy_new, done, lat,
-     _) = service_math(t[:, None], gate, rowb[:, 0], rowb[:, 1],
-                       rowb[:, 2], rowb[:, 3], rf[:, None], w[:, None],
-                       *tc, closed[:, None])
+     is_hit) = service_math(t[:, None], gate, rowb[:, 0], rowb[:, 1],
+                            rowb[:, 2], rowb[:, 3], rf[:, None], w[:, None],
+                            *tc, closed[:, None])
     new_row = torch.stack([latched.expand_as(act_new), act_new, wrd_new,
                            rdy_new], dim=1)
     vv = v[:, None]
     st.bank[g_ix, b] = torch.where(vv[:, :, None], new_row, rowb)
     st.done_ring[g_ix, slot] = torch.where(vv, done, gate)
     st.idx.add_(v.to(torch.int64))
-    return torch.where(vv, lat, torch.zeros_like(lat))
+    return torch.where(vv, lat, torch.zeros_like(lat)), is_hit
+
+
+def _timing_cols(tp):
+    """(trcd, tras, twr, trp, tcl) of [..., 6] timing rows."""
+    return tp[..., 0], tp[..., 1], tp[..., 2], tp[..., 3], tp[..., 5]
 
 
 def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
@@ -205,13 +220,18 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
 
     arrival [G, N] float32; bank/row [G, N] int; is_write/valid [G, N]
     bool (valid False on a padding suffix); timings [S, 6]
-    (`TimingParams.as_row` columns); closed [G] bool.  Returns (latency
-    [G, N, S] with zeros at padding, total runtime [G, S]: the module
-    is busy until its last ready time or write recovery)."""
+    (`TimingParams.as_row` columns) or per-bank [S, n_banks, 6] (each
+    request replays under its bank's row); closed [G] bool.  Returns
+    (latency [G, N, S] with zeros at padding, total runtime [G, S]: the
+    module is busy until its last ready time or write recovery)."""
     g, n = arrival.shape
     timings = timings.to(torch.float32)
-    tc = (timings[:, 0], timings[:, 1], timings[:, 2], timings[:, 3],
-          timings[:, 5])
+    banked = timings.dim() == 3
+    if banked and timings.shape[1] != n_banks:
+        raise ValueError(f"per-bank timings {tuple(timings.shape)} need "
+                         f"{n_banks} banks")
+    by_bank = timings.permute(1, 0, 2) if banked else None   # [B, S, 6]
+    tc = None if banked else _timing_cols(timings)
     st = _bank_state0(g, n_banks, mlp_window, timings.shape[0],
                       arrival.device)
     arrival = arrival.to(torch.float32)
@@ -223,9 +243,11 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
     lat = torch.empty((g, n, timings.shape[0]), dtype=torch.float32,
                       device=arrival.device)
     for k in range(n):
-        lat[:, k] = _service(st, arrival[:, k], b_all[:, k], rf_all[:, k],
-                             w_all[:, k], v_all[:, k], tc, closed,
-                             mlp_window)
+        b = b_all[:, k]
+        lat[:, k] = _service(st, arrival[:, k], b, rf_all[:, k],
+                             w_all[:, k], v_all[:, k],
+                             _timing_cols(by_bank[b]) if banked else tc,
+                             closed, mlp_window)[0]
     total = torch.maximum(st.bank[:, :, 3].amax(1), st.bank[:, :, 2].amax(1))
     return lat, total
 
@@ -233,8 +255,9 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
 def replay_rows(arrival, bank, row, is_write, valid, timings, closed,
                 n_banks: int = 8, mlp_window: int = 8
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One trace ([N] fields) under a [S, 6] stack of timing rows;
-    `closed` a bool.  Returns (latency [S, N], total [S])."""
+    """One trace ([N] fields) under a [S, 6] (or per-bank [S, banks,
+    6]) stack of timing rows; `closed` a bool.  Returns (latency
+    [S, N], total [S])."""
     closed_t = torch.as_tensor(bool(closed), device=arrival.device)[None]
     lat, total = replay_cells(arrival[None], bank[None], row[None],
                               is_write[None], valid[None], timings,
@@ -249,6 +272,156 @@ def replay_one(arrival, bank, row, is_write, valid, tp_row, closed,
     lat, total = replay_rows(arrival, bank, row, is_write, valid,
                              tp_row[None], closed, n_banks, mlp_window)
     return lat[0], total[0]
+
+
+class AdaptiveState(NamedTuple):
+    """Closed-loop replay state of G streams x L lanes: the controller
+    plus the thermal loop (updated in place by `replay_adaptive_cells`)."""
+
+    bank: BankState
+    heat: torch.Tensor         # [G, B, L] per-bank overheat above ambient, C
+    cur_bin: torch.Tensor      # [G, L] int64, currently selected bin
+    t_prev: torch.Tensor       # [G] last valid request's arrival (ns)
+
+
+def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
+                          bins, scns, tcfg, closed, n_banks: int = 8,
+                          mlp_window: int = 8):
+    """Closed-loop replay of G request streams under L lanes, each lane
+    a (timing-table stack, thermal scenario) pair with its own
+    controller and RC heat.
+
+    arrival [G, N] float32; bank/row [G, N] int; is_write/valid [G, N]
+    bool (valid False on a padding suffix); tables [L, S+1, 6] or
+    per-bank [L, S+1, n_banks, 6] float32 (one row per temperature bin,
+    the JEDEC fallback row last); bins [S] ascending edges; scns
+    [L, SCN_COLS] scenario rows; tcfg [6] `ThermalConfig.as_row`;
+    closed [G] bool.
+
+    Per valid request every lane (1) decays its per-bank heat over the
+    arrival gap, heat * exp(-dt / tau); (2) senses ambient_at(t) + the
+    decayed heats summed bank 0 first, left to right; (3) re-selects
+    its bin: up = #edges < reading, down = #edges < reading + hyst,
+    new = max(up, min(cur, down)) — index S is the JEDEC row;
+    (4) services the request under row (new bin[, request's bank]);
+    (5) deposits c_heat * access energy (a miss pays ACT/PRE plus the
+    selected tRAS window) on the accessed bank.  A padding request
+    leaves every state untouched.
+
+    Returns (lat [G, N, L], total [G, L], temps [G, N, L] (0 at
+    padding), bins [G, N, L] int32 (-1 at padding), bank heat
+    [G, n_banks, L], (temp_max, temp_mean, bin_switches) each [G, L]).
+    The diagnostics accumulate in the loop in request order: temp_max
+    from -inf, temp_mean as a running float32 sum divided by the valid
+    count, bin_switches counting new != current bin on valid requests
+    after the first."""
+    g, n = arrival.shape
+    dev = arrival.device
+    tables = tables.to(torch.float32)
+    banked = tables.dim() == 4
+    lanes = tables.shape[0]
+    if banked and tables.shape[2] != n_banks:
+        raise ValueError(f"per-bank tables {tuple(tables.shape)} need "
+                         f"{n_banks} banks")
+    bins = torch.as_tensor(bins, dtype=torch.float32, device=dev)
+    if tables.shape[1] != bins.shape[0] + 1:
+        raise ValueError(f"tables {tuple(tables.shape)} need "
+                         f"{bins.shape[0]} + 1 rows (JEDEC last)")
+    tcfg = torch.as_tensor(tcfg, dtype=torch.float32, device=dev)
+    scn_t = torch.as_tensor(scns, dtype=torch.float32, device=dev).T
+    tau, c_heat, hyst_c, e_burst, e_act_pre, p_as = (tcfg[i]
+                                                     for i in range(6))
+    hyst = hyst_c * scn_t[8]                             # [L]
+    lane = torch.arange(lanes, device=dev)
+    g_ix = torch.arange(g, device=dev)
+    st = AdaptiveState(
+        bank=_bank_state0(g, n_banks, mlp_window, lanes, dev),
+        heat=torch.zeros((g, n_banks, lanes), dtype=torch.float32,
+                         device=dev),
+        cur_bin=torch.zeros((g, lanes), dtype=torch.int64, device=dev),
+        t_prev=torch.zeros((g,), dtype=torch.float32, device=dev))
+    arrival = arrival.to(torch.float32)
+    b_all = bank.long()
+    rf_all = row.to(torch.float32)
+    w_all = is_write.bool()
+    v_all = valid.bool()
+    closed = closed.bool()
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    lat = torch.empty((g, n, lanes), dtype=torch.float32, device=dev)
+    temps = torch.empty_like(lat)
+    sel = torch.empty((g, n, lanes), dtype=torch.int32, device=dev)
+    tmax = torch.full((g, lanes), -torch.inf, dtype=torch.float32,
+                      device=dev)
+    tsum = torch.zeros((g, lanes), dtype=torch.float32, device=dev)
+    switches = torch.zeros((g, lanes), dtype=torch.int32, device=dev)
+    for k in range(n):
+        t, b, v = arrival[:, k], b_all[:, k], v_all[:, k]
+        dt = torch.maximum(t - st.t_prev, zero)
+        heat = st.heat * torch.exp(-dt / tau)[:, None, None]
+        hsum = heat[:, 0]
+        for j in range(1, n_banks):
+            hsum = hsum + heat[:, j]
+        reading = ambient_at(scn_t, t[:, None]) + hsum       # [G, L]
+        up = (bins < reading[..., None]).sum(-1)
+        down = (bins < (reading + hyst)[..., None]).sum(-1)
+        new_bin = torch.maximum(up, torch.minimum(st.cur_bin, down))
+        tp = (tables[lane, new_bin, b[:, None]] if banked
+              else tables[lane, new_bin])                    # [G, L, 6]
+        tc = _timing_cols(tp)
+        lat[:, k], is_hit = _service(st.bank, t, b, rf_all[:, k],
+                                     w_all[:, k], v, tc, closed,
+                                     mlp_window)
+        energy = access_energy_from_terms(
+            e_burst, e_act_pre, p_as, 1.0 - is_hit.to(torch.float32), tc[1])
+        heat[g_ix, b] = heat[g_ix, b] + c_heat * energy
+        vv = v[:, None]
+        st.heat.copy_(torch.where(vv[:, :, None], heat, st.heat))
+        switches += (vv & (new_bin != st.cur_bin) & (k > 0)).to(torch.int32)
+        st.cur_bin.copy_(torch.where(vv, new_bin, st.cur_bin))
+        st.t_prev.copy_(torch.where(v, t, st.t_prev))
+        temps[:, k] = torch.where(vv, reading, zero)
+        sel[:, k] = torch.where(vv, new_bin, -1).to(torch.int32)
+        tmax = torch.maximum(tmax, torch.where(vv, reading, -torch.inf))
+        tsum = tsum + torch.where(vv, reading, zero)
+    bst = st.bank.bank
+    total = torch.maximum(bst[:, :, 3].amax(1), bst[:, :, 2].amax(1))
+    tmean = tsum / v_all.sum(-1).to(torch.float32)[:, None]
+    return lat, total, temps, sel, st.heat, (tmax, tmean, switches)
+
+
+def replay_adaptive(arrival, bank, row, is_write, valid, table, bins,
+                    scn_row, tcfg_row, closed, n_banks: int = 8,
+                    mlp_window: int = 8, n_channels: int = 1,
+                    n_ranks: int = 1, ileave=None, t_burst: float = 5.0,
+                    fault=None, region_map=None):
+    """Closed-loop replay of one trace ([N] fields) under one table
+    stack ([S+1, 6] or per-bank [S+1, n_banks, 6], JEDEC row last) and
+    one scenario row ([SCN_COLS]); `closed` a bool.  Returns (latency
+    [N], total runtime, sensed temperature [N], selected bin [N] int32
+    (-1 at padding), end-of-trace per-bank overheat [n_banks]).  With
+    `c_heat = 0` and a steady scenario it equals `replay_one` of the
+    selected constant row, bit for bit."""
+    if n_channels * n_ranks != 1:
+        raise NotImplementedError(
+            "multi-channel adaptive replay is not ported yet: ROADMAP "
+            "queue A item 10")
+    if fault is not None:
+        raise NotImplementedError(
+            "faulted adaptive replay is not ported yet: ROADMAP queue A "
+            "item 9")
+    if region_map is not None:
+        raise NotImplementedError(
+            "per-region adaptive replay is not ported yet: ROADMAP queue "
+            "A item 8")
+    dev = arrival.device
+    closed_t = torch.as_tensor(bool(closed), device=dev)[None]
+    lat, total, temps, sel, heat, _ = replay_adaptive_cells(
+        arrival[None], bank[None], row[None], is_write[None], valid[None],
+        torch.as_tensor(table, device=dev)[None], bins,
+        torch.as_tensor(scn_row, device=dev)[None], tcfg_row, closed_t,
+        n_banks, mlp_window)
+    return (lat[0, :, 0], total[0, 0], temps[0, :, 0], sel[0, :, 0],
+            heat[0, :, 0])
 
 
 def simulate(trace: Trace, tp: TimingParams, n_banks: int = 8,

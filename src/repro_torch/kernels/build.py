@@ -31,6 +31,7 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = {
     "margin_grid": Path("charge_sim") / "margin_grid.cu",
     "replay_blocks": Path("replay") / "replay.cu",
+    "adaptive_blocks": Path("replay") / "adaptive.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",

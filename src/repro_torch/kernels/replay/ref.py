@@ -1,13 +1,14 @@
-"""Plain PyTorch version of the replay kernel under the campaign
-contract: `repro_torch.core.dram_sim.replay_cells` over the flattened
+"""Plain PyTorch versions of the replay kernels under the campaign
+contract: `repro_torch.core.dram_sim.replay_cells` (static) and
+`replay_adaptive_cells` (closed thermal loop) over the flattened
 (trace x policy) cells.  The CPU path of `ops` and the yardstick the
-kernel is held to on the card."""
+kernels are held to on the card."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dram_sim import replay_cells
+from repro_torch.core.dram_sim import replay_adaptive_cells, replay_cells
 
 
 def to_cells(arrival, bank, row, is_write, valid, closed):
@@ -38,10 +39,64 @@ def from_cells(lat, total, t: int, p: int):
             total.reshape(t, p, s))
 
 
+def timing_tile(timings) -> torch.Tensor:
+    """[S, 6] rows -> the kernel's [6, S] tile; per-bank [S, banks, 6]
+    -> [banks, 6, S] (contiguous float32)."""
+    tim = timings.to(torch.float32)
+    return (tim.T if tim.dim() == 2 else tim.permute(1, 2, 0)).contiguous()
+
+
+def lane_tables(tables, c: int) -> torch.Tensor:
+    """[K, S+1, 6] (or per-bank [K, S+1, B, 6]) table stacks -> one
+    stack per lane l = k*C + c: [K*C, S+1, (B,) 6]."""
+    return tables.to(torch.float32).repeat_interleave(c, dim=0)
+
+
+def lane_scenarios(scns, k: int) -> torch.Tensor:
+    """[C, SCN_COLS] scenario rows -> one row per lane l = k*C + c:
+    [K*C, SCN_COLS]."""
+    return scns.to(torch.float32).repeat(k, 1)
+
+
+def table_tile(lane_tabs) -> torch.Tensor:
+    """Per-lane stacks [L, S+1, 6] -> the kernel's [S+1, 6, L] tile;
+    per-bank [L, S+1, B, 6] -> [B, S+1, 6, L] (contiguous)."""
+    if lane_tabs.dim() == 3:
+        return lane_tabs.permute(1, 2, 0).contiguous()
+    return lane_tabs.permute(2, 1, 3, 0).contiguous()
+
+
+def lane_stacks(tables_t) -> torch.Tensor:
+    """Inverse of `table_tile`."""
+    if tables_t.dim() == 3:
+        return tables_t.permute(2, 0, 1)
+    return tables_t.permute(3, 1, 0, 2)
+
+
+def from_lanes(out, t: int, p: int, k: int, c: int):
+    """Kernel layout of `adaptive_blocks`' outputs -> the campaign
+    contract: [G, N, L] -> [T, P, K, C, N], [G, L] -> [T, P, K, C],
+    heat [G, B, L] -> [T, P, K, C, B]; None stays None."""
+    lat, total, tmax, tmean, sw, heat, temps, bins = out
+
+    def grid4(x):
+        return x.reshape(t, p, k, c)
+
+    def grid5(x):
+        if x is None:
+            return None
+        n = x.shape[1]
+        return x.reshape(t, p, n, k, c).permute(0, 1, 3, 4, 2)
+
+    return (grid5(lat), grid4(total), grid5(temps), grid5(bins),
+            grid5(heat), (grid4(tmax), grid4(tmean), grid4(sw)))
+
+
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
                 n_banks: int = 8, mlp_window: int = 8):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N]; timings
-    [S, 6]; closed [P] bool -> (latency [T, P, S, N], total [T, P, S])."""
+    [S, 6] or per-bank [S, banks, 6]; closed [P] bool -> (latency
+    [T, P, S, N], total [T, P, S])."""
     t, p, _ = arrival.shape
     closed_c, arr, bk, rw, wr, val = to_cells(arrival, bank, row, is_write,
                                               valid, closed)
@@ -49,3 +104,26 @@ def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
                               torch.as_tensor(timings, device=arr.device),
                               closed_c > 0.5, n_banks, mlp_window)
     return from_cells(lat, total, t, p)
+
+
+def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
+                         bins, scns, tcfg, closed, n_banks: int = 8,
+                         mlp_window: int = 8):
+    """arrival/bank/row/is_write [T, P, N]; valid [T, N]; tables
+    [K, S+1, 6] or per-bank [K, S+1, banks, 6] (JEDEC row last); bins
+    [S]; scns [C, SCN_COLS]; tcfg [6]; closed [P] -> (lat [T, P, K, C,
+    N], total [T, P, K, C], temps [T, P, K, C, N], bins [T, P, K, C, N]
+    int32, bank_heat [T, P, K, C, banks], (temp_max, temp_mean,
+    bin_switches) each [T, P, K, C])."""
+    t, p, _ = arrival.shape
+    dev = arrival.device
+    tables = torch.as_tensor(tables, device=dev)
+    scns = torch.as_tensor(scns, device=dev)
+    k, c = tables.shape[0], scns.shape[0]
+    closed_c, arr, bk, rw, wr, val = to_cells(arrival, bank, row, is_write,
+                                              valid, closed)
+    lat, total, temps, sel, heat, (tmax, tmean, sw) = replay_adaptive_cells(
+        arr, bk, rw, wr, val, lane_tables(tables, c), bins,
+        lane_scenarios(scns, k), tcfg, closed_c > 0.5, n_banks, mlp_window)
+    return from_lanes((lat, total, tmax, tmean, sw, heat, temps, sel),
+                      t, p, k, c)

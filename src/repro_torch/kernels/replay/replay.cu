@@ -1,14 +1,16 @@
 // Batched DRAM trace replay for Hopper: every (cell g, timing row s) lane
 // replays cell g's request stream under timing row s.
 //
-// Replaces variant (a) of the Pallas TPU kernel `replay_blocks` of
-// src/repro/kernels/replay/replay.py (`_kernel`): module-level timing rows
-// [6, S], one channel, no faults, no regions.  Plain version:
-// repro_torch/core/dram_sim.py (`replay_cells`, `service_math`).
+// Replaces variants (a) and (b) of the Pallas TPU kernel `replay_blocks`
+// of src/repro/kernels/replay/replay.py (`_kernel`): module-level timing
+// rows [6, S] (a) or the per-bank tile [n_banks, 6, S] (b, the banked
+// branch at replay.py:99/:172), one channel, no faults, no regions.  Plain
+// version: repro_torch/core/dram_sim.py (`replay_cells`, `service_math`).
 //
 // Inputs (row-major): closed [G] float32 (1 = closed page); arrival [G, N]
 // float32; bank, row, is_write, valid [G, N] int32 (flags 0/1); timings
-// [6, S] float32 (rows = trcd, tras, twr, trp, trefi, tcl).
+// [6, S] or [n_banks, 6, S] float32 (rows = trcd, tras, twr, trp, trefi,
+// tcl).
 // Outputs: lat [G, N, S] float32 (0 at padding), total [G, S] float32.
 //
 // Design.  One block per cell g (x blocks of timing rows), one thread per
@@ -18,6 +20,11 @@
 // n_banks banks) and the mlp_window done-ring sit in shared memory indexed
 // by [slot][lane]: a request's bank index is data, and a dynamically
 // indexed per-thread array would spill to local memory.
+//
+// Variant (b) reads the request's bank's five timing values from the
+// [n_banks, 6, S] tile in global memory (read-only, L1-resident: 1.5 KB
+// per 8 lanes at S = 6), neighbouring lanes on neighbouring addresses;
+// variant (a) keeps its row in registers.  The branch is uniform.
 //
 // Each request runs `service_math` (src/repro/core/dram_sim.py:652)
 // operation for operation.  It is float32 add, max and select only (no
@@ -51,7 +58,7 @@ __global__ void replay_kernel(const float* __restrict__ closed,
                               const float* __restrict__ timings,
                               float* __restrict__ lat,
                               float* __restrict__ total, int n, int s_rows,
-                              int n_banks, int mlp_window) {
+                              int n_banks, int mlp_window, int banked) {
   extern __shared__ float smem[];
   const int bs = blockDim.x;
   const int lane = threadIdx.x;
@@ -81,7 +88,7 @@ __global__ void replay_kernel(const float* __restrict__ closed,
 
   const bool is_closed = closed[g] > 0.5f;
   float trcd = 0.f, tras = 0.f, twr = 0.f, trp = 0.f, tcl = 0.f;
-  if (live) {
+  if (live && !banked) {
     trcd = timings[0 * s_rows + s];
     tras = timings[1 * s_rows + s];
     twr = timings[2 * s_rows + s];
@@ -105,11 +112,20 @@ __global__ void replay_kernel(const float* __restrict__ closed,
     for (int kk = 0; kk < len; ++kk) {
       const int k = base + kk;
       const float t = s_arr[kk];
-      const int bi = s_bank[kk] * bs + lane;
+      const int bk = s_bank[kk];
+      const int bi = bk * bs + lane;
       const float rf = (float)s_row[kk];
       const bool w = (s_flag[kk] & 1) != 0;
       const bool v = (s_flag[kk] & 2) != 0;
       const int ri = (k % mlp_window) * bs + lane;
+      if (banked) {
+        const float* tb = timings + (long long)bk * 6 * s_rows + s;
+        trcd = tb[0 * s_rows];
+        tras = tb[1 * s_rows];
+        twr = tb[2 * s_rows];
+        trp = tb[3 * s_rows];
+        tcl = tb[5 * s_rows];
+      }
 
       // service_math (dram_sim.py:652), operation for operation
       const float gate = st_ring[ri];
@@ -167,7 +183,7 @@ extern "C" int replay_launch(const float* closed, const float* arrival,
                              const int* is_write, const int* valid,
                              const float* timings, float* lat, float* total,
                              int g, int n, int s_rows, int n_banks,
-                             int mlp_window, void* stream) {
+                             int mlp_window, int banked, void* stream) {
   if (g <= 0 || n <= 0 || s_rows <= 0 || n_banks <= 0 || mlp_window <= 0)
     return (int)cudaErrorInvalidValue;
   const int bs = s_rows < kMaxLanes ? ((s_rows + 31) / 32) * 32 : kMaxLanes;
@@ -182,6 +198,6 @@ extern "C" int replay_launch(const float* closed, const float* arrival,
   dim3 grid((unsigned)g, (unsigned)gy);
   replay_kernel<<<grid, bs, smem, (cudaStream_t)stream>>>(
       closed, arrival, bank, row, is_write, valid, timings, lat, total, n,
-      s_rows, n_banks, mlp_window);
+      s_rows, n_banks, mlp_window, banked);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,19 @@
-"""The port's two CUDA kernels against their plain PyTorch versions, and
+"""The port's CUDA kernels against their plain PyTorch versions, and
 the rules every kernel wrapper keeps.  This file imports neither JAX nor
 the reference package, so its card tests run on a machine that has only
 PyTorch:
 
-    python -m pytest -q --noconftest -p no:cacheprovider -m gpu \
-        tests/test_torch_kernels.py
+    PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
+        -m gpu tests/test_torch_kernels.py
 
 Tests marked `gpu` need an NVIDIA Hopper card and skip without one
 (decided inside the `cuda` fixture, never at import).  The margin grid
 is held to rtol = atol = 2e-4 (the reference's bound for its own kernel);
-the replay to bitwise equality (its arithmetic is add, max and select)."""
+the static replay, module and per-bank, to bitwise equality (its
+arithmetic is add, max and select); the adaptive replay to equal bins on
+every request, latencies within rtol 1e-5 and temperatures / heat within
+rtol 1e-5, atol 1e-4 (the reference's bound for its own adaptive kernel;
+the kernel aims at bitwise and the tests print how far it is)."""
 
 import re
 from pathlib import Path
@@ -19,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.core import charge, dram_sim
+from repro_torch.core import thermal as TH
 from repro_torch.core import timing as T
 from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
                                           CALIBRATED_VARIATION)
@@ -73,6 +78,32 @@ def _streams(g: int, n: int, seed: int = 0):
             torch.stack([t.is_write for t in tr]).to(torch.int32), valid)
 
 
+def _adaptive_inputs(lanes: int, banked: bool, s: int = 3, seed: int = 1):
+    """Lane-tiled tables (S bin rows + JEDEC, per lane scaled), scenario
+    rows cycling through the default suite and its oracles, bin edges
+    and a thermal config that heats fast enough to switch bins."""
+    rng = np.random.default_rng(seed)
+    base = np.stack([T.DDR3_1600.scaled(f, f, f, f).as_row()
+                     for f in np.linspace(0.7, 0.9, s)]
+                    + [T.DDR3_1600.as_row()])
+    scale = rng.uniform(0.95, 1.05, (lanes, 1, 1))
+    tabs = base[None] * scale                             # [L, S+1, 6]
+    if banked:
+        tabs = tabs[:, :, None, :] * np.linspace(1.0, 1.1, 8)[None, None,
+                                                               :, None]
+    suite = [TH.steady(42.0), TH.diurnal(38.0, 72.0, period_ns=1.2e4),
+             TH.cooling_failure(44.0, 36.0, at_ns=3.0e3),
+             TH.bursty(42.0, 16.0, period_ns=6.0e3, duty=0.5)]
+    suite += [x.oracle() for x in suite]
+    scns = TH.stack_scenarios([suite[i % 8] for i in range(lanes)])
+    tile = torch.tensor(tabs, dtype=torch.float32)
+    tile = (tile.permute(1, 2, 0) if not banked
+            else tile.permute(2, 1, 3, 0)).contiguous()
+    return (tile, torch.tensor(scns.T.copy()),
+            torch.tensor(np.linspace(45.0, 75.0, s), dtype=torch.float32),
+            torch.tensor(TH.ThermalConfig(tau_ns=5e3, c_heat=2e-4).as_row()))
+
+
 # --------------------------------------------------------------- the card
 
 @pytest.mark.gpu
@@ -103,6 +134,85 @@ def test_replay_kernel_bitwise_equals_plain(cuda, s_rows):
                                          valid.bool(), tim, closed > 0.5)
     assert torch.equal(lat.view(torch.int32), lat2.view(torch.int32))
     assert torch.equal(total.view(torch.int32), total2.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_rows", [3, 40])
+def test_banked_replay_kernel_bitwise_equals_plain(cuda, s_rows):
+    ins = [x.to(cuda) for x in _streams(5, 700, seed=2)]
+    rows = np.tile(ROWS, (-(-s_rows // 3), 1))[:s_rows]
+    tim = torch.tensor(rows[:, None, :] * np.linspace(1.0, 1.2, 8)[None, :,
+                                                                   None],
+                       dtype=torch.float32, device=cuda)      # [S, 8, 6]
+    before = replay_ops.replay_blocks.launches_banked
+    lat, total = replay_ops.replay_blocks(
+        *ins, tim.permute(1, 2, 0).contiguous())
+    torch.cuda.synchronize()
+    assert replay_ops.replay_blocks.launches_banked == before + 1
+    closed, arr, bank, row, wr, valid = ins
+    lat2, total2 = dram_sim.replay_cells(arr, bank, row, wr.bool(),
+                                         valid.bool(), tim, closed > 0.5)
+    assert torch.equal(lat.view(torch.int32), lat2.view(torch.int32))
+    assert torch.equal(total.view(torch.int32), total2.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("banked", [False, True], ids=["module", "bank"])
+@pytest.mark.parametrize("lanes", [3, 8, 130])
+def test_adaptive_kernel_matches_plain(cuda, banked, lanes):
+    ins = [x.to(cuda) for x in _streams(5, 900, seed=3)]
+    tabs, scn, bins, tcfg = (x.to(cuda) for x in
+                             _adaptive_inputs(lanes, banked))
+    before = (replay_ops.adaptive_blocks.launches,
+              replay_ops.adaptive_blocks.launches_banked)
+    out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                     emit_raw=True)
+    torch.cuda.synchronize()
+    assert (replay_ops.adaptive_blocks.launches,
+            replay_ops.adaptive_blocks.launches_banked) == \
+        (before[0] + 1, before[1] + int(banked))
+    closed, arr, bank, row, wr, valid = ins
+    from repro_torch.kernels.replay import ref as replay_ref
+    plat, ptot, ptemps, psel, pheat, pdiag = dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(), replay_ref.lane_stacks(tabs),
+        bins, scn.T, tcfg, closed > 0.5)
+    lat, total, tmax, tmean, sw, heat, temps, sel = out
+    assert torch.equal(sel, psel) and torch.equal(sw, pdiag[2])
+    assert int(sel.max()) == 3 and int(sw.sum()) > 0   # JEDEC row reached
+    torch.testing.assert_close(lat, plat, rtol=1e-5, atol=0)
+    torch.testing.assert_close(total, ptot, rtol=1e-5, atol=0)
+    for a, b in ((temps, ptemps), (heat, pheat), (tmax, pdiag[0]),
+                 (tmean, pdiag[1])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    nonbit = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                 for a, b in ((lat, plat), (temps, ptemps), (heat, pheat)))
+    print(f"adaptive_blocks lanes={lanes} banked={banked}: {nonbit} "
+          "elements not bitwise equal to the plain version")
+
+
+@pytest.mark.gpu
+def test_adaptive_wrapper_rejects_bad_inputs(cuda):
+    ins = [x.to(cuda) for x in _streams(3, 50)]
+    tabs, scn, bins, tcfg = (x.to(cuda) for x in _adaptive_inputs(8, False))
+    with pytest.raises(ValueError, match="JEDEC"):
+        replay_ops.adaptive_blocks(*ins, tabs[:-1].contiguous(), scn, bins,
+                                   tcfg)
+    bad = ins[2].clone()
+    bad[1, 3] = -1
+    with pytest.raises(ValueError, match="bank"):
+        replay_ops.adaptive_blocks(ins[0], ins[1], bad, *ins[3:], tabs, scn,
+                                   bins, tcfg)
+    with pytest.raises(ValueError):
+        replay_ops.adaptive_blocks(*ins, tabs, scn[:8].contiguous(), bins,
+                                   tcfg)
+    tabs_b = _adaptive_inputs(8, True)[0].to(cuda)
+    with pytest.raises(ValueError):
+        replay_ops.adaptive_blocks(*ins, tabs_b, scn, bins, tcfg, n_banks=4)
+    with pytest.raises(ValueError):
+        replay_ops.adaptive_blocks(*ins, tabs, scn, bins.cpu(), tcfg)
+    tim_b = torch.ones((4, 6, 3), device=cuda)
+    with pytest.raises(ValueError):
+        replay_ops.replay_blocks(*ins, tim_b)
 
 
 @pytest.mark.gpu
@@ -154,6 +264,33 @@ def test_replay_blocks_cpu_runs_plain_version():
         assert torch.equal(lat[g].T, lr) and torch.equal(total[g], tr)
 
 
+@pytest.mark.parametrize("banked", [False, True], ids=["module", "bank"])
+def test_adaptive_blocks_cpu_runs_plain_version(banked):
+    ins = _streams(3, 90)
+    tabs, scn, bins, tcfg = _adaptive_inputs(5, banked)
+    before = replay_ops.adaptive_blocks.launches
+    out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg)
+    assert replay_ops.adaptive_blocks.launches == before
+    lat, total, tmax, tmean, sw, heat, temps, sel = out
+    assert temps is None and sel is None
+    assert lat.shape == (3, 90, 5) and heat.shape == (3, 8, 5)
+    assert bool((lat[1, 30:] == 0).all())          # padding: zero latency
+    raw = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                     emit_raw=True)
+    assert bool((raw[7][1, 30:] == -1).all()) and bool((raw[6][1, 30:] == 0)
+                                                       .all())
+    for a, b in zip(out[:6], raw[:6]):
+        assert torch.equal(a, b)
+    # the wrapper's lane tile is the plain version's per-lane stacks
+    from repro_torch.kernels.replay import ref as replay_ref
+    closed, arr, bank, row, wr, valid = ins
+    p = dram_sim.replay_adaptive_cells(arr, bank, row, wr.bool(),
+                                       valid.bool(),
+                                       replay_ref.lane_stacks(tabs), bins,
+                                       scn.T, tcfg, closed > 0.5)
+    assert torch.equal(p[0], lat) and torch.equal(p[4], heat)
+
+
 def test_port_never_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -174,6 +311,9 @@ def test_default_device_is_cuda_and_never_falls_back():
     from repro_torch.core.variation import sample_population
     entry = [MarginEngine, Profiler, ALDRAMController, SimEngine,
              lambda: perf_model.evaluate(n=8),
+             lambda: perf_model.evaluate_adaptive(
+                 np.zeros((2, 6), np.float32), (45.0,), (TH.steady(40.0),),
+                 n=8),
              lambda: sample_population(torch.Generator())]
     if torch.cuda.is_available():
         assert MarginEngine().device.type == "cuda"

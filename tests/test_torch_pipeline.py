@@ -177,7 +177,6 @@ def test_port_evaluate_runs_on_its_own_traces():
 
 
 @pytest.mark.parametrize("method,args", [
-    ("evaluate_dynamic", ()), ("evaluate_bank_system", ()),
     ("evaluate_region_system", ()), ("region_table", (2,))])
 def test_unported_controller_paths_raise(pipeline, method, args):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -216,7 +216,7 @@ class TestNotPorted:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdram.Policy(reorder_window=16)
 
-    @pytest.mark.parametrize("kw", [{"thermal": object()},
+    @pytest.mark.parametrize("kw", [{"n_ranks": 2},
                                     {"faults": object()},
                                     {"region_map": np.zeros(8, np.int32)},
                                     {"n_channels": 2}])
@@ -228,8 +228,10 @@ class TestNotPorted:
             tsim.SimSpec(traces=(tr,), timings=ROWS[:1], **kw)
 
     def test_banked_timings_raise(self):
+        """Per-bank rows are ported; a bank axis that does not match
+        the simulated bank count raises."""
         z = torch.zeros((1, 1, 4))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="banks"):
             trops.replay_grid(z, z.int(), z.int(), z.bool(),
                               torch.ones((1, 4), dtype=torch.bool),
-                              torch.zeros((2, 8, 6)), torch.tensor([False]))
+                              torch.zeros((2, 4, 6)), torch.tensor([False]))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's AL-DRAM main and thermal paths on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's AL-DRAM main, thermal and subarray-region
+paths on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -34,14 +34,32 @@ Phases (any failure exits non-zero and prints no result line):
      adaptive >= static_worst - 1e-9 for every scenario and policy; then
      `evaluate_bank_system(n=4096)`; then the same path under
      `torch.profiler` for the device busy share;
-  5. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
+  5. the subarray-region path at full width on the same population,
+     launch counts reset just before and read just after: a regions=8
+     controller profiles it (one refresh launch, one margin-grid launch)
+     and verifies it (must be True; 39 launches); `region_reductions((2,
+     4, 8))` must be monotone module <= bank <= r2 <= r4 <= r8, the
+     8-region store under 0.5 of dense; `evaluate_region_system(n=4096)`
+     replays 70 traces x 26 rows (JEDEC, 5 module, 5 bank, 3 x 5 region
+     rows) over <= 64 unique columns in ONE launch of replay_blocks (c);
+     the deployed `safe_stack_regions()` (5 bins + JEDEC, a [64] map)
+     runs in closed loop through `SimEngine` under the default 4 + 4
+     scenarios in ONE launch of adaptive_blocks (c), and its gmean must
+     be >= that of the static replay of each scenario's worst bin; then
+     the same path under `torch.profiler` for the device busy share;
+  6. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
      (b) and adaptive_blocks (module and per-bank tables, raw temps and
      bins emitted) against their plain versions on the card at the
      thermal path's full shapes (bins
      identical on every request, latencies within rtol 1e-5,
      temperatures / heat / diagnostics within rtol 1e-5, atol 1e-4;
-     the per-bank replay bitwise), with their times;
-  6. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
+     the per-bank replay bitwise), replay_blocks (c) at
+     `evaluate_region_system`'s shape (bitwise on every lane; a
+     bank-constant map and R = 1 with the identity map bitwise equal to
+     variant (b)) and adaptive_blocks (c) at the regioned closed loop's
+     shape (bins identical on every request, raw temps and bins
+     emitted), with their times;
+  7. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
      the card and on the CPU: chosen combos must agree (a flip only
      where the CPU's deciding margin is within 2e-4 of 0) and the
      Fig. 4 gmeans within 1e-5 relative; then `evaluate_dynamic(n=1024)`
@@ -49,7 +67,11 @@ Phases (any failure exits non-zero and prints no result line):
      selected bin may differ only where the CPU's sensed temperature
      lies within 1e-3 C of a switching threshold (an edge, or an edge
      minus the hysteresis) or where the lane's previous request already
-     differed (the hysteresis carries the earlier choice).
+     differed (the hysteresis carries the earlier choice); then the region
+     path at --fast scale (regions=8) on both: chosen region rows equal
+     up to flips whose deciding margin lies within 2e-4 of 0,
+     `region_reductions` and compression ratios equal, and the
+     `evaluate_region_system(n=1024)` gmeans within 1e-5 relative.
 
 The last lines are the card (`nvidia-smi` name and power limit), one
 JSON object of per-kernel numbers, and the result object.
@@ -151,18 +173,21 @@ def reset_counts() -> None:
     for fn in (replay_ops.replay_blocks, replay_ops.adaptive_blocks):
         fn.launches = 0
         fn.launches_banked = 0
+        fn.launches_regioned = 0
 
 
 def read_counts() -> dict:
     """Launches per kernel variant since `reset_counts`."""
     from repro_torch.kernels.charge_sim import ops as charge_ops
     from repro_torch.kernels.replay import ops as replay_ops
-    rb, ab = replay_ops.replay_blocks, replay_ops.adaptive_blocks
-    return {"margin_grid": charge_ops.margin_grid.launches,
-            "replay_blocks (a)": rb.launches - rb.launches_banked,
-            "replay_blocks (b)": rb.launches_banked,
-            "adaptive_blocks (a)": ab.launches - ab.launches_banked,
-            "adaptive_blocks (b)": ab.launches_banked}
+    out = {"margin_grid": charge_ops.margin_grid.launches}
+    for name, fn in (("replay_blocks", replay_ops.replay_blocks),
+                     ("adaptive_blocks", replay_ops.adaptive_blocks)):
+        out[f"{name} (a)"] = (fn.launches - fn.launches_banked
+                              - fn.launches_regioned)
+        out[f"{name} (b)"] = fn.launches_banked
+        out[f"{name} (c)"] = fn.launches_regioned
+    return out
 
 
 def wall(fn):
@@ -304,7 +329,7 @@ def path_launches(env, kernel: str) -> dict:
     """A kernel variant's launches: the total over the paths driven,
     and per path."""
     by_path = {path: env[f"launches_{path}"][kernel]
-               for path in ("main", "thermal")
+               for path in ("main", "thermal", "region")
                if f"launches_{path}" in env}
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -356,8 +381,7 @@ def kernel_margin_grid(env) -> dict:
     return {"name": "margin_grid", "route": "cuda",
             "source": "src/repro_torch/kernels/charge_sim/margin_grid.cu",
             "replaces": "src/repro/kernels/charge_sim/charge_sim.py:119",
-            "launches": env["launches"]["margin_grid"],
-            "launches_by_path": {"main": env["launches"]["margin_grid"]},
+            **path_launches(env, "margin_grid"),
             "max_abs_err": err_abs, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -773,6 +797,373 @@ def cross_device_thermal(out) -> None:
     check(unexplained == 0, f"{unexplained} bins differ away from a "
                             "switching threshold")
 
+REGIONS = 8
+LEVELS = (2, 4, 8)
+
+
+def _region_bracket(eng, rows_u, edges, idx, traces):
+    """The deployed region stack in closed loop (ONE adaptive launch)
+    and the static replay of each real scenario's worst bin (ONE static
+    launch, JEDEC baseline first), both through `SimEngine`, priced as
+    multi-core CPI gmeans per scenario the way
+    `perf_model.evaluate_adaptive` prices the module stack."""
+    import numpy as np
+    from repro_torch.core import perf_model
+    from repro_torch.core import thermal as TH
+    from repro_torch.core import timing as T
+    from repro_torch.core.aldram import default_scenarios
+    from repro_torch.core.sim_engine import SimSpec
+
+    scns = default_scenarios()
+    nc = len(scns)
+    cfg = TH.ThermalConfig()
+    rmap = idx.reshape(-1)
+    spec = SimSpec(traces=traces, timings=rows_u[None], region_map=rmap,
+                   thermal=TH.ThermalSpec(scns + tuple(x.oracle()
+                                                       for x in scns),
+                                          tuple(edges.tolist()), cfg))
+    res_a, t_a = wall(lambda: eng.run(spec))
+    peak = res_a.temp_max[:, :, 0, :nc].max(axis=(0, 1))
+    worst = np.searchsorted(edges, peak + np.float32(cfg.hyst_c),
+                            side="left")
+    base = np.broadcast_to(T.DDR3_1600.as_row(), rows_u.shape[1:])
+    rows = np.concatenate([base[None], rows_u[worst]], axis=0)
+    res_s, t_s = wall(lambda: eng.run(SimSpec(traces=traces, timings=rows,
+                                              region_map=rmap)))
+    lat = np.concatenate([res_s.mean_latency_ns,
+                          res_a.mean_latency_ns[:, :, 0, :]], axis=-1)
+    sp = perf_model.cpi_speedups(lat.reshape((2, -1) + lat.shape[1:]))
+    out = {}
+    for ci, x in enumerate(scns):
+        out[x.name] = {
+            "adaptive": perf_model.gmean_speedup(sp[1, :, 0, 1 + nc + ci]),
+            "static_worst": perf_model.gmean_speedup(sp[1, :, 0, 1 + ci]),
+            "oracle": perf_model.gmean_speedup(sp[1, :, 0, 1 + 2 * nc + ci]),
+            "worst_bin": int(worst[ci]), "temp_peak": float(peak[ci]),
+            "switches": float(res_a.bin_switches[:, 0, 0, ci].mean())}
+    return out, t_a + t_s
+
+
+def region_path(env) -> None:
+    """Phase 5: the subarray-region path at full width on the main
+    path's population, kernel launch counts reset just before and read
+    just after."""
+    import numpy as np
+    from repro_torch.core import perf_model
+    from repro_torch.core.aldram import ALDRAMController
+    from repro_torch.core.calibration import CALIBRATED_CONSTANTS
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.core.sim_engine import SimEngine
+
+    pop = env["pop"]
+    reset_counts()
+    ctrl = ALDRAMController(Profiler(CALIBRATED_CONSTANTS, grid_step=1.25),
+                            regions=REGIONS, device="cuda")
+    table, t_prof = wall(lambda: ctrl.profile(pop))
+    d_prof = ctrl.engine.dispatch_count
+    ok, t_ver = wall(lambda: ctrl.verify(pop))
+    d_ver = ctrl.engine.dispatch_count - d_prof
+    red, t_red = wall(lambda: ctrl.region_reductions(LEVELS))
+    ratios = {lv: ctrl.region_table(lv).compression_ratio() for lv in LEVELS}
+    eng_sys = SimEngine(device="cuda")
+    sys_res, t_sys = wall(lambda: ctrl.evaluate_region_system(
+        pop, n=4096, levels=LEVELS, engine=eng_sys))
+    before = read_counts()
+    (rows_u, edges, idx), t_stack = wall(table.safe_stack_regions)
+    eng_dyn = SimEngine(device="cuda")
+    traces = perf_model.trace_batch(4096, SEED, device="cuda")
+    dyn, t_dyn = _region_bracket(eng_dyn, rows_u, edges, idx, traces)
+    launches = read_counts()
+    ad_launch = (launches["adaptive_blocks (c)"]
+                 - before["adaptive_blocks (c)"])
+
+    print(f"region profile: store {table.params.shape} (U = "
+          f"{table.n_unique}), map {table.region_index.shape}, {d_prof} "
+          f"launches ({t_prof:.3f} s); verify: {ok}, {d_ver} launches "
+          f"({t_ver:.3f} s)")
+    for op, d in red.items():
+        print(f"region_reductions {op}: " + " ".join(
+            f"{k} {v:.2%}" for k, v in d.items()))
+    print("compression ratios: " + " ".join(
+        f"r{lv} {v:.4f}" for lv, v in ratios.items())
+        + f" (region_reductions {t_red:.3f} s)")
+    print(f"evaluate_region_system: rows {sys_res['rows'].shape}, map "
+          f"{sys_res['region_map'].shape}, {eng_sys.dispatch_count} engine "
+          f"call ({t_sys:.3f} s)")
+    for t, d in sys_res["per_temp"].items():
+        print(f"  @{t:.0f}C: " + " ".join(f"{k} {v:.3%}"
+                                          for k, v in d.items()))
+    print(f"safe_stack_regions: rows {rows_u.shape}, map {idx.shape} "
+          f"({t_stack:.3f} s); closed loop + static worst bins: "
+          f"{eng_dyn.dispatch_count} engine calls ({t_dyn:.3f} s)")
+    for name, d in dyn.items():
+        print(f"  {name}: adaptive {d['adaptive']:.4%} static_worst "
+              f"{d['static_worst']:.4%} oracle {d['oracle']:.4%} temp_peak "
+              f"{d['temp_peak']:.3f} worst_bin {d['worst_bin']} "
+              f"mean_bin_switches {d['switches']:.3f}")
+    print("region path kernels: " + json.dumps(launches))
+
+    check(ok is True, "verify() found a negative margin in the region table")
+    check(d_prof == 2 and d_ver == 39, f"launches {d_prof}+{d_ver}")
+    check(table.params.shape[:2] == (115, 5)
+          and table.region_index.shape == (115, 5, 8, REGIONS),
+          str(table.region_index.shape))
+    for op, d in red.items():
+        seq = [d["module"], d["bank"]] + [d[f"region{lv}"] for lv in LEVELS]
+        check(all(b >= a - 1e-9 for a, b in zip(seq, seq[1:])),
+              f"{op} reductions not monotone: {seq}")
+    check(ratios[REGIONS] < 0.5, f"8-region store ratio {ratios}")
+    check(eng_sys.dispatch_count == 1
+          and sys_res["rows"].shape[0] == 26
+          and sys_res["rows"].shape[1] <= 64
+          and sys_res["region_map"].shape == (64,),
+          f"evaluate_region_system {sys_res['rows'].shape}")
+    check(all(np.isfinite(v) and -1.0 < v < 1.0
+              for d in sys_res["per_temp"].values() for v in d.values()),
+          str(sys_res["per_temp"]))
+    check(before["replay_blocks (c)"] == 1,
+          f"evaluate_region_system replay launches {before}")
+    check(eng_dyn.dispatch_count == 2 and ad_launch == 1
+          and idx.shape == (8, REGIONS) and rows_u.shape[0] == 6,
+          f"closed loop launches {ad_launch}, stack {rows_u.shape}")
+    for name, d in dyn.items():
+        check(d["adaptive"] >= d["static_worst"] - 1e-9,
+              f"adaptive < static_worst for {name}: {d}")
+    check(all(launches[k] > 0 for k in ("margin_grid", "replay_blocks (c)",
+                                        "adaptive_blocks (c)")),
+          f"a kernel of the region path never launched: {launches}")
+    env.update(launches_region=launches, region_ctrl=ctrl,
+               region_sys=sys_res, region_stack=(rows_u, edges, idx))
+
+
+def region_breakdown(env) -> None:
+    """Phase 5b: the region path once more under `torch.profiler`."""
+    from repro_torch.core import perf_model
+    from repro_torch.core.aldram import ALDRAMController
+    from repro_torch.core.sim_engine import SimEngine
+
+    pop, old = env["pop"], env["region_ctrl"]
+    ctrl = ALDRAMController(old.profiler, regions=REGIONS, device="cuda")
+
+    def run():
+        ctrl.profile(pop)
+        ctrl.verify(pop)
+        ctrl.evaluate_region_system(pop, n=4096, levels=LEVELS)
+        _region_bracket(SimEngine(device="cuda"),
+                        *ctrl.table.safe_stack_regions(),
+                        perf_model.trace_batch(4096, SEED, device="cuda"))
+
+    busy_share("region path", run)
+
+
+def kernel_replay_regioned(env) -> dict:
+    """Phase 6d: replay_blocks (c), the region store gathered through the
+    index map, against its plain version at `evaluate_region_system`'s
+    shape, variant (b) reproduced by bank-constant maps, and its times."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.kernels.replay import ops, ref
+
+    n = 4096
+    cells = _campaign_cells(n)
+    closed, arr, bank, row, wr, valid = cells
+    dev = arr.device
+    g = arr.shape[0]
+    tim = torch.tensor(env["region_sys"]["rows"], device=dev)  # [S, U, 6]
+    rmap = torch.tensor(env["region_sys"]["region_map"], device=dev)
+    tile = ref.timing_tile(tim)
+    s, u = tim.shape[0], tim.shape[1]
+    lat, total = ops.replay_blocks(*cells, tile, region_map=rmap)
+    (lat2, total2), plain_s = wall(lambda: dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(), tim, closed > 0.5,
+        region_map=rmap))
+    lanes = ((lat.view(torch.int32) != lat2.view(torch.int32)).any(1)
+             | (total.view(torch.int32) != total2.view(torch.int32)))
+    n_bad = int(lanes.sum())
+    err = max((lat - lat2).abs().max().item(),
+              (total - total2).abs().max().item())
+    # variant (b) is (c) with the bank as the column: a bank-constant
+    # map over 8 regions, and R = 1 with the identity map
+    bank_rows = torch.tensor(env["bank_res"]["rows"], device=dev)
+    btile = ref.timing_tile(bank_rows)
+    lb = ops.replay_blocks(*cells, btile)
+    same_b = []
+    for bmap in (np.repeat(np.arange(8), REGIONS), np.arange(8)):
+        lc = ops.replay_blocks(*cells, btile, region_map=torch.tensor(
+            bmap, dtype=torch.int32, device=dev))
+        same_b.append(all(torch.equal(x.view(torch.int32),
+                                      y.view(torch.int32))
+                          for x, y in zip(lb, lc)))
+    call = cuda_ms(lambda: ops.replay_blocks(*cells, tile, region_map=rmap))
+    ms = kernel_ms(lambda: ops.replay_blocks(*cells, tile, region_map=rmap),
+                   "replay_kernel")
+    n_bytes = (g * n * 5 * 4 + g * n * s * 4 + g * s * 4 + u * 6 * s * 4
+               + rmap.numel() * 4 + g * 4)
+    b_ms, b_by = bound_ms(n_bytes, REPLAY_OPS_PER_STEP * g * n * s)
+    print(f"replay_blocks (c, region store) G={g} N={n} S={s} U={u} "
+          f"map={tuple(rmap.shape)}: {n_bad} of {g * s} lanes not bitwise "
+          f"equal to plain (max abs {err:.3e}); bank-constant map and "
+          f"identity map equal to variant (b): {same_b}; kernel {ms:.3f} ms "
+          f"(wrapper call {call:.3f} ms), plain {plain_s * 1e3:.1f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
+          f"path {n} dependent requests")
+    check(n_bad == 0, f"replay_blocks (c): {n_bad} lanes differ")
+    check(all(same_b), "replay_blocks (c) with a bank map differs from (b)")
+    return {"name": "replay_blocks", "variant": "c", "route": "cuda",
+            "source": "src/repro_torch/kernels/replay/replay.cu",
+            "replaces": "src/repro/kernels/replay/replay.py:640",
+            **path_launches(env, "replay_blocks (c)"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def kernel_adaptive_regioned(env) -> dict:
+    """Phase 6e: adaptive_blocks (c), the deployed region stack gathered
+    through its [64] map, against its plain version at the regioned
+    closed loop's full shape (raw temps and bins emitted), and its
+    times."""
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.core import thermal as TH
+    from repro_torch.core.aldram import default_scenarios
+    from repro_torch.kernels.replay import ops, ref
+
+    dev = torch.device("cuda")
+    n = 4096
+    cells = _campaign_cells(n)
+    closed, arr, bank, row, wr, valid = cells
+    g = arr.shape[0]
+    scns = default_scenarios()
+    scns = scns + tuple(x.oracle() for x in scns)
+    scn_t = torch.tensor(TH.stack_scenarios(scns).T.copy(), device=dev)
+    tcfg = torch.tensor(TH.ThermalConfig().as_row(), device=dev)
+    rows_u, edges, idx = env["region_stack"]
+    tile = ref.table_tile(ref.lane_tables(
+        torch.tensor(rows_u, device=dev)[None], len(scns)))  # [U, S+1, 6, L]
+    rmap = torch.tensor(idx.reshape(-1), device=dev)
+    bins = torch.tensor(edges, device=dev)
+    lanes = tile.shape[-1]
+    out = ops.adaptive_blocks(*cells, tile, scn_t, bins, tcfg, emit_raw=True,
+                              region_map=rmap)
+    plain, plain_s = wall(lambda: dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(), ref.lane_stacks(tile),
+        bins, scn_t.T, tcfg, closed > 0.5, region_map=rmap))
+    lat, total, tmax, tmean, sw, heat, temps, sel = out
+    plat, ptot, ptemps, psel, pheat, (ptmax, ptmean, psw) = plain
+    pairs = ((lat, plat), (total, ptot), (temps, ptemps), (heat, pheat),
+             (tmax, ptmax), (tmean, ptmean))
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    same_bins = bool(torch.equal(sel, psel) and torch.equal(sw, psw))
+
+    def lane_bits(a, b):
+        d = a.view(torch.int32) != b.view(torch.int32)
+        return d.reshape(g, -1, lanes).any(1)
+
+    n_off = int((lane_bits(lat, plat) | lane_bits(temps, ptemps)
+                 | lane_bits(heat, pheat) | lane_bits(total, ptot)
+                 | (sel != psel).any(1)).sum())
+    close = all(torch.allclose(a, b, rtol=1e-5, atol=0)
+                for a, b in pairs[:2]) and all(
+        torch.allclose(a, b, rtol=1e-5, atol=1e-4) for a, b in pairs[2:])
+    fn = lambda: ops.adaptive_blocks(*cells, tile, scn_t, bins, tcfg,  # noqa: E731
+                                     region_map=rmap)
+    call = cuda_ms(fn)
+    ms = kernel_ms(fn, "adaptive_kernel")
+    n_bytes = (g * n * 5 * 4 + g * n * lanes * 4 + g * 4 + tile.numel() * 4
+               + rmap.numel() * 4 + scn_t.numel() * 4 + bins.numel() * 4
+               + 24 + g * lanes * 4 * 4 + heat.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, (REPLAY_OPS_PER_STEP
+                                    + ADAPTIVE_OPS_PER_STEP) * g * n * lanes)
+    print(f"adaptive_blocks (c, region tables) G={g} N={n} L={lanes} "
+          f"U={tile.shape[0]}: bins identical {same_bins}, {int(sw.sum())} "
+          f"switches, {n_off} of {g * lanes} lanes not bitwise equal to plain "
+          f"(max abs {err:.3e}); kernel {ms:.3f} ms (wrapper call {call:.3f} "
+          f"ms), plain {plain_s * 1e3:.1f} ms, bound {b_ms:.5f} ms ({b_by}: "
+          f"{n_bytes / 1e6:.2f} MB); critical path {n} dependent requests")
+    check(same_bins, "adaptive_blocks (c): bins differ")
+    check(close, f"adaptive_blocks (c): outputs beyond tolerance (max abs "
+                 f"{err:.3e})")
+    return {"name": "adaptive_blocks", "variant": "c", "route": "cuda",
+            "source": "src/repro_torch/kernels/replay/adaptive.cu",
+            "replaces": "src/repro/kernels/replay/replay.py:522",
+            **path_launches(env, "adaptive_blocks (c)"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def cross_device_region() -> None:
+    """Phase 7c: the region path at --fast scale (24 modules, 8 cells,
+    2.5 ns grid, regions=8) on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core.aldram import ALDRAMController
+    from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
+                                              CALIBRATED_VARIATION)
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.core.sweep import Op
+    from repro_torch.core.variation import sample_population
+
+    cfg = dataclasses.replace(CALIBRATED_VARIATION, n_modules=24, n_cells=8)
+    pop_cpu = sample_population(torch.Generator().manual_seed(SEED), cfg,
+                                device="cpu")
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        pop = pop_cpu.to(dev)
+        ctrl = ALDRAMController(Profiler(CALIBRATED_CONSTANTS, grid_step=2.5,
+                                         device=dev), regions=REGIONS,
+                                device=dev)
+        t0 = time.perf_counter()
+        ctrl.profile(pop)
+        red = ctrl.region_reductions(LEVELS)
+        ratios = {lv: ctrl.region_table(lv).compression_ratio()
+                  for lv in LEVELS}
+        out[dev] = dict(ctrl=ctrl, pop=pop, red=red, ratios=ratios,
+                        dense=ctrl.table.expand_regions())
+        secs[dev] = time.perf_counter() - t0
+    g, c = out["cuda"], out["cpu"]
+    diff = int((g["dense"] != c["dense"]).any(-1).sum())
+    flips = unexplained = 0
+    if diff:
+        spec = c["ctrl"].sweep_result.spec
+        rg = g["ctrl"].engine.sweep(g["pop"], spec, regions=REGIONS)
+        rc = c["ctrl"].engine.sweep(c["pop"], spec, regions=REGIONS)
+        m, ch, bk, kc = c["pop"].cells.shape[:4]
+        for op in Op:
+            k = rc.index(op)
+            flip = rg.ok_region[k] != rc.ok_region[k]
+            mm = rc.margins[k].reshape(m, ch, bk, REGIONS, kc // REGIONS,
+                                       *rc.margins[k].shape[1:])
+            mmin = mm.amin(dim=(1, 4)).numpy()
+            flips += int(flip.sum())
+            unexplained += int((np.abs(mmin[flip]) > TOL).sum())
+    # the system-side comparison replays the CPU controller's tables on
+    # both devices
+    g["ctrl"].table = c["ctrl"].table
+    g["ctrl"].sweep_result = c["ctrl"].sweep_result
+    sys_res = {}
+    for dev in ("cuda", "cpu"):
+        o = out[dev]
+        t0 = time.perf_counter()
+        sys_res[dev] = o["ctrl"].evaluate_region_system(o["pop"], n=1024,
+                                                        levels=LEVELS)
+        secs[dev] += time.perf_counter() - t0
+    rel = 0.0
+    for tc_, d in sys_res["cpu"]["per_temp"].items():
+        for k, v in d.items():
+            rel = max(rel, abs(sys_res["cuda"]["per_temp"][tc_][k] / v - 1))
+    same_red = g["red"] == c["red"] and g["ratios"] == c["ratios"]
+    print(f"cross-device region --fast (24 modules, 8 cells, 2.5 ns grid, "
+          f"regions={REGIONS}): {diff} differing dense region rows, {flips} "
+          f"pass/fail flips ({unexplained} unexplained); region_reductions "
+          f"and ratios equal: {same_red} (ratios {c['ratios']}); "
+          f"evaluate_region_system(n=1024) max rel gmean diff {rel:.3e}; "
+          f"card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s")
+    check(unexplained == 0, "card and CPU region choices differ beyond 2e-4")
+    check(diff > 0 or same_red, "region reductions or ratios differ with "
+                                "equal tables")
+    check(rel <= 1e-5, f"card vs CPU region gmeans differ by {rel:.3e}")
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -803,18 +1194,24 @@ def main() -> int:
         k1 = kernel_margin_grid(env)
         thermal_path(env)
         thermal_breakdown(env)
+        region_path(env)
+        region_breakdown(env)
+        k1.update(path_launches(env, "margin_grid"))
         k2 = kernel_replay(env)
         k3 = kernel_replay_banked(env)
         k4 = kernel_adaptive(env)
+        k5 = kernel_replay_regioned(env)
+        k6 = kernel_adaptive_regioned(env)
         del env
         torch.cuda.empty_cache()
         cross_device_thermal(cross_device())
+        cross_device_region()
     except Exception:                       # report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, *k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

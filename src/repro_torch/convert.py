@@ -49,16 +49,24 @@ def charge_constants(fields: Mapping[str, float]) -> ChargeConstants:
 
 def timing_table(temp_bins, params: np.ndarray, safe_trefi_read: np.ndarray,
                  safe_trefi_write: np.ndarray,
-                 params_module: np.ndarray | None = None) -> TimingTable:
-    """A module-level ([modules, bins, 4]) or per-bank ([modules, bins,
-    banks, 4] with its module-envelope table) `TimingTable`."""
+                 params_module: np.ndarray | None = None,
+                 region_index: np.ndarray | None = None,
+                 params_bank: np.ndarray | None = None) -> TimingTable:
+    """A module-level ([modules, bins, 4]), per-bank ([modules, bins,
+    banks, 4] with its module-envelope table) or region-compressed
+    (the [modules, bins, U, 4] unique store with its int32 [modules,
+    bins, banks, regions] index map, module-envelope and per-bank
+    tables) `TimingTable`."""
+    def f32(x):
+        return None if x is None else np.asarray(x, np.float32)
+
     return TimingTable(
-        tuple(float(t) for t in temp_bins),
-        np.asarray(params, np.float32),
-        np.asarray(safe_trefi_read, np.float32),
-        np.asarray(safe_trefi_write, np.float32),
-        params_module=(None if params_module is None
-                       else np.asarray(params_module, np.float32)))
+        tuple(float(t) for t in temp_bins), f32(params),
+        f32(safe_trefi_read), f32(safe_trefi_write),
+        params_module=f32(params_module),
+        region_index=(None if region_index is None
+                      else np.asarray(region_index, np.int32)),
+        params_bank=f32(params_bank))
 
 
 def scenario(row: np.ndarray, name: str = "scenario") -> ThermalScenario:

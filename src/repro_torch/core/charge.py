@@ -201,6 +201,27 @@ def margin_sweep(cell_stack: torch.Tensor, combos: torch.Tensor,
             write_margin(cell, cm, t, c, tw))
 
 
+def row_positions(n_cells: int) -> torch.Tensor:
+    """[n_cells] normalized row position of each sampled tail cell
+    within its bank: 0 = next to the sense amplifiers / wordline
+    drivers, 1 = the far end of the subarray.  The spatial hierarchy
+    splits this axis into contiguous subarray regions (cell k ->
+    region k * regions // n_cells)."""
+    return (torch.arange(n_cells, dtype=torch.float32) + 0.5) / n_cells
+
+
+def region_gradient(positions: torch.Tensor, k_region: float,
+                    weak_signs) -> torch.Tensor:
+    """[n_cells, 5] multiplicative within-bank margin gradient
+    (design-induced variation): every field shifts toward its weak
+    direction in proportion to the centered row position.  `k_region`
+    is the ln-scale gradient over the whole bank (0.0 = off);
+    `weak_signs` is `variation.FIELD_WEAK_SIGNS`."""
+    signs = torch.as_tensor(weak_signs, dtype=torch.float32,
+                            device=positions.device)
+    return torch.exp(k_region * (positions[:, None] - 0.5) * signs[None, :])
+
+
 def refresh_margin(cell_stack: torch.Tensor, trefi_ms: torch.Tensor,
                    std_combo: torch.Tensor, temp_c: float, op: str,
                    c: ChargeConstants = DEFAULT_CONSTANTS) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Trace-driven DRAM bank-timing simulator (port of `repro.core.dram_sim`,
-single channel, no faults, no subarray regions, FCFS order).
+single channel, no faults, FCFS order).
 
 Models an in-order memory controller over `n_banks` banks on one
 rank/channel, honoring tRCD / tRAS / tRP / tWR / tCL.  Service latency
@@ -12,8 +12,10 @@ per request under the default open-page policy:
 
 `replay_cells` is the plain version of the `replay_blocks` CUDA kernel
 (`repro_torch.kernels.replay`): G request streams replayed under S
-timing rows each — module rows [S, 6] or per-bank rows [S, banks, 6],
-gathered per request from its bank — one Python step per request over
+timing rows each — module rows [S, 6], per-bank rows [S, banks, 6]
+gathered per request from its bank, or the mask-compressed subarray
+region store [S, U, 6] gathered through an index map from the request's
+(bank, `region_of(row)`) slot — one Python step per request over
 [G, ..., S] lane tensors, updating the controller state in place.
 `replay_rows` (one stream, S rows) and `replay_one` (one stream, one
 row) are its single-stream views.  The arithmetic is float32 add, max
@@ -22,8 +24,11 @@ and select only, so every layout is bitwise equal to the JAX reference.
 `replay_adaptive_cells` is the plain version of the `adaptive_blocks`
 CUDA kernel: the closed thermal loop (`repro_torch.core.thermal`) over
 G streams x L lanes, each lane a (timing-table stack, thermal
-scenario) pair that re-selects its temperature bin per request;
-`replay_adaptive` is its single-stream view.
+scenario) pair that re-selects its temperature bin per request, with
+module, per-bank or region-compressed table stacks; `replay_adaptive`
+is its single-stream view.  The bank state and the per-bank heat stay
+per bank whatever the table's spatial layout: only the timing gather
+goes through the region map.
 """
 
 from __future__ import annotations
@@ -134,6 +139,42 @@ def check_prefix_valid(valid, where: str = "replay") -> None:
             "followed by valid ones")
 
 
+# Rows per subarray (DDR3 512x512 mats): consecutive row addresses sit
+# at consecutive physical positions within a subarray, so the region of
+# a row is its position stripe — the same contiguous position -> region
+# mapping `MarginEngine.sweep` reduces tail cells under.
+SUBARRAY_ROWS = 512
+
+
+def region_of(row: torch.Tensor, regions: int) -> torch.Tensor:
+    """Subarray region id of a row address: which of `regions` equal
+    position stripes the row's within-subarray offset falls in, in
+    int32 arithmetic `(row mod 512) * regions // 512` (a floored
+    modulo, as the reference's).  Exact nesting across levels: l | R
+    implies `region_of(r, l) == region_of(r, R) // (R // l)`."""
+    r = row if row.dtype == torch.int32 else row.to(torch.int32)
+    return torch.remainder(r, SUBARRAY_ROWS) * regions // SUBARRAY_ROWS
+
+
+def _region_slots(bank, row, region_map, n_banks: int, lanes: int):
+    """Validate a region index map ([banks * R] shared, or [lanes,
+    banks * R] per lane) and return (map as int64 on the streams'
+    device, each request's (bank, region) slot b * R + region_of(row,
+    R) as [G, N] int64)."""
+    rmap = torch.as_tensor(region_map, device=bank.device).long()
+    n_regions = rmap.shape[-1] // n_banks
+    if rmap.dim() not in (1, 2) or n_regions < 1 \
+            or rmap.shape[-1] != n_banks * n_regions:
+        raise ValueError(f"region_map must be [banks * regions] or "
+                         f"[lanes, banks * regions] with {n_banks} banks, "
+                         f"got {tuple(rmap.shape)}")
+    if rmap.dim() == 2 and rmap.shape[0] != lanes:
+        raise ValueError(f"per-lane region_map {tuple(rmap.shape)} needs "
+                         f"{lanes} lanes")
+    slots = bank.long() * n_regions + region_of(row, n_regions).long()
+    return rmap, slots
+
+
 def service_math(t, gate, open_b, act_b, wrd_b, rdy_b, rf, w, trcd,
                  tras, twr, trp, tcl, closed):
     """The per-request timing arithmetic on already-gathered bank state,
@@ -214,63 +255,81 @@ def _timing_cols(tp):
 
 
 def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
-                 n_banks: int = 8, mlp_window: int = 8
+                 n_banks: int = 8, mlp_window: int = 8, region_map=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Replay G request streams, each under every one of S timing rows.
 
     arrival [G, N] float32; bank/row [G, N] int; is_write/valid [G, N]
     bool (valid False on a padding suffix); timings [S, 6]
     (`TimingParams.as_row` columns) or per-bank [S, n_banks, 6] (each
-    request replays under its bank's row); closed [G] bool.  Returns
-    (latency [G, N, S] with zeros at padding, total runtime [G, S]: the
-    module is busy until its last ready time or write recovery)."""
+    request replays under its bank's row); closed [G] bool.  With
+    `region_map` (int, [banks * R] shared by every lane or [S, banks *
+    R] per lane) `timings` is the unique-row store [S, U, 6] and each
+    request replays under row map[bank * R + region_of(row, R)]; R is
+    the map length // n_banks.  Returns (latency [G, N, S] with zeros
+    at padding, total runtime [G, S]: the module is busy until its last
+    ready time or write recovery)."""
     g, n = arrival.shape
     timings = timings.to(torch.float32)
+    s_rows = timings.shape[0]
     banked = timings.dim() == 3
-    if banked and timings.shape[1] != n_banks:
+    if region_map is not None:
+        if not banked:
+            raise ValueError("region_map needs [S, U, 6] unique-row stores")
+        rmap, slots = _region_slots(bank, row, region_map, n_banks, s_rows)
+        lane_i = torch.arange(s_rows, device=arrival.device)
+    elif banked and timings.shape[1] != n_banks:
         raise ValueError(f"per-bank timings {tuple(timings.shape)} need "
                          f"{n_banks} banks")
-    by_bank = timings.permute(1, 0, 2) if banked else None   # [B, S, 6]
+    by_col = timings.permute(1, 0, 2) if banked else None    # [B|U, S, 6]
     tc = None if banked else _timing_cols(timings)
-    st = _bank_state0(g, n_banks, mlp_window, timings.shape[0],
-                      arrival.device)
+    st = _bank_state0(g, n_banks, mlp_window, s_rows, arrival.device)
     arrival = arrival.to(torch.float32)
     b_all = bank.long()
     rf_all = row.to(torch.float32)
     w_all = is_write.bool()
     v_all = valid.bool()
     closed = closed.bool()
-    lat = torch.empty((g, n, timings.shape[0]), dtype=torch.float32,
+    lat = torch.empty((g, n, s_rows), dtype=torch.float32,
                       device=arrival.device)
     for k in range(n):
         b = b_all[:, k]
+        if region_map is None:
+            tk = _timing_cols(by_col[b]) if banked else tc
+        elif rmap.dim() == 1:
+            tk = _timing_cols(by_col[rmap[slots[:, k]]])     # [G, S, 6]
+        else:
+            tk = _timing_cols(timings[lane_i, rmap[:, slots[:, k]].T])
         lat[:, k] = _service(st, arrival[:, k], b, rf_all[:, k],
-                             w_all[:, k], v_all[:, k],
-                             _timing_cols(by_bank[b]) if banked else tc,
-                             closed, mlp_window)[0]
+                             w_all[:, k], v_all[:, k], tk, closed,
+                             mlp_window)[0]
     total = torch.maximum(st.bank[:, :, 3].amax(1), st.bank[:, :, 2].amax(1))
     return lat, total
 
 
 def replay_rows(arrival, bank, row, is_write, valid, timings, closed,
-                n_banks: int = 8, mlp_window: int = 8
+                n_banks: int = 8, mlp_window: int = 8, region_map=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One trace ([N] fields) under a [S, 6] (or per-bank [S, banks,
-    6]) stack of timing rows; `closed` a bool.  Returns (latency
-    [S, N], total [S])."""
+    6], or with `region_map` the [S, U, 6] unique-row store, as in
+    `replay_cells`) stack of timing rows; `closed` a bool.  Returns
+    (latency [S, N], total [S])."""
     closed_t = torch.as_tensor(bool(closed), device=arrival.device)[None]
     lat, total = replay_cells(arrival[None], bank[None], row[None],
                               is_write[None], valid[None], timings,
-                              closed_t, n_banks, mlp_window)
+                              closed_t, n_banks, mlp_window, region_map)
     return lat[0].T, total[0]
 
 
 def replay_one(arrival, bank, row, is_write, valid, tp_row, closed,
-               n_banks: int = 8, mlp_window: int = 8
+               n_banks: int = 8, mlp_window: int = 8, region_map=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One trace under one [6] timing row -> (latency [N], total [])."""
+    """One trace under one [6] timing row (or [banks, 6] per-bank rows,
+    or with a [banks * R] `region_map` the [U, 6] unique-row store) ->
+    (latency [N], total [])."""
     lat, total = replay_rows(arrival, bank, row, is_write, valid,
-                             tp_row[None], closed, n_banks, mlp_window)
+                             tp_row[None], closed, n_banks, mlp_window,
+                             region_map)
     return lat[0], total[0]
 
 
@@ -286,7 +345,7 @@ class AdaptiveState(NamedTuple):
 
 def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
                           bins, scns, tcfg, closed, n_banks: int = 8,
-                          mlp_window: int = 8):
+                          mlp_window: int = 8, region_map=None):
     """Closed-loop replay of G request streams under L lanes, each lane
     a (timing-table stack, thermal scenario) pair with its own
     controller and RC heat.
@@ -296,14 +355,18 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
     per-bank [L, S+1, n_banks, 6] float32 (one row per temperature bin,
     the JEDEC fallback row last); bins [S] ascending edges; scns
     [L, SCN_COLS] scenario rows; tcfg [6] `ThermalConfig.as_row`;
-    closed [G] bool.
+    closed [G] bool.  With `region_map` (int, [banks * R] shared or
+    [L, banks * R] per lane) `tables` is the unique-column stack
+    [L, S+1, U, 6] and each request reads column map[bank * R +
+    region_of(row, R)] at its selected bin.
 
     Per valid request every lane (1) decays its per-bank heat over the
     arrival gap, heat * exp(-dt / tau); (2) senses ambient_at(t) + the
     decayed heats summed bank 0 first, left to right; (3) re-selects
     its bin: up = #edges < reading, down = #edges < reading + hyst,
     new = max(up, min(cur, down)) — index S is the JEDEC row;
-    (4) services the request under row (new bin[, request's bank]);
+    (4) services the request under row (new bin[, request's bank or
+    region column]);
     (5) deposits c_heat * access energy (a miss pays ACT/PRE plus the
     selected tRAS window) on the accessed bank.  A padding request
     leaves every state untouched.
@@ -320,7 +383,12 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
     tables = tables.to(torch.float32)
     banked = tables.dim() == 4
     lanes = tables.shape[0]
-    if banked and tables.shape[2] != n_banks:
+    if region_map is not None:
+        if not banked:
+            raise ValueError("region_map needs [L, S+1, U, 6] unique-column "
+                             "stacks")
+        rmap, slots = _region_slots(bank, row, region_map, n_banks, lanes)
+    elif banked and tables.shape[2] != n_banks:
         raise ValueError(f"per-bank tables {tuple(tables.shape)} need "
                          f"{n_banks} banks")
     bins = torch.as_tensor(bins, dtype=torch.float32, device=dev)
@@ -365,7 +433,13 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
         up = (bins < reading[..., None]).sum(-1)
         down = (bins < (reading + hyst)[..., None]).sum(-1)
         new_bin = torch.maximum(up, torch.minimum(st.cur_bin, down))
-        tp = (tables[lane, new_bin, b[:, None]] if banked
+        if region_map is None:
+            col = b[:, None] if banked else None
+        elif rmap.dim() == 1:
+            col = rmap[slots[:, k]][:, None]                 # [G, 1]
+        else:
+            col = rmap[lane, slots[:, k][:, None]]           # [G, L]
+        tp = (tables[lane, new_bin, col] if banked
               else tables[lane, new_bin])                    # [G, L, 6]
         tc = _timing_cols(tp)
         lat[:, k], is_hit = _service(st.bank, t, b, rf_all[:, k],
@@ -395,10 +469,12 @@ def replay_adaptive(arrival, bank, row, is_write, valid, table, bins,
                     n_ranks: int = 1, ileave=None, t_burst: float = 5.0,
                     fault=None, region_map=None):
     """Closed-loop replay of one trace ([N] fields) under one table
-    stack ([S+1, 6] or per-bank [S+1, n_banks, 6], JEDEC row last) and
-    one scenario row ([SCN_COLS]); `closed` a bool.  Returns (latency
-    [N], total runtime, sensed temperature [N], selected bin [N] int32
-    (-1 at padding), end-of-trace per-bank overheat [n_banks]).  With
+    stack ([S+1, 6] or per-bank [S+1, n_banks, 6], JEDEC row last; with
+    a `region_map` of [banks * R] or [banks, R] the unique-column stack
+    [S+1, U, 6]) and one scenario row ([SCN_COLS]); `closed` a bool.
+    Returns (latency [N], total runtime, sensed temperature [N],
+    selected bin [N] int32 (-1 at padding), end-of-trace per-bank
+    overheat [n_banks]).  With
     `c_heat = 0` and a steady scenario it equals `replay_one` of the
     selected constant row, bit for bit."""
     if n_channels * n_ranks != 1:
@@ -409,17 +485,15 @@ def replay_adaptive(arrival, bank, row, is_write, valid, table, bins,
         raise NotImplementedError(
             "faulted adaptive replay is not ported yet: ROADMAP queue A "
             "item 9")
-    if region_map is not None:
-        raise NotImplementedError(
-            "per-region adaptive replay is not ported yet: ROADMAP queue "
-            "A item 8")
     dev = arrival.device
+    if region_map is not None:
+        region_map = torch.as_tensor(region_map, device=dev).reshape(-1)
     closed_t = torch.as_tensor(bool(closed), device=dev)[None]
     lat, total, temps, sel, heat, _ = replay_adaptive_cells(
         arrival[None], bank[None], row[None], is_write[None], valid[None],
         torch.as_tensor(table, device=dev)[None], bins,
         torch.as_tensor(scn_row, device=dev)[None], tcfg_row, closed_t,
-        n_banks, mlp_window)
+        n_banks, mlp_window, region_map)
     return (lat[0, :, 0], total[0, 0], temps[0, :, 0], sel[0, :, 0],
             heat[0, :, 0])
 

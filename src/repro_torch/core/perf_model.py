@@ -136,11 +136,14 @@ def evaluate_many(timings, n: int = 8192, seed: int = 0,
                   engine: SimEngine | None = None,
                   policies: tuple[dram_sim.Policy, ...] = (dram_sim.OPEN_FCFS,),
                   n_banks: int = 8, traces: dram_sim.Trace | None = None,
-                  device: str | torch.device = "cuda") -> dict:
+                  device: str | torch.device = "cuda",
+                  region_map=None) -> dict:
     """Replay the workload pool under [S, 6] stacked timing rows (and
     policies) in ONE replay launch on the engine's device (a new
-    `SimEngine(device=device)` when none is given).  `traces` replaces
-    the synthesized pool with a given [70, N] batch.
+    `SimEngine(device=device)` when none is given).  `timings` may also
+    be a per-bank [S, banks, 6] stack or, with `region_map` (the
+    `SimSpec.region_map` contract), the [S, U, 6] unique-row store.
+    `traces` replaces the synthesized pool with a given [70, N] batch.
 
     Returns mean latencies as [modes(2), workloads(35), P, S] plus the
     raw `SimResult` (trace axis = mode-major flattening)."""
@@ -148,7 +151,8 @@ def evaluate_many(timings, n: int = 8192, seed: int = 0,
     if traces is None:
         traces = trace_batch(n, seed, n_banks, device=engine.device)
     res = engine.run(SimSpec(traces=traces, timings=timings,
-                             policies=policies, n_banks=n_banks))
+                             policies=policies, n_banks=n_banks,
+                             region_map=region_map))
     nw = len(WORKLOADS)
     grid = res.mean_latency_ns.reshape((len(MODES), nw)
                                        + res.mean_latency_ns.shape[1:])

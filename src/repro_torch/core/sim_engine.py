@@ -5,12 +5,15 @@ launch each.
 
 A `SimSpec` declares the campaign axes — traces (padded to one length
 with a validity mask), scheduling policies (open/closed page, FCFS) and
-stacked timing rows [S, 6] or per-bank [S, banks, 6] — and
+stacked timing rows [S, 6], per-bank [S, banks, 6], or the
+mask-compressed subarray-region store [S, U, 6] with its index map
+(`region_map`) — and
 `SimEngine.run` replays the whole (T x P x S) grid through
 `repro_torch.kernels.replay.ops.replay_grid`: the CUDA kernel on a card,
 its plain version on the CPU.  With a `thermal.ThermalSpec` attached the
-timing axis is a stack of per-bin TABLES ([K, S+1, 6] or [K, S+1, banks,
-6], JEDEC row last) and the (T x P x K x C) grid replays through
+timing axis is a stack of per-bin TABLES ([K, S+1, 6], [K, S+1, banks,
+6] or with a region map [K, S+1, U, 6], JEDEC row last) and the
+(T x P x K x C) grid replays through
 `replay_grid_adaptive` (the `adaptive_blocks` kernel), which also
 reduces the thermal diagnostics (temp_max / temp_mean / bin_switches)
 in the launch.  `SimEngine.run_bracket` runs the adaptive campaign, the
@@ -86,33 +89,38 @@ class SimSpec:
 
     Attaching `thermal` switches to the closed-loop replay: `timings`
     is then a stack of per-bin tables ([K, S+1, 6] or per-bank
-    [K, S+1, banks, 6]) and the grid is [T, P, K, C] (C = scenarios)."""
+    [K, S+1, banks, 6]) and the grid is [T, P, K, C] (C = scenarios).
+
+    `region_map` (int, [banks * R] shared, or [S, banks * R] / [K,
+    banks * R] per timing row / table stack) switches the spatial axis
+    of `timings` to the unique-row store ([S, U, 6] / [K, S+1, U, 6]):
+    each request reads the row of its (bank, region_of(row, R)) slot
+    through the map.  Its range is checked here, once per campaign, on
+    the host."""
 
     traces: tuple[Trace, ...]
-    # [S, 6] | per-bank [S, banks, 6] | adaptive [K, S+1, 6] |
-    # adaptive per-bank [K, S+1, banks, 6]
+    # [S, 6] | per-bank [S, banks, 6] | region store [S, U, 6] |
+    # adaptive [K, S+1, 6] | [K, S+1, banks, 6] | [K, S+1, U, 6]
     timings: np.ndarray
     policies: tuple[Policy, ...] = (OPEN_FCFS,)
     n_banks: int = 8
     mlp_window: int = 8
     collect: tuple[str, ...] = ()
     thermal: ThermalSpec | None = None
+    region_map: np.ndarray | None = None
     # axes of the reference campaign that are not ported yet
     n_channels: int = 1
     n_ranks: int = 1
     faults: object = None
-    region_map: object = None
 
     def __post_init__(self):
         if self.thermal is not None and not isinstance(self.thermal,
                                                        ThermalSpec):
             raise TypeError(f"thermal must be a ThermalSpec, got "
                             f"{type(self.thermal).__name__}")
-        for name, todo in (("faults", "9"), ("region_map", "8")):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"SimSpec.{name} is not ported yet: ROADMAP queue A "
-                    f"item {todo}")
+        if self.faults is not None:
+            raise NotImplementedError(
+                "SimSpec.faults is not ported yet: ROADMAP queue A item 9")
         if self.n_channels * self.n_ranks != 1:
             raise NotImplementedError(
                 "multi-channel campaigns are not ported yet: ROADMAP "
@@ -140,8 +148,29 @@ class SimSpec:
         if self.thermal is None and set(self.collect) - {"latencies"}:
             raise ValueError("temps/bins are collected on the adaptive "
                              "(thermal) path only")
-        if self.timings.ndim == (3 if self.thermal is None else 4) \
-                and self.timings.shape[-2] != self.n_banks:
+        spatial = self.timings.ndim == (3 if self.thermal is None else 4)
+        if self.region_map is not None:
+            rm = np.asarray(self.region_map)
+            if not np.issubdtype(rm.dtype, np.integer):
+                raise ValueError(f"region_map must be integer, got {rm.dtype}")
+            rm = rm.astype(np.int32)
+            object.__setattr__(self, "region_map", rm)
+            if not spatial:
+                raise ValueError("region_map needs a [.., U, 6] unique-row "
+                                 "timing axis")
+            if rm.ndim not in (1, 2) or rm.shape[-1] == 0 \
+                    or rm.shape[-1] % self.n_banks:
+                raise ValueError(f"region_map {rm.shape} must be [banks * "
+                                 f"regions] or [rows, banks * regions] with "
+                                 f"{self.n_banks} banks")
+            if rm.ndim == 2 and rm.shape[0] != self.timings.shape[0]:
+                raise ValueError(f"per-row region_map {rm.shape} vs timings "
+                                 f"{self.timings.shape}")
+            if int(rm.min()) < 0 or int(rm.max()) >= self.timings.shape[-2]:
+                raise ValueError(f"region_map entries outside [0, "
+                                 f"{self.timings.shape[-2]}) (the unique-"
+                                 "row store)")
+        elif spatial and self.timings.shape[-2] != self.n_banks:
             raise ValueError(f"per-bank timings {self.timings.shape} need "
                              f"{self.n_banks} banks")
 
@@ -305,17 +334,26 @@ class SimEngine:
                 "queue A item 10")
 
     def run(self, spec: SimSpec) -> SimResult:
+        """One replay launch over the whole campaign grid.  The streams
+        are checked once, before the launch (the region map was checked
+        by `SimSpec`)."""
         from repro_torch.kernels.replay import ops as replay_ops
         arrival, bank, row, is_write, valid, closed = spec.pack(self.device)
         dev = self.device
+        regioned = spec.region_map is not None
+        replay_ops.check_data("SimEngine.run", bank, valid, spec.n_banks,
+                              row if regioned else None)
         valid_d = torch.as_tensor(valid, device=dev)
         closed_d = torch.as_tensor(closed, device=dev)
         timings = torch.as_tensor(spec.timings, device=dev)
+        rmap = (torch.as_tensor(spec.region_map, device=dev) if regioned
+                else None)
         self.dispatch_count += 1
         if spec.thermal is None:
             lat, total = replay_ops.replay_grid(
                 arrival, bank, row, is_write, valid_d, timings, closed_d,
-                spec.n_banks, spec.mlp_window)
+                spec.n_banks, spec.mlp_window, validated=True,
+                region_map=rmap)
             extra = {}
         else:
             scns, bins, tcfg = spec.thermal.pack()
@@ -325,7 +363,7 @@ class SimEngine:
                 replay_ops.replay_grid_adaptive(
                     arrival, bank, row, is_write, valid_d, timings, bins,
                     scns, tcfg, closed_d, spec.n_banks, spec.mlp_window,
-                    emit_raw=raw)
+                    emit_raw=raw, validated=True, region_map=rmap)
             if self.stats == "host":
                 diag = _device_thermal_diag(temps, bin_sel, valid_d)
             extra = dict(zip(("temp_max", "temp_mean", "bin_switches"),
@@ -369,6 +407,9 @@ class SimEngine:
         if spec.thermal is None or spec.timings.shape[0] != 1:
             raise ValueError("run_bracket needs an adaptive spec with one "
                              "table stack")
+        if spec.region_map is not None:
+            raise ValueError("run_bracket replays per-module or per-bank "
+                             "stacks, not a region map")
         dev = self.device
         arrival, bank, row, is_write, valid, closed = spec.pack(dev)
         replay_ops.check_data("run_bracket", bank, valid, spec.n_banks)

@@ -11,8 +11,8 @@ tREFI override columns.
 Host/device split: the [cells x combos] margin grids stay on the
 engine's device (12 GB at the full 115-module campaign).  The `>= 0`
 pass reductions over chips and tail cells run there too, and only the
-[modules, banks, temps, combos] booleans cross to the host, where the
-(small) combo selection runs in numpy.
+[modules, banks(, regions), temps, combos] booleans cross to the host,
+where the (small) combo selection runs in numpy.
 """
 
 from __future__ import annotations
@@ -131,7 +131,14 @@ class SweepResult:
     and the per-rank-level-bank views of the same launch:
       ok_bank[k] [modules, banks, n_temps, n_combos_k], chosen_bank[k]
       [modules, banks, n_temps, 5], latency_sum_bank[k]
-      [modules, banks, n_temps], with ok[k] == ok_bank[k].all(1).
+      [modules, banks, n_temps], with ok[k] == ok_bank[k].all(1);
+    and, when the campaign asks for `regions` > 1, the per-(bank,
+    subarray region) views (the tail-cell axis is the row-position
+    axis, split into `regions` contiguous groups):
+      ok_region[k] [modules, banks, regions, n_temps, n_combos_k],
+      chosen_region[k] [modules, banks, regions, n_temps, 5],
+      latency_sum_region[k] [modules, banks, regions, n_temps],
+    with ok_bank[k] == ok_region[k].all(2), exactly.
     """
 
     spec: SweepSpec
@@ -143,6 +150,10 @@ class SweepResult:
     ok_bank: tuple[np.ndarray, ...] = ()
     chosen_bank: tuple[np.ndarray, ...] = ()
     latency_sum_bank: tuple[np.ndarray, ...] = ()
+    regions: int = 1
+    ok_region: tuple[np.ndarray, ...] = ()
+    chosen_region: tuple[np.ndarray, ...] = ()
+    latency_sum_region: tuple[np.ndarray, ...] = ()
 
     @property
     def temps(self) -> tuple[float, ...]:
@@ -283,13 +294,15 @@ class MarginEngine:
     def sweep(self, pop: Population, spec: SweepSpec,
               regions: int = 1) -> SweepResult:
         """Run a whole declarative campaign in ONE launch, then reduce
-        the grid on the device to per-(module, bank) pass envelopes."""
-        if regions != 1:
-            raise NotImplementedError(
-                "regions > 1 (subarray-region sweeps) is not ported yet: "
-                "ROADMAP queue A item 8")
+        the grid on the device to per-(module, bank) pass envelopes and,
+        with `regions` > 1, per-(module, bank, subarray region) ones:
+        the tail-cell axis splits into `regions` contiguous groups (cell
+        k -> region k * regions // n_cells), still one launch."""
         n_mod = pop.n_modules
         ch, bk, kc = pop.cells.shape[1:4]
+        if regions < 1 or kc % regions:
+            raise ValueError(f"regions={regions} must divide the {kc} tail "
+                             "cells (contiguous row-position groups)")
         n_temps = len(spec.temps)
         combos_all, temps_all, trefi_mod, trefi_cells = \
             self.campaign_columns(pop, spec)
@@ -300,16 +313,20 @@ class MarginEngine:
 
         margins, ok, chosen, sums = [], [], [], []
         ok_b, chosen_b, sums_b = [], [], []
+        ok_r, chosen_r, sums_r = [], [], []
         off = 0
         for test in spec.tests:
             c = test.combos.shape[0]
             block = (read_m if test.op is Op.READ else write_m)
             m3 = block[:, off:off + n_temps * c].unflatten(1, (n_temps, c))
             off += n_temps * c
-            # bank envelope: every chip and tail cell of the rank-level
-            # bank passes; the module envelope intersects the banks
-            okb_k = ((m3 >= 0.0).view(n_mod, ch, bk, kc, n_temps, c)
-                     .all(3).all(1).cpu().numpy())   # [mod, bk, T, C]
+            # region envelope: every chip and every tail cell of the
+            # region's row-position group passes; the bank envelope
+            # intersects the regions, the module envelope the banks
+            okr_d = ((m3 >= 0.0).view(n_mod, ch, bk, regions,
+                                      kc // regions, n_temps, c)
+                     .all(4).all(1))                 # [mod, bk, R, T, C]
+            okb_k = okr_d.all(2).cpu().numpy()       # [mod, bk, T, C]
             ok_k = okb_k.all(1)
             ch_k, s_k = select_combos(test.combos, ok_k, test.op,
                                       trefi_mod[test.op], self.std)
@@ -322,8 +339,18 @@ class MarginEngine:
             ok_b.append(okb_k)
             chosen_b.append(chb_k)
             sums_b.append(sb_k)
+            if regions > 1:
+                okr_k = okr_d.cpu().numpy()
+                chr_k, sr_k = select_combos(test.combos, okr_k, test.op,
+                                            trefi_mod[test.op], self.std)
+                ok_r.append(okr_k)
+                chosen_r.append(chr_k)
+                sums_r.append(sr_k)
         return SweepResult(spec=spec, std=self.std,
                            margins=tuple(margins), ok=tuple(ok),
                            chosen=tuple(chosen), latency_sum=tuple(sums),
                            ok_bank=tuple(ok_b), chosen_bank=tuple(chosen_b),
-                           latency_sum_bank=tuple(sums_b))
+                           latency_sum_bank=tuple(sums_b), regions=regions,
+                           ok_region=tuple(ok_r),
+                           chosen_region=tuple(chosen_r),
+                           latency_sum_region=tuple(sums_r))

@@ -27,6 +27,10 @@ N_CHIPS = 8
 N_BANKS = 8
 N_TAIL_CELLS = 24      # tail cells sampled per (module, chip, bank)
 
+# weak direction of each stacked CellParams field (tau_r, xfer,
+# tau_ret85, tau_p, tau_w): +1 = a larger value is the weaker cell
+FIELD_WEAK_SIGNS = (+1.0, -1.0, -1.0, +1.0, +1.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class VariationConfig:
@@ -55,8 +59,8 @@ class VariationConfig:
     # correlated-weakness: a slow cell also retains worse
     rc_ret_corr: float = 0.15
 
-    # within-bank row-position gradient (subarray regions); only 0.0
-    # is ported so far
+    # within-bank row-position gradient (subarray regions): ln-scale
+    # shift toward the weak side across the bank; 0.0 = off
     k_region: float = 0.0
 
     n_modules: int = N_MODULES
@@ -117,10 +121,6 @@ def sample_population(generator: torch.Generator,
     `torch.Generator`, so one seed gives the same cells on every
     device) and place it on `device`."""
     dev = resolve_device(device)
-    if cfg.k_region != 0.0:
-        raise NotImplementedError(
-            "k_region != 0 (subarray-region row-position gradient) is "
-            "not ported yet: ROADMAP queue A item 8")
     shape = (cfg.n_modules, cfg.n_chips, cfg.n_banks, cfg.n_cells)
     # shared weakness component: correlates slow-RC with short retention
     shared = _randn(generator, shape).abs() * cfg.rc_ret_corr
@@ -134,4 +134,12 @@ def sample_population(generator: torch.Generator,
     tau_w = _hier_field(generator, cfg, cfg.mu_tau_w, +1.0, cfg.k_tau_w)
 
     cells = torch.stack([tau_r, xfer, tau_ret, tau_p, tau_w], dim=-1)
+    if cfg.k_region != 0.0:
+        # within-bank row-position gradient: the tail-cell axis is the
+        # row-position axis (charge.row_positions), so cells far from
+        # the sense amps shift toward the weak side
+        from repro_torch.core.charge import region_gradient, row_positions
+        grad = region_gradient(row_positions(cfg.n_cells), cfg.k_region,
+                               FIELD_WEAK_SIGNS)
+        cells = cells * grad[None, None, None, :, :]
     return Population(cells=cells.to(dev))

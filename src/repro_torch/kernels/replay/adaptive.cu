@@ -4,14 +4,18 @@
 //
 // Replaces the Pallas TPU kernel `adaptive_blocks` of
 // src/repro/kernels/replay/replay.py (`_adaptive_kernel`, launched at
-// :626): module tables [S+1, 6, L] (variant a) and per-bank tables
-// [n_banks, S+1, 6, L] (variant b), one channel, no faults, no regions.
+// :626): module tables [S+1, 6, L] (variant a), per-bank tables
+// [n_banks, S+1, 6, L] (variant b) and mask-compressed subarray-region
+// tables [U, S+1, 6, L] gathered through an index map (variant c, the
+// regioned branch at replay.py:392), one channel, no faults.
 // Plain version: repro_torch/core/dram_sim.py (`replay_adaptive_cells`,
 // `service_math`, `thermal.ambient_at`, `power.access_energy_from_terms`).
 //
 // Inputs (row-major, float32 unless noted): closed [G] (1 = closed page);
 // arrival [G, N]; bank, row, is_write, valid [G, N] int32; tables
-// [(n_banks,) R, 6, L] with R = S + 1 rows per stack, the JEDEC row last;
+// [(n_banks | U,) R, 6, L] with R = S + 1 rows per stack, the JEDEC row
+// last; for (c) region_map int32 [n_banks * NR] shared by every lane, or
+// [n_banks * NR, L] per lane, with values in [0, U) (NR regions per bank);
 // scn [9, L] scenario rows (base, amp_sin, period_sin, amp_step, t_step,
 // amp_burst, period_burst, duty, hyst_scale); edges [E] ascending bin
 // edges (E = S, or one +inf edge when S = 0); tcfg [6] (tau, c_heat,
@@ -33,6 +37,11 @@
 // count are reduced here and only [G, L] values are written.  The table
 // row of the selected (bin[, bank]) is read from global memory (read-only
 // and L1-resident: L * R * 6 * 4 bytes, x n_banks for variant b).
+// Variant (c) resolves the request's (bank, region) slot bank * NR +
+// region_of(row, NR) — int32 arithmetic, (row mod 512) * NR / 512 with a
+// floored modulo — to a unique column u through the map and reads column
+// u at the selected bin (a template instantiation of its own,
+// kRegioned); the heat registers stay per bank.
 //
 // Numerics.  Each step follows the plain version operation for operation:
 // decay heat * expf((-dt) / tau) with a true division; the sensed
@@ -62,6 +71,7 @@ constexpr int kChunk = 1024;    // requests staged per shared-memory chunk
 constexpr int kMaxLanes = 128;  // lanes per block
 constexpr int kMaxBanks = 16;   // heat registers per lane
 constexpr float kTwoPi = 6.2831854820251465f;  // float32(2 * pi)
+constexpr int kSubarrayRows = 512;              // dram_sim.SUBARRAY_ROWS
 
 __device__ __forceinline__ float floored_rem(float a, float b) {
   float m = fmodf(a, b);
@@ -69,18 +79,20 @@ __device__ __forceinline__ float floored_rem(float a, float b) {
   return m;
 }
 
+template <bool kRegioned>
 __global__ void adaptive_kernel(
     const float* __restrict__ closed, const float* __restrict__ arrival,
     const int* __restrict__ bank, const int* __restrict__ row,
     const int* __restrict__ is_write, const int* __restrict__ valid,
-    const float* __restrict__ tables, const float* __restrict__ scn,
+    const float* __restrict__ tables, const int* __restrict__ region_map,
+    const float* __restrict__ scn,
     const float* __restrict__ edges, const float* __restrict__ tcfg,
     float* __restrict__ lat, float* __restrict__ total,
     float* __restrict__ tmax_out, float* __restrict__ tmean_out,
     int* __restrict__ sw_out, float* __restrict__ heat_out,
     float* __restrict__ temps_out, int* __restrict__ bins_out, int n,
     int lanes, int n_edges, int n_rows, int n_banks, int mlp_window,
-    int banked, int emit_raw) {
+    int banked, int n_regions, int map_per_lane, int emit_raw) {
   extern __shared__ float smem[];
   const int bs = blockDim.x;
   const int lane = threadIdx.x;
@@ -130,7 +142,7 @@ __global__ void adaptive_kernel(
   int cur = 0, switches = 0, n_valid = 0;
   float t_prev = 0.0f, tmax = -INFINITY, tsum = 0.0f;
   const long long cell = (long long)g * n;
-  const long long stack = (long long)n_rows * 6 * lanes;   // one bank's
+  const long long stack = (long long)n_rows * 6 * lanes;   // one column
 
   for (int base_k = 0; base_k < n; base_k += kChunk) {
     const int len = min(kChunk, n - base_k);
@@ -186,7 +198,14 @@ __global__ void adaptive_kernel(
         down += e < reading_h ? 1 : 0;
       }
       const int new_bin = max(up, min(cur, down));
-      const float* tp = tables + (banked ? bk * stack : 0) +
+      int col = banked ? bk : 0;
+      if constexpr (kRegioned) {
+        int off = s_row[kk] % kSubarrayRows;
+        if (off < 0) off += kSubarrayRows;
+        const int slot = bk * n_regions + off * n_regions / kSubarrayRows;
+        col = region_map[map_per_lane ? slot * lanes + l : slot];
+      }
+      const float* tp = tables + col * stack +
                         (long long)new_bin * 6 * lanes + l;
       const float trcd = tp[0 * lanes], tras = tp[1 * lanes];
       const float twr = tp[2 * lanes], trp = tp[3 * lanes];
@@ -267,32 +286,40 @@ extern "C" int adaptive_smem_bytes(int lanes, int n_banks, int mlp_window) {
 
 // C interface (ctypes).  Returns the cudaError_t of the launch (0 =
 // success); the kernel runs asynchronously on `stream` (a cudaStream_t).
-// temps_out and bins_out may be NULL when emit_raw is 0.
+// temps_out and bins_out may be NULL when emit_raw is 0, region_map when
+// n_regions is 0 (variants a and b).
 extern "C" int adaptive_launch(
     const float* closed, const float* arrival, const int* bank,
     const int* row, const int* is_write, const int* valid,
-    const float* tables, const float* scn, const float* edges,
+    const float* tables, const int* region_map, const float* scn,
+    const float* edges,
     const float* tcfg, float* lat, float* total, float* tmax_out,
     float* tmean_out, int* sw_out, float* heat_out, float* temps_out,
     int* bins_out, int g, int n, int lanes, int n_edges, int n_rows,
-    int n_banks, int mlp_window, int banked, int emit_raw, void* stream) {
+    int n_banks, int mlp_window, int banked, int n_regions,
+    int map_per_lane, int emit_raw, void* stream) {
   if (g <= 0 || n <= 0 || lanes <= 0 || n_edges <= 0 || n_rows <= 0 ||
       n_banks <= 0 || n_banks > kMaxBanks || mlp_window <= 0 ||
+      n_regions < 0 || (n_regions > 0 && (!banked || region_map == nullptr)) ||
       (emit_raw && (temps_out == nullptr || bins_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int bs = block_lanes(lanes);
   const int smem = adaptive_smem_bytes(lanes, n_banks, mlp_window);
+  // the region gather is compiled into the (c) instantiation only, so
+  // (a) and (b) pay nothing for it
+  auto kern = n_regions > 0 ? adaptive_kernel<true> : adaptive_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        adaptive_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int gy = (lanes + bs - 1) / bs;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)g, (unsigned)gy);
-  adaptive_kernel<<<grid, bs, smem, (cudaStream_t)stream>>>(
-      closed, arrival, bank, row, is_write, valid, tables, scn, edges, tcfg,
-      lat, total, tmax_out, tmean_out, sw_out, heat_out, temps_out, bins_out,
-      n, lanes, n_edges, n_rows, n_banks, mlp_window, banked, emit_raw);
+  kern<<<grid, bs, smem, (cudaStream_t)stream>>>(
+      closed, arrival, bank, row, is_write, valid, tables, region_map, scn,
+      edges, tcfg, lat, total, tmax_out, tmean_out, sw_out, heat_out,
+      temps_out, bins_out, n, lanes, n_edges, n_rows, n_banks, mlp_window,
+      banked, n_regions, map_per_lane, emit_raw);
   return (int)cudaGetLastError();
 }

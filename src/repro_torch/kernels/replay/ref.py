@@ -41,15 +41,40 @@ def from_cells(lat, total, t: int, p: int):
 
 def timing_tile(timings) -> torch.Tensor:
     """[S, 6] rows -> the kernel's [6, S] tile; per-bank [S, banks, 6]
-    -> [banks, 6, S] (contiguous float32)."""
+    (or the region store [S, U, 6]) -> [banks | U, 6, S] (contiguous
+    float32)."""
     tim = timings.to(torch.float32)
     return (tim.T if tim.dim() == 2 else tim.permute(1, 2, 0)).contiguous()
 
 
+def map_tile(region_map, device) -> torch.Tensor:
+    """A region index map in the campaign layout — [banks * R] shared,
+    or [lanes, banks * R] per lane — -> the kernel's layout: [banks * R]
+    or [banks * R, lanes] (contiguous int32)."""
+    rm = torch.as_tensor(region_map, device=device).to(torch.int32)
+    return (rm.T if rm.dim() == 2 else rm).contiguous()
+
+
+def lane_map(map_t) -> torch.Tensor:
+    """Inverse of `map_tile`."""
+    return map_t.T if map_t.dim() == 2 else map_t
+
+
 def lane_tables(tables, c: int) -> torch.Tensor:
-    """[K, S+1, 6] (or per-bank [K, S+1, B, 6]) table stacks -> one
-    stack per lane l = k*C + c: [K*C, S+1, (B,) 6]."""
+    """[K, S+1, 6] (or per-bank [K, S+1, B, 6], or region-compressed
+    [K, S+1, U, 6]) table stacks -> one stack per lane l = k*C + c:
+    [K*C, S+1, (B | U,) 6]."""
     return tables.to(torch.float32).repeat_interleave(c, dim=0)
+
+
+def lane_stack_map(region_map, c: int, device):
+    """A region map per table stack ([K, banks * R]) -> one per lane
+    l = k*C + c ([K*C, banks * R]); a shared [banks * R] map (or None)
+    passes through."""
+    if region_map is None:
+        return None
+    rm = torch.as_tensor(region_map, device=device)
+    return rm.repeat_interleave(c, dim=0) if rm.dim() == 2 else rm
 
 
 def lane_scenarios(scns, k: int) -> torch.Tensor:
@@ -93,28 +118,33 @@ def from_lanes(out, t: int, p: int, k: int, c: int):
 
 
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
-                n_banks: int = 8, mlp_window: int = 8):
+                n_banks: int = 8, mlp_window: int = 8, region_map=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N]; timings
     [S, 6] or per-bank [S, banks, 6]; closed [P] bool -> (latency
-    [T, P, S, N], total [T, P, S])."""
+    [T, P, S, N], total [T, P, S]).  With `region_map` ([banks * R]
+    shared or [S, banks * R] per lane) `timings` is the [S, U, 6]
+    unique-row store (`dram_sim.replay_cells`)."""
     t, p, _ = arrival.shape
     closed_c, arr, bk, rw, wr, val = to_cells(arrival, bank, row, is_write,
                                               valid, closed)
     lat, total = replay_cells(arr, bk, rw, wr, val,
                               torch.as_tensor(timings, device=arr.device),
-                              closed_c > 0.5, n_banks, mlp_window)
+                              closed_c > 0.5, n_banks, mlp_window,
+                              region_map)
     return from_cells(lat, total, t, p)
 
 
 def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
                          bins, scns, tcfg, closed, n_banks: int = 8,
-                         mlp_window: int = 8):
+                         mlp_window: int = 8, region_map=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N]; tables
     [K, S+1, 6] or per-bank [K, S+1, banks, 6] (JEDEC row last); bins
     [S]; scns [C, SCN_COLS]; tcfg [6]; closed [P] -> (lat [T, P, K, C,
     N], total [T, P, K, C], temps [T, P, K, C, N], bins [T, P, K, C, N]
     int32, bank_heat [T, P, K, C, banks], (temp_max, temp_mean,
-    bin_switches) each [T, P, K, C])."""
+    bin_switches) each [T, P, K, C]).  With `region_map` ([banks * R]
+    shared by every stack or [K, banks * R] per stack) `tables` is the
+    [K, S+1, U, 6] unique-column stack."""
     t, p, _ = arrival.shape
     dev = arrival.device
     tables = torch.as_tensor(tables, device=dev)
@@ -124,6 +154,7 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
                                               valid, closed)
     lat, total, temps, sel, heat, (tmax, tmean, sw) = replay_adaptive_cells(
         arr, bk, rw, wr, val, lane_tables(tables, c), bins,
-        lane_scenarios(scns, k), tcfg, closed_c > 0.5, n_banks, mlp_window)
+        lane_scenarios(scns, k), tcfg, closed_c > 0.5, n_banks, mlp_window,
+        lane_stack_map(region_map, c, dev))
     return from_lanes((lat, total, tmax, tmean, sw, heat, temps, sel),
                       t, p, k, c)

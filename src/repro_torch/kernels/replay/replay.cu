@@ -1,16 +1,19 @@
 // Batched DRAM trace replay for Hopper: every (cell g, timing row s) lane
 // replays cell g's request stream under timing row s.
 //
-// Replaces variants (a) and (b) of the Pallas TPU kernel `replay_blocks`
-// of src/repro/kernels/replay/replay.py (`_kernel`): module-level timing
-// rows [6, S] (a) or the per-bank tile [n_banks, 6, S] (b, the banked
-// branch at replay.py:99/:172), one channel, no faults, no regions.  Plain
+// Replaces variants (a), (b) and (c) of the Pallas TPU kernel
+// `replay_blocks` of src/repro/kernels/replay/replay.py (`_kernel`):
+// module-level timing rows [6, S] (a), the per-bank tile [n_banks, 6, S]
+// (b, the banked branch at replay.py:99/:172) or the mask-compressed
+// subarray-region store [U, 6, S] gathered through an index map (c, the
+// regioned branch at replay.py:162), one channel, no faults.  Plain
 // version: repro_torch/core/dram_sim.py (`replay_cells`, `service_math`).
 //
 // Inputs (row-major): closed [G] float32 (1 = closed page); arrival [G, N]
 // float32; bank, row, is_write, valid [G, N] int32 (flags 0/1); timings
-// [6, S] or [n_banks, 6, S] float32 (rows = trcd, tras, twr, trp, trefi,
-// tcl).
+// [6, S], [n_banks, 6, S] or [U, 6, S] float32 (rows = trcd, tras, twr,
+// trp, trefi, tcl); for (c) region_map int32 [n_banks * R] shared by every
+// lane, or [n_banks * R, S] per lane, with values in [0, U).
 // Outputs: lat [G, N, S] float32 (0 at padding), total [G, S] float32.
 //
 // Design.  One block per cell g (x blocks of timing rows), one thread per
@@ -24,7 +27,15 @@
 // Variant (b) reads the request's bank's five timing values from the
 // [n_banks, 6, S] tile in global memory (read-only, L1-resident: 1.5 KB
 // per 8 lanes at S = 6), neighbouring lanes on neighbouring addresses;
-// variant (a) keeps its row in registers.  The branch is uniform.
+// variant (a) keeps its row in registers.  Variant (c) first resolves the
+// request's (bank, region) slot bank * R + region_of(row, R) to a unique
+// column u through the map (one more L1-resident load; a per-lane map
+// gives each lane its own u, so the tile loads of a warp may diverge) and
+// reads column u of the [U, 6, S] store (U x 6 x S x 4 B: 40 KB at U = 64,
+// S = 26).  region_of is int32 arithmetic, (row mod 512) * R / 512 with a
+// floored modulo, as the reference's.  (b) is (c) with the bank as the
+// column.  The branches are uniform; the gather of (c) is a template
+// instantiation of its own (kRegioned).
 //
 // Each request runs `service_math` (src/repro/core/dram_sim.py:652)
 // operation for operation.  It is float32 add, max and select only (no
@@ -48,7 +59,9 @@ namespace {
 
 constexpr int kChunk = 1024;   // requests staged per shared-memory chunk
 constexpr int kMaxLanes = 128; // timing rows per block
+constexpr int kSubarrayRows = 512;  // dram_sim.SUBARRAY_ROWS
 
+template <bool kRegioned>
 __global__ void replay_kernel(const float* __restrict__ closed,
                               const float* __restrict__ arrival,
                               const int* __restrict__ bank,
@@ -56,9 +69,11 @@ __global__ void replay_kernel(const float* __restrict__ closed,
                               const int* __restrict__ is_write,
                               const int* __restrict__ valid,
                               const float* __restrict__ timings,
+                              const int* __restrict__ region_map,
                               float* __restrict__ lat,
                               float* __restrict__ total, int n, int s_rows,
-                              int n_banks, int mlp_window, int banked) {
+                              int n_banks, int mlp_window, int banked,
+                              int n_regions, int map_per_lane) {
   extern __shared__ float smem[];
   const int bs = blockDim.x;
   const int lane = threadIdx.x;
@@ -119,7 +134,14 @@ __global__ void replay_kernel(const float* __restrict__ closed,
       const bool v = (s_flag[kk] & 2) != 0;
       const int ri = (k % mlp_window) * bs + lane;
       if (banked) {
-        const float* tb = timings + (long long)bk * 6 * s_rows + s;
+        int col = bk;
+        if constexpr (kRegioned) {
+          int off = s_row[kk] % kSubarrayRows;
+          if (off < 0) off += kSubarrayRows;
+          const int slot = bk * n_regions + off * n_regions / kSubarrayRows;
+          col = region_map[map_per_lane ? slot * s_rows + s : slot];
+        }
+        const float* tb = timings + (long long)col * 6 * s_rows + s;
         trcd = tb[0 * s_rows];
         tras = tb[1 * s_rows];
         twr = tb[2 * s_rows];
@@ -178,26 +200,33 @@ extern "C" int replay_smem_bytes(int s_rows, int n_banks, int mlp_window) {
 
 // C interface (ctypes).  Returns the cudaError_t of the launch (0 =
 // success); the kernel runs asynchronously on `stream` (a cudaStream_t).
+// region_map may be NULL when n_regions is 0 (variants a and b).
 extern "C" int replay_launch(const float* closed, const float* arrival,
                              const int* bank, const int* row,
                              const int* is_write, const int* valid,
-                             const float* timings, float* lat, float* total,
-                             int g, int n, int s_rows, int n_banks,
-                             int mlp_window, int banked, void* stream) {
-  if (g <= 0 || n <= 0 || s_rows <= 0 || n_banks <= 0 || mlp_window <= 0)
+                             const float* timings, const int* region_map,
+                             float* lat, float* total, int g, int n,
+                             int s_rows, int n_banks, int mlp_window,
+                             int banked, int n_regions, int map_per_lane,
+                             void* stream) {
+  if (g <= 0 || n <= 0 || s_rows <= 0 || n_banks <= 0 || mlp_window <= 0 ||
+      n_regions < 0 || (n_regions > 0 && (!banked || region_map == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int bs = s_rows < kMaxLanes ? ((s_rows + 31) / 32) * 32 : kMaxLanes;
   const int smem = replay_smem_bytes(s_rows, n_banks, mlp_window);
+  // the region gather is compiled into the (c) instantiation only, so
+  // (a) and (b) pay nothing for it
+  auto kern = n_regions > 0 ? replay_kernel<true> : replay_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int gy = (s_rows + bs - 1) / bs;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)g, (unsigned)gy);
-  replay_kernel<<<grid, bs, smem, (cudaStream_t)stream>>>(
-      closed, arrival, bank, row, is_write, valid, timings, lat, total, n,
-      s_rows, n_banks, mlp_window, banked);
+  kern<<<grid, bs, smem, (cudaStream_t)stream>>>(
+      closed, arrival, bank, row, is_write, valid, timings, region_map, lat,
+      total, n, s_rows, n_banks, mlp_window, banked, n_regions, map_per_lane);
   return (int)cudaGetLastError();
 }

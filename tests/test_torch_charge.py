@@ -185,11 +185,20 @@ class TestPopulation:
         assert torch.equal(p1.cells, p2.cells)
         assert p1.flat_cells().shape == (3 * 8 * 8 * 2, 5)
 
-    def test_k_region_not_ported(self):
-        cfg = dataclasses.replace(tcal.CALIBRATED_VARIATION, k_region=0.1)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tvar.sample_population(torch.Generator().manual_seed(0), cfg,
-                                   device="cpu")
+    def test_k_region_population_matches_reference_gradient(self):
+        """k_region != 0 multiplies the draw by the reference's
+        row-position gradient (`charge.region_gradient`)."""
+        cfg = dataclasses.replace(tcal.CALIBRATED_VARIATION, n_modules=2,
+                                  n_cells=6, k_region=0.25)
+        pg = tvar.sample_population(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu")
+        p0 = tvar.sample_population(torch.Generator().manual_seed(0),
+                                    dataclasses.replace(cfg, k_region=0.0),
+                                    device="cpu")
+        grad = np.asarray(jcharge.region_gradient(
+            jcharge.row_positions(6), 0.25, jvar.FIELD_WEAK_SIGNS))
+        np.testing.assert_allclose(pg.cells.numpy(), p0.cells.numpy() * grad,
+                                   rtol=1e-6)
 
     def test_convert_population_roundtrip(self, small_pop):
         pop = convert.population(np.asarray(small_pop.cells), device="cpu")

@@ -9,8 +9,9 @@ PyTorch:
 Tests marked `gpu` need an NVIDIA Hopper card and skip without one
 (decided inside the `cuda` fixture, never at import).  The margin grid
 is held to rtol = atol = 2e-4 (the reference's bound for its own kernel);
-the static replay, module and per-bank, to bitwise equality (its
-arithmetic is add, max and select); the adaptive replay to equal bins on
+the static replay, module, per-bank and regioned, to bitwise equality
+(its arithmetic is add, max and select, and the region gather is a
+selection); the adaptive replay to equal bins on
 every request, latencies within rtol 1e-5 and temperatures / heat within
 rtol 1e-5, atol 1e-4 (the reference's bound for its own adaptive kernel;
 the kernel aims at bitwise and the tests print how far it is)."""
@@ -104,6 +105,34 @@ def _adaptive_inputs(lanes: int, banked: bool, s: int = 3, seed: int = 1):
             torch.tensor(TH.ThermalConfig(tau_ns=5e3, c_heat=2e-4).as_row()))
 
 
+def _region_inputs(lanes: int, u: int, regions: int, per_lane: bool,
+                   seed: int = 4):
+    """A [U, 6, S] unique-row store (each column a scaled DDR3 row) and
+    a kernel-layout index map, [banks * R] shared or [banks * R, S] per
+    lane, that reaches every column."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(0.55, 1.0, (u, lanes))
+    tile = np.broadcast_to(T.DDR3_1600.as_row()[None, :, None],
+                           (u, 6, lanes)).copy()
+    tile[:, :4] *= f[:, None, :]
+    shape = (8 * regions, lanes) if per_lane else (8 * regions,)
+    rmap = rng.integers(0, u, shape)
+    rmap.reshape(-1)[:u] = np.arange(u)
+    return (torch.tensor(tile, dtype=torch.float32),
+            torch.tensor(rmap, dtype=torch.int32))
+
+
+def _region_tables(lanes: int, u: int, regions: int, per_lane: bool):
+    """The adaptive variant: [U, S+1, 6, L] unique-column tables (three
+    bin rows per column plus the JEDEC row) and its map."""
+    base, rmap = _region_inputs(lanes, u, regions, per_lane)
+    tabs = _adaptive_inputs(lanes, False)
+    f = base[:, 0, :] / float(T.DDR3_1600.trcd)               # [U, L]
+    tile = tabs[0][None].repeat(u, 1, 1, 1)                   # [U, 4, 6, L]
+    tile[:, :3, :4] *= (0.9 + 0.1 * f)[:, None, None, :]
+    return (tile.contiguous(), rmap) + tabs[1:]
+
+
 # --------------------------------------------------------------- the card
 
 @pytest.mark.gpu
@@ -154,6 +183,119 @@ def test_banked_replay_kernel_bitwise_equals_plain(cuda, s_rows):
                                          valid.bool(), tim, closed > 0.5)
     assert torch.equal(lat.view(torch.int32), lat2.view(torch.int32))
     assert torch.equal(total.view(torch.int32), total2.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lane"])
+@pytest.mark.parametrize("s_rows,regions", [(3, 2), (26, 8), (130, 4)])
+def test_regioned_replay_kernel_bitwise_equals_plain(cuda, s_rows, regions,
+                                                     per_lane):
+    ins = [x.to(cuda) for x in _streams(5, 700, seed=6)]
+    tile, rmap = (x.to(cuda) for x in _region_inputs(s_rows, 11, regions,
+                                                       per_lane))
+    before = (replay_ops.replay_blocks.launches,
+              replay_ops.replay_blocks.launches_regioned)
+    lat, total = replay_ops.replay_blocks(*ins, tile, region_map=rmap)
+    torch.cuda.synchronize()
+    assert (replay_ops.replay_blocks.launches,
+            replay_ops.replay_blocks.launches_regioned) == \
+        (before[0] + 1, before[1] + 1)
+    closed, arr, bank, row, wr, valid = ins
+    lat2, total2 = dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(), tile.permute(2, 0, 1),
+        closed > 0.5, region_map=rmap.T if per_lane else rmap)
+    assert torch.equal(lat.view(torch.int32), lat2.view(torch.int32))
+    assert torch.equal(total.view(torch.int32), total2.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regions", [1, 4])
+def test_bank_constant_region_map_equals_banked_kernel(cuda, regions):
+    """A map sending every region of bank b to column b (for R = 1 the
+    identity) is variant (b), bit for bit, in both kernels."""
+    ins = [x.to(cuda) for x in _streams(5, 700, seed=7)]
+    rmap = torch.arange(8, dtype=torch.int32, device=cuda) \
+        .repeat_interleave(regions)
+    tim_b = torch.tensor(np.tile(ROWS, (4, 1))[:, None, :]
+                         * np.linspace(1.0, 1.2, 8)[None, :, None],
+                         dtype=torch.float32, device=cuda)
+    tile = tim_b.permute(1, 2, 0).contiguous()                # [8, 6, S]
+    a = replay_ops.replay_blocks(*ins, tile)
+    b = replay_ops.replay_blocks(*ins, tile, region_map=rmap)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+    tabs, scn, bins, tcfg = (x.to(cuda) for x in _adaptive_inputs(8, True))
+    a = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                   emit_raw=True)
+    b = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                   emit_raw=True, region_map=rmap)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lane"])
+@pytest.mark.parametrize("lanes", [8, 130])
+def test_regioned_adaptive_kernel_matches_plain(cuda, lanes, per_lane):
+    ins = [x.to(cuda) for x in _streams(5, 900, seed=8)]
+    tile, rmap, scn, bins, tcfg = (x.to(cuda) for x in _region_tables(
+        lanes, 9, 8, per_lane))
+    before = replay_ops.adaptive_blocks.launches_regioned
+    out = replay_ops.adaptive_blocks(*ins, tile, scn, bins, tcfg,
+                                     emit_raw=True, region_map=rmap)
+    torch.cuda.synchronize()
+    assert replay_ops.adaptive_blocks.launches_regioned == before + 1
+    closed, arr, bank, row, wr, valid = ins
+    from repro_torch.kernels.replay import ref as replay_ref
+    plat, ptot, ptemps, psel, pheat, pdiag = dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(), replay_ref.lane_stacks(tile),
+        bins, scn.T, tcfg, closed > 0.5,
+        region_map=rmap.T if per_lane else rmap)
+    lat, total, tmax, tmean, sw, heat, temps, sel = out
+    assert torch.equal(sel, psel) and torch.equal(sw, pdiag[2])
+    assert int(sel.max()) == 3 and int(sw.sum()) > 0
+    torch.testing.assert_close(lat, plat, rtol=1e-5, atol=0)
+    torch.testing.assert_close(total, ptot, rtol=1e-5, atol=0)
+    for a, b in ((temps, ptemps), (heat, pheat), (tmax, pdiag[0]),
+                 (tmean, pdiag[1])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_regioned_wrappers_reject_bad_maps_and_rows(cuda):
+    ins = [x.to(cuda) for x in _streams(3, 60)]
+    tile, rmap = (x.to(cuda) for x in _region_inputs(3, 5, 4, False))
+    bad = rmap.clone()
+    bad[7] = 5                                   # = U
+    with pytest.raises(ValueError, match="region_map"):
+        replay_ops.replay_blocks(*ins, tile, region_map=bad)
+    bad[7] = -1
+    with pytest.raises(ValueError, match="region_map"):
+        replay_ops.replay_blocks(*ins, tile, region_map=bad)
+    row = ins[3].clone()
+    row[2, 4] = -3
+    with pytest.raises(ValueError, match="negative row"):
+        replay_ops.replay_blocks(*ins[:3], row, *ins[4:], tile,
+                                 region_map=rmap)
+    with pytest.raises(ValueError):                  # map length % banks
+        replay_ops.replay_blocks(*ins, tile, region_map=rmap[:-1].clone())
+    with pytest.raises(ValueError):                  # int64 map
+        replay_ops.replay_blocks(*ins, tile, region_map=rmap.long())
+    tabs, rm8, scn, bins, tcfg = (x.to(cuda) for x in _region_tables(
+        8, 5, 4, True))
+    bad8 = rm8.clone()
+    bad8[0, 3] = 5
+    with pytest.raises(ValueError, match="region_map"):
+        replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                   region_map=bad8)
+    with pytest.raises(ValueError, match="negative row"):
+        replay_ops.adaptive_blocks(*ins[:3], row, *ins[4:], tabs, scn, bins,
+                                   tcfg, region_map=rm8)
+    with pytest.raises(ValueError):                  # [L, banks * R] layout
+        replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                   region_map=rm8.T.contiguous())
 
 
 @pytest.mark.gpu
@@ -289,6 +431,37 @@ def test_adaptive_blocks_cpu_runs_plain_version(banked):
                                        replay_ref.lane_stacks(tabs), bins,
                                        scn.T, tcfg, closed > 0.5)
     assert torch.equal(p[0], lat) and torch.equal(p[4], heat)
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lane"])
+def test_regioned_wrappers_cpu_run_plain_versions(per_lane):
+    ins = _streams(3, 90)
+    closed, arr, bank, row, wr, valid = ins
+    tile, rmap = _region_inputs(4, 6, 4, per_lane)
+    before = replay_ops.replay_blocks.launches
+    lat, total = replay_ops.replay_blocks(*ins, tile, region_map=rmap)
+    assert replay_ops.replay_blocks.launches == before
+    lane_map = rmap.T if per_lane else rmap
+    p = dram_sim.replay_cells(arr, bank, row, wr.bool(), valid.bool(),
+                              tile.permute(2, 0, 1), closed > 0.5,
+                              region_map=lane_map)
+    assert torch.equal(lat, p[0]) and torch.equal(total, p[1])
+    # lane s of the regioned replay is replay_one under its gathered rows
+    s = 2
+    one = dram_sim.replay_one(arr[0], bank[0], row[0], wr[0].bool(),
+                              valid[0].bool(), tile[:, :, s],
+                              bool(closed[0] > 0.5),
+                              region_map=lane_map[s] if per_lane else rmap)
+    assert torch.equal(lat[0, :, s], one[0])
+    tabs, rm8, scn, bins, tcfg = _region_tables(5, 6, 4, per_lane)
+    out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                     region_map=rm8)
+    from repro_torch.kernels.replay import ref as replay_ref
+    pa = dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(), replay_ref.lane_stacks(tabs),
+        bins, scn.T, tcfg, closed > 0.5,
+        region_map=rm8.T if per_lane else rm8)
+    assert torch.equal(out[0], pa[0]) and torch.equal(out[5], pa[4])
 
 
 def test_port_never_imports_jax_or_the_reference():

@@ -176,18 +176,25 @@ def test_port_evaluate_runs_on_its_own_traces():
                                   JT.ALDRAM_55C_EVAL.as_row())
 
 
-@pytest.mark.parametrize("method,args", [
-    ("evaluate_region_system", ()), ("region_table", (2,))])
-def test_unported_controller_paths_raise(pipeline, method, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("method", ["evaluate_region_system",
+                                    "region_table"])
+def test_region_paths_need_a_region_profile(pipeline, method):
+    """The per-bank controller (regions=1) has no region table: the
+    region paths ask for a regions > 1 profile (tests/test_torch_region.py
+    holds them to the reference)."""
+    args = (pipeline["pop"],) if method == "evaluate_region_system" else (2,)
+    with pytest.raises(RuntimeError, match="regions > 1"):
         getattr(pipeline["tc"], method)(*args)
 
 
-def test_unported_table_and_controller_options_raise(pipeline):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline["ttab"].patch(params=pipeline["ttab"].params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TController(pipeline["tc"].profiler, regions=2, device="cpu")
+def test_table_patch_and_controller_options(pipeline):
+    t0 = pipeline["ttab"]
+    t1 = t0.patch(params=t0.params)
+    assert t1.version == t0.version + 1 and t1.rollback() is t0
+    np.testing.assert_array_equal(t1.params, t0.params)
+    with pytest.raises(ValueError, match="per-bank"):
+        TController(pipeline["tc"].profiler, regions=2, per_bank=False,
+                    device="cpu")
     with pytest.raises(ValueError):
         TController(pipeline["tc"].profiler, device="meta")
 

@@ -218,7 +218,6 @@ class TestNotPorted:
 
     @pytest.mark.parametrize("kw", [{"n_ranks": 2},
                                     {"faults": object()},
-                                    {"region_map": np.zeros(8, np.int32)},
                                     {"n_channels": 2}])
     def test_unported_sim_axes_raise(self, kw):
         tr = tdram.Trace(torch.zeros(4), torch.zeros(4, dtype=torch.int32),

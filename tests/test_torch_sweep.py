@@ -178,6 +178,7 @@ def test_spec_validation(campaign):
         spec.op_trefi(tsweep.Op.READ, 3)
     with pytest.raises(ValueError, match="empty"):
         tsweep.SweepSpec(tests=(), temps=(55.0,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # regions must split the tail cells into equal contiguous groups
+    with pytest.raises(ValueError, match="divide"):
         tp.engine.sweep(campaign["pop"], tsweep.SweepSpec.single(
-            "read", g, 55.0), regions=2)
+            "read", g, 55.0), regions=4)

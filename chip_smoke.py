@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's AL-DRAM main, thermal and subarray-region
-paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region and
+fault-injection paths on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -47,7 +47,24 @@ Phases (any failure exits non-zero and prints no result line):
      scenarios in ONE launch of adaptive_blocks (c), and its gmean must
      be >= that of the static replay of each scenario's worst bin; then
      the same path under `torch.profiler` for the device busy share;
-  6. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
+  6. the fault path at full width on what the main path profiled, launch
+     counts reset just before and read just after: the five profiled
+     module rows with the JEDEC row last under open and closed page x
+     the `fault_bench` grid (9 rows, seed 11) plus the reference's two
+     static margin-error rows (ONE launch of replay_blocks (e)), and the
+     deployed module, per-bank and region stacks under the 4 + 4
+     scenarios x the 9-row grid (ONE launch of adaptive_blocks (d)
+     each), all over the 70-trace pool at n = 4096 on the engine's own
+     error uniforms; then `port_fault_bench.run(fast=False)` on the
+     reference's seed-11 uniforms (ONE launch of (d), its acceptance
+     bracket asserted).  The watchdog bound must be exact in every cell
+     of every watchdog lane, the inert lane bitwise equal to the same
+     campaign without a fault axis, and `FaultSpec.none()` must launch
+     no faulted kernel; the bench on the engine's own CUDA draw is
+     printed (its >= 10x bracket depends on the draw and is not
+     asserted, its watchdog bound is); then the same path under
+     `torch.profiler` for the device busy share;
+  7. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
      (b) and adaptive_blocks (module and per-bank tables, raw temps and
      bins emitted) against their plain versions on the card at the
      thermal path's full shapes (bins
@@ -58,8 +75,12 @@ Phases (any failure exits non-zero and prints no result line):
      bank-constant map and R = 1 with the identity map bitwise equal to
      variant (b)) and adaptive_blocks (c) at the regioned closed loop's
      shape (bins identical on every request, raw temps and bins
-     emitted), with their times;
-  7. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
+     emitted), replay_blocks (e) at the static fault campaign's shape
+     and adaptive_blocks (d) at the closed-loop fault campaigns' shape
+     for all three table layouts (latencies, totals, bins, switches and
+     counters bitwise; temperatures within rtol 1e-5, atol 1e-4), with
+     their times;
+  8. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
      the card and on the CPU: chosen combos must agree (a flip only
      where the CPU's deciding margin is within 2e-4 of 0) and the
      Fig. 4 gmeans within 1e-5 relative; then `evaluate_dynamic(n=1024)`
@@ -71,7 +92,10 @@ Phases (any failure exits non-zero and prints no result line):
      path at --fast scale (regions=8) on both: chosen region rows equal
      up to flips whose deciding margin lies within 2e-4 of 0,
      `region_reductions` and compression ratios equal, and the
-     `evaluate_region_system(n=1024)` gmeans within 1e-5 relative.
+     `evaluate_region_system(n=1024)` gmeans within 1e-5 relative; then
+     `port_fault_bench` at --fast scale on the reference's uniforms on
+     both: every served bin and counter equal (a mismatch is printed
+     with its cell, lane, request and |u - p|).
 
 The last lines are the card (`nvidia-smi` name and power limit), one
 JSON object of per-kernel numbers, and the result object.
@@ -139,10 +163,13 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
     """Mean device time in ms of one launch of the CUDA kernel whose
-    name contains `kernel`, over `reps` calls of `fn` after a warm-up
-    (torch.profiler's CUPTI kernel records).  Unlike `cuda_ms` it leaves
+    name contains `kernel`, over the launches of `reps` calls of `fn`
+    (each followed by a synchronize) after a warm-up, from
+    torch.profiler's CUPTI kernel records.  Unlike `cuda_ms` it leaves
     out what the wrapper does around the launch, such as input checks
-    that wait for the device."""
+    that wait for the device.  The profiler has dropped a record now
+    and then; the mean is over the records it kept, and a shortfall is
+    printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -151,12 +178,15 @@ def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
     hits = [e for e in prof.key_averages() if kernel in e.key
             and e.self_device_time_total > 0]
-    check(len(hits) == 1 and hits[0].count == reps,
+    check(len(hits) == 1 and 1 <= hits[0].count <= reps,
           f"profiler saw {[(e.key, e.count) for e in hits]} for {kernel}")
-    return hits[0].self_device_time_total / reps / 1e3
+    if hits[0].count != reps:
+        print(f"  (profiler kept {hits[0].count} of {reps} records of "
+              f"{kernel})")
+    return hits[0].self_device_time_total / hits[0].count / 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -165,28 +195,40 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the variant counters of each replay wrapper (every launch also counts
+# in `launches`; a launch counted in none of these is variant (a))
+VARIANTS = {"replay_blocks": {"b": "launches_banked",
+                              "c": "launches_regioned",
+                              "e": "launches_faulted"},
+            "adaptive_blocks": {"b": "launches_banked",
+                                "c": "launches_regioned",
+                                "d": "launches_faulted"}}
+
+
+def _replay_fns():
+    from repro_torch.kernels.replay import ops as replay_ops
+    return {"replay_blocks": replay_ops.replay_blocks,
+            "adaptive_blocks": replay_ops.adaptive_blocks}
+
+
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.charge_sim import ops as charge_ops
-    from repro_torch.kernels.replay import ops as replay_ops
     charge_ops.margin_grid.launches = 0
-    for fn in (replay_ops.replay_blocks, replay_ops.adaptive_blocks):
+    for name, fn in _replay_fns().items():
         fn.launches = 0
-        fn.launches_banked = 0
-        fn.launches_regioned = 0
+        for attr in VARIANTS[name].values():
+            setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
     """Launches per kernel variant since `reset_counts`."""
     from repro_torch.kernels.charge_sim import ops as charge_ops
-    from repro_torch.kernels.replay import ops as replay_ops
     out = {"margin_grid": charge_ops.margin_grid.launches}
-    for name, fn in (("replay_blocks", replay_ops.replay_blocks),
-                     ("adaptive_blocks", replay_ops.adaptive_blocks)):
-        out[f"{name} (a)"] = (fn.launches - fn.launches_banked
-                              - fn.launches_regioned)
-        out[f"{name} (b)"] = fn.launches_banked
-        out[f"{name} (c)"] = fn.launches_regioned
+    for name, fn in _replay_fns().items():
+        var = {v: getattr(fn, attr) for v, attr in VARIANTS[name].items()}
+        out[f"{name} (a)"] = fn.launches - sum(var.values())
+        out.update({f"{name} ({v})": c for v, c in var.items()})
     return out
 
 
@@ -292,13 +334,17 @@ def busy_share(label: str, fn) -> None:
     """Run `fn` once under `torch.profiler`: wall time, device busy and
     idle share, device time by name.  A measurement only: if the
     profiler records no device time it reports "not measured"."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, t = wall(fn)
-    events = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    # device-side records only (kernels, copies, fills): a CPU op such as
+    # aten::copy_ repeats its children's device time as its own
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
     if dev_us <= 0:
         print(f"{label}: device busy share not measured (the profiler "
               "recorded no device time)")
@@ -329,7 +375,7 @@ def path_launches(env, kernel: str) -> dict:
     """A kernel variant's launches: the total over the paths driven,
     and per path."""
     by_path = {path: env[f"launches_{path}"][kernel]
-               for path in ("main", "thermal", "region")
+               for path in ("main", "thermal", "region", "fault")
                if f"launches_{path}" in env}
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -1165,6 +1211,426 @@ def cross_device_region() -> None:
     check(rel <= 1e-5, f"card vs CPU region gmeans differ by {rel:.3e}")
 
 
+# ------------------------------------------------------------ fault path
+
+# operations per request per lane on top of service_math, for the bound:
+# the watchdog gate and selects, the reduction (4 adds, a division), the
+# error probability and draw, the surcharge, the watchdog transition and
+# five counters
+FAULT_OPS_STATIC = 40
+# the same plus the faulted sensor (lag with its exp, drift, stuck-at,
+# quantization, the hash draws where a row has noise or dropout), the
+# JEDEC gather and sum, the edge excess and the implausibility check
+FAULT_OPS_ADAPTIVE = 70
+
+
+def _fault_campaigns(env):
+    """The fault phase's campaigns at full width, on what the main path
+    profiled: the five profiled module rows with the JEDEC row last
+    under open and closed page, and the deployed module, per-bank and
+    region stacks under the thermal path's 4 + 4 scenarios — each over
+    the 70-trace pool at n = 4096 — under the `fault_bench` grid (9
+    rows, seed 11).  The grid's rows err through the bin-excess term
+    only, which the static replay does not have (no temperature), so the
+    static campaign appends the margin-error rows of the reference's
+    static fixture (`tests/test_faults.py` ACTIVE "err" and "wd").
+    Returns ({name: SimSpec keywords with its `faults`})."""
+    import numpy as np
+    from benchmarks import port_fault_bench
+    from repro_torch.core import faults
+    from repro_torch.core import perf_model
+    from repro_torch.core import thermal as TH
+    from repro_torch.core.aldram import default_scenarios
+    from repro_torch.core.dram_sim import OPEN_FCFS, Policy
+
+    traces = perf_model.trace_batch(4096, SEED, device="cuda")
+    fspec, _ = port_fault_bench._fault_grid(
+        False, float(traces.arrival[0, -1]))
+    rows = env["sys_res"]["rows"]                    # JEDEC first, 5 bins
+    scns = default_scenarios()
+    scns = scns + tuple(x.oracle() for x in scns)
+    table = env["ctrl"].table
+    rows_u, edges_u, idx = env["region_stack"]
+    stacks = {"module": table.safe_stack() + (None,),
+              "bank": table.safe_stack_banks() + (None,),
+              "region": (rows_u, edges_u, idx.reshape(-1))}
+    static_f = faults.FaultSpec(scenarios=fspec.scenarios + (
+        faults.FaultScenario(name="err", err_scale=0.8, err_free_red=0.0,
+                             detect_frac=0.9, retry_ns=60.0),
+        faults.FaultScenario(name="wd", err_scale=0.8, err_free_red=0.0,
+                             detect_frac=1.0, wd_err_n=4, wd_probe=16,
+                             wd_recover_n=2)), seed=fspec.seed)
+    specs = {"static": dict(
+        traces=traces, timings=np.concatenate([rows[1:], rows[:1]]),
+        policies=(OPEN_FCFS, Policy(page="closed")), faults=static_f,
+        collect=("latencies",))}
+    for name, (r, e, rm) in stacks.items():
+        specs[name] = dict(
+            traces=traces, timings=r[None], region_map=rm, faults=fspec,
+            thermal=TH.ThermalSpec(scns, tuple(e.tolist()),
+                                   TH.ThermalConfig()),
+            collect=("latencies", "bins"))
+    return specs
+
+
+def _bound_exact(res, fspec) -> bool:
+    """detected <= wd_err_n * (trips + 1) + probes in every cell of
+    every watchdog lane."""
+    from repro_torch.core import faults
+    wd_n = fspec.pack()[:, faults.WD_ERR_N]
+    on = wd_n > 0
+    bound = wd_n * (res.wd_trips + 1) + res.wd_probes
+    return bool((res.detected_errors[..., on] <= bound[..., on]).all())
+
+
+def fault_path(env) -> None:
+    """Phase 6: the fault axis at full width, kernel launch counts reset
+    just before and read just after: the static campaign (ONE launch of
+    replay_blocks (e)), the module, per-bank and region stacks in closed
+    loop (ONE launch of adaptive_blocks (d) each) and
+    `port_fault_bench.run(fast=False)` on the reference's seed-11
+    uniforms (ONE launch of (d), its acceptance bracket asserted)."""
+    import numpy as np
+    from benchmarks import port_fault_bench
+    from repro_torch.core import faults
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+
+    specs = _fault_campaigns(env)
+    eng = SimEngine(device="cuda")
+    reset_counts()
+    res, secs = {}, {}
+    for name, kw in specs.items():
+        res[name], secs[name] = wall(lambda: eng.run(SimSpec(**kw)))
+    bench, t_bench = wall(lambda: port_fault_bench.run(
+        False, "cuda", port_fault_bench.reference_uniforms(False)))
+    launches = read_counts()
+    # the same campaigns without a fault axis, and under FaultSpec.none()
+    plain = {name: eng.run(SimSpec(**dict(kw, faults=None)))
+             for name, kw in specs.items()}
+    before = read_counts()
+    none = {name: eng.run(SimSpec(**dict(specs[name],
+                                         faults=faults.FaultSpec.none())))
+            for name in ("static", "module")}
+    after = read_counts()
+    own = port_fault_bench.campaign(False, "cuda")
+    own_sum = port_fault_bench.summarize(own["res"], own["fspec"],
+                                         own["lanes"], own["n_req"],
+                                         check=False)
+
+    for name, r in res.items():
+        names = specs[name]["faults"].names()
+        tot = r.fault_counters.reshape(-1, len(names), faults.N_COUNTERS) \
+            .sum(0)
+        print(f"fault campaign {name}: grid {r.mean_latency_ns.shape}, "
+              f"{secs[name]:.3f} s; counters (detected, silent, trips, "
+              "degraded, probes) per fault row: " + "; ".join(
+                  f"{n} {tuple(int(x) for x in c)}"
+                  for n, c in zip(names, tot)))
+    print(f"port_fault_bench.run(fast=False) on the reference's uniforms "
+          f"({t_bench:.3f} s): reduction_none {bench['reduction_none']:.4%}, "
+          "pairs " + json.dumps(bench["pairs"]))
+    print("port_fault_bench on the engine's own CUDA draw (the >= 10x "
+          "bracket is draw-dependent and not asserted here; the watchdog "
+          f"bound is): bound exact {own_sum['bound_exact']}, ratios "
+          + json.dumps({k: d["silent_ratio"] for k, d in
+                        own_sum["pairs"].items()})
+          + ", giveback_pt " + json.dumps({k: d["giveback_pt"] for k, d in
+                                           own_sum["pairs"].items()}))
+    print(f"fault path seconds: " + " ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()) + f" bench {t_bench:.3f}")
+    print("fault path kernels: " + json.dumps(launches))
+
+    for name, r in res.items():
+        check(_bound_exact(r, specs[name]["faults"]),
+              f"{name}: watchdog bound violated")
+        check(int(np.abs(r.fault_counters[..., 0, :]).sum()) == 0,
+              f"{name}: the inert row counted")
+        check(r.wd_trips.sum() > 0 and r.detected_errors.sum() > 0,
+              f"{name}: no error or trip in the grid")
+        p = plain[name]
+        inert = {k: np.take(getattr(r, k), 0, axis=3 if name == "static"
+                            else 4) for k in ("latencies", "total_ns")}
+        same = (np.array_equal(inert["latencies"].view(np.int32),
+                               p.latencies.view(np.int32))
+                and np.array_equal(inert["total_ns"].view(np.int32),
+                                   p.total_ns.view(np.int32)))
+        if name != "static":
+            same = same and np.array_equal(r.bins[..., 0, :], p.bins)
+        check(same, f"{name}: the inert lane differs from the unfaulted "
+                    "campaign")
+    check(_bound_exact(own["res"], own["fspec"]) and own["dispatches"] == 1,
+          "own-draw fault bench: watchdog bound or dispatch count")
+    check(launches["replay_blocks (e)"] == 1
+          and launches["adaptive_blocks (d)"] == 4,
+          f"fault path launches {launches}")
+    check(after["replay_blocks (e)"] == before["replay_blocks (e)"]
+          and after["adaptive_blocks (d)"] == before["adaptive_blocks (d)"],
+          "FaultSpec.none() launched a faulted kernel")
+    for name, r in none.items():
+        p = plain[name]
+        check(np.array_equal(r.latencies[..., 0, :], p.latencies)
+              and r.fault_counters.sum() == 0,
+              f"FaultSpec.none() differs from the unfaulted {name} campaign")
+    print(f"fault path checks: watchdog bound exact in every cell of every "
+          f"watchdog lane; inert lanes bitwise equal to the unfaulted "
+          f"campaigns; FaultSpec.none() launched no faulted kernel "
+          f"(launches {before} -> {after})")
+    env.update(launches_fault=launches, fault_specs=specs)
+
+
+def fault_breakdown(env) -> None:
+    """Phase 6b: the fault path once more under `torch.profiler`, the
+    campaigns without the raw latency and bin grids that phase 6 copies
+    to the host for its checks."""
+    from benchmarks import port_fault_bench
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+
+    specs = env["fault_specs"]
+    u = port_fault_bench.reference_uniforms(False)
+
+    def run():          # as a user runs them: no raw grids collected
+        eng = SimEngine(device="cuda")
+        for kw in specs.values():
+            eng.run(SimSpec(**dict(kw, collect=())))
+        port_fault_bench.run(False, "cuda", u)
+
+    busy_share("fault path", run)
+
+
+def _fault_uniforms(g: int, n: int):
+    from repro_torch.core import faults
+    return faults.fault_uniforms(SEED, g, n, device="cuda")
+
+
+def kernel_replay_faulted(env) -> dict:
+    """Phase 7f: replay_blocks (e) against its plain version at the
+    static fault campaign's full shape (70 traces x 2 policies, 6 rows x
+    11 fault rows = 66 lanes, n = 4096), and its times."""
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.kernels.replay import ops, ref
+
+    kw = env["fault_specs"]["static"]
+    fspec = kw["faults"]
+    tb = kw["traces"]
+    t, n = tb.arrival.shape
+    nf = len(fspec)
+    cells = ref.to_cells(*(f[:, None].expand(t, 2, n) for f in tb),
+                         torch.ones((t, n), dtype=torch.bool, device="cuda"),
+                         torch.tensor([False, True], device="cuda"))
+    closed, arr, bank, row, wr, valid = cells
+    g = arr.shape[0]
+    rows = torch.tensor(kw["timings"], device="cuda")
+    tim = rows.repeat_interleave(nf, dim=0)                 # l = s*F + f
+    s = tim.shape[0]
+    ftile = ref.fault_tile(torch.tensor(fspec.pack(), device="cuda")
+                           .repeat(rows.shape[0], 1))
+    jed = rows[-1].contiguous()
+    u = ref.cell_uniforms(_fault_uniforms(t, n), 2)
+    tile = ref.timing_tile(tim)
+    def fn():
+        return ops.replay_blocks(*cells, tile, fault=(ftile, jed, u))
+
+    lat, total, cnt = fn()
+    (lat2, total2, cnt2), plain_s = wall(lambda: dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(), tim, closed > 0.5,
+        fault=(ftile.T, jed, u)))
+    lanes = ((lat.view(torch.int32) != lat2.view(torch.int32)).any(1)
+             | (total.view(torch.int32) != total2.view(torch.int32))
+             | (cnt != cnt2).any(0))
+    n_bad = int(lanes.sum())
+    err = max((lat - lat2).abs().max().item(),
+              (total - total2).abs().max().item())
+    call = cuda_ms(fn)
+    ms = kernel_ms(fn, "replay_kernel")
+    n_bytes = (g * n * 6 * 4 + g * n * s * 4 + g * s * 4 * 6
+               + (6 + 18) * s * 4 + 24 + g * 4)
+    b_ms, b_by = bound_ms(n_bytes, (REPLAY_OPS_PER_STEP + FAULT_OPS_STATIC)
+                          * g * n * s)
+    print(f"replay_blocks (e, faulted module rows) G={g} N={n} S={s} "
+          f"({rows.shape[0]} rows x {nf} fault rows): {n_bad} of {g * s} "
+          f"lanes not bitwise equal to plain in latencies, totals or "
+          f"counters (max abs {err:.3e}; {int(cnt.sum())} counted events); "
+          f"kernel {ms:.3f} ms (wrapper call {call:.3f} ms), plain "
+          f"{plain_s * 1e3:.1f} ms, bound {b_ms:.5f} ms ({b_by}: "
+          f"{n_bytes / 1e6:.2f} MB); critical path {n} dependent requests; "
+          f"{path_launches(env, 'replay_blocks (e)')['launches']} launches "
+          "on the paths driven")
+    check(n_bad == 0, f"replay_blocks (e): {n_bad} lanes differ")
+    return {"name": "replay_blocks", "variant": "e", "route": "cuda",
+            "source": "src/repro_torch/kernels/replay/replay.cu",
+            "replaces": "src/repro/kernels/replay/replay.py:640",
+            **path_launches(env, "replay_blocks (e)"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def kernel_adaptive_faulted(env) -> dict:
+    """Phase 7g: adaptive_blocks (d) against its plain version at the
+    closed-loop fault campaigns' full shape (70 traces x 8 scenarios x
+    9 fault rows = 72 lanes, n = 4096, raw temps and bins emitted) for
+    the module, per-bank and region stacks, and its times (the entry's
+    numbers are the module stack's; the others are printed)."""
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.kernels.replay import ops, ref
+
+    fspec = env["fault_specs"]["module"]["faults"]
+    nf = len(fspec)
+    n = 4096
+    cells = _campaign_cells(n)
+    closed, arr, bank, row, wr, valid = cells
+    g = arr.shape[0]
+    u = _fault_uniforms(g, n)
+    entry = None
+    for name in ("module", "bank", "region"):
+        kw = env["fault_specs"][name]
+        scns, bins, tcfg = (torch.tensor(x, device="cuda")
+                            for x in kw["thermal"].pack())
+        c = scns.shape[0]
+        tile = ref.table_tile(ref.lane_tables(
+            torch.tensor(kw["timings"], device="cuda"), c * nf))
+        lanes = tile.shape[-1]
+        scn_t = ref.lane_scenarios(scns, 1, nf).T.contiguous()
+        ftile = ref.fault_tile(ref.lane_faults(
+            torch.tensor(fspec.pack(), device="cuda"), c))
+        rmap = (None if kw["region_map"] is None
+                else torch.tensor(kw["region_map"], device="cuda"))
+        fn = lambda: ops.adaptive_blocks(  # noqa: E731
+            *cells, tile, scn_t, bins, tcfg, emit_raw=True, region_map=rmap,
+            fault=(ftile, u))
+        lat, total, tmax, tmean, sw, heat, temps, sel, cnt = fn()
+        plain, plain_s = wall(lambda: dram_sim.replay_adaptive_cells(
+            arr, bank, row, wr.bool(), valid.bool(), ref.lane_stacks(tile),
+            bins, scn_t.T, tcfg, closed > 0.5, region_map=rmap,
+            fault=(ftile.T, u)))
+        plat, ptot, ptemps, psel, pheat, (ptmax, ptmean, psw), pcnt = plain
+
+        def lane_bits(a, b):
+            d = a.view(torch.int32) != b.view(torch.int32)
+            return d.reshape(g, -1, lanes).any(1)
+
+        exact = (lane_bits(lat, plat) | lane_bits(total, ptot)
+                 | (sel != psel).any(1) | (sw != psw) | (cnt != pcnt).any(0))
+        n_bad = int(exact.sum())
+        n_temp = int((lane_bits(temps, ptemps) | lane_bits(heat, pheat)
+                      | lane_bits(tmax, ptmax) | lane_bits(tmean, ptmean))
+                     .sum())
+        close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-4)
+                    for a, b in ((temps, ptemps), (heat, pheat),
+                                 (tmax, ptmax), (tmean, ptmean)))
+        err = max((a - b).abs().max().item()
+                  for a, b in ((lat, plat), (total, ptot), (temps, ptemps),
+                               (heat, pheat)))
+        call = cuda_ms(lambda: ops.adaptive_blocks(
+            *cells, tile, scn_t, bins, tcfg, region_map=rmap,
+            fault=(ftile, u)))
+        ms = kernel_ms(lambda: ops.adaptive_blocks(
+            *cells, tile, scn_t, bins, tcfg, region_map=rmap,
+            fault=(ftile, u)), "adaptive_kernel")
+        n_bytes = (g * n * 6 * 4 + g * n * lanes * 4 + g * 4
+                   + tile.numel() * 4 + scn_t.numel() * 4 + ftile.numel() * 4
+                   + bins.numel() * 4 + 24 + g * lanes * 4 * 9
+                   + heat.numel() * 4
+                   + (0 if rmap is None else rmap.numel() * 4))
+        b_ms, b_by = bound_ms(n_bytes, (REPLAY_OPS_PER_STEP
+                                        + ADAPTIVE_OPS_PER_STEP
+                                        + FAULT_OPS_ADAPTIVE) * g * n * lanes)
+        print(f"adaptive_blocks (d, faulted, {name} tables) G={g} N={n} "
+              f"L={lanes} ({c} scenarios x {nf} fault rows): {n_bad} of "
+              f"{g * lanes} lanes not bitwise equal to plain in latencies, "
+              f"totals, bins, switches or counters; {n_temp} lanes with "
+              f"temperatures or heat not bitwise equal (within rtol 1e-5, "
+              f"atol 1e-4: {close}; max abs {err:.3e}); {int(sw.sum())} "
+              f"switches, {int(cnt.sum())} counted events; kernel {ms:.3f} "
+              f"ms (wrapper call {call:.3f} ms), plain {plain_s * 1e3:.1f} "
+              f"ms, bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); "
+              f"critical path {n} dependent requests; "
+              f"{path_launches(env, 'adaptive_blocks (d)')['launches']} "
+              "launches of (d) on the paths driven")
+        check(n_bad == 0, f"adaptive_blocks (d, {name}): {n_bad} lanes "
+                          "differ")
+        check(close, f"adaptive_blocks (d, {name}): temperatures beyond "
+                     "tolerance")
+        if entry is None:
+            entry = {"name": "adaptive_blocks", "variant": "d",
+                     "route": "cuda",
+                     "source": "src/repro_torch/kernels/replay/adaptive.cu",
+                     "replaces": "src/repro/kernels/replay/replay.py:522",
+                     **path_launches(env, "adaptive_blocks (d)"),
+                     "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "ms_by_layout": {}, "plain_ms_by_layout": {}}
+        entry["ms_by_layout"][name] = ms
+        entry["plain_ms_by_layout"][name] = plain_s * 1e3
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
+
+
+def _fault_probs(c, u):
+    """The CPU campaign's per-request error probabilities [G, N, L] (the
+    plain version with `probs`), to print |u - p| at a mismatch."""
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.kernels.replay import ref
+
+    spec = c["spec"]
+    arrival, bank, row, is_write, valid, closed = spec.pack(
+        torch.device("cpu"))
+    cl, arr, bk, rw, wr, val = ref.to_cells(
+        arrival, bank, row, is_write, torch.as_tensor(valid),
+        torch.as_tensor(closed))
+    scns, bins, tcfg = spec.thermal.pack()
+    k, nc, nf = spec.timings.shape[0], len(scns), len(spec.faults)
+    return dram_sim.replay_adaptive_cells(
+        arr, bk, rw, wr.bool(), val.bool(),
+        ref.lane_tables(torch.tensor(spec.timings), nc * nf), bins,
+        ref.lane_scenarios(torch.tensor(scns), k, nf), tcfg, cl > 0.5,
+        spec.n_banks, spec.mlp_window,
+        fault=(ref.lane_faults(torch.tensor(spec.faults.pack()), k * nc),
+               ref.cell_uniforms(torch.tensor(u), arrival.shape[1])),
+        probs=True)[-1]
+
+
+def cross_device_fault() -> None:
+    """Phase 8d: `port_fault_bench` at --fast scale on the card and on
+    the CPU, both on the reference's uniforms: the counters and the
+    served bin of every request equal."""
+    import numpy as np
+    from benchmarks import port_fault_bench
+
+    u = port_fault_bench.reference_uniforms(True)
+    c = {dev: port_fault_bench.campaign(True, dev, u, collect=("bins",))
+         for dev in ("cuda", "cpu")}
+    rg, rc = c["cuda"]["res"], c["cpu"]["res"]
+    d_bins = rg.bins != rc.bins                     # [T, P, K, C, F, N]
+    d_cnt = (rg.fault_counters != rc.fault_counters).any(-1)
+    sums = {dev: port_fault_bench.summarize(
+        x["res"], x["fspec"], x["lanes"], x["n_req"], check=False)
+        for dev, x in c.items()}
+    print(f"cross-device fault bench --fast (reference uniforms): "
+          f"{int(d_bins.sum())} of {d_bins.size} served bins and "
+          f"{int(d_cnt.sum())} of {d_cnt.size} counter lanes differ; pairs "
+          f"equal {sums['cuda']['pairs'] == sums['cpu']['pairs']}; card "
+          f"{c['cuda']['seconds']:.2f} s, CPU {c['cpu']['seconds']:.2f} s")
+    if d_bins.any() or d_cnt.any():
+        probs = _fault_probs(c["cpu"], u).numpy()   # [G, N, L]
+        t_, p_, k_, c_, f_, n_ = rg.bins.shape
+        where = np.argwhere(d_bins)
+        if not len(where):
+            where = [tuple(ix) + (0,) for ix in np.argwhere(d_cnt)]
+        for ti, pi, ki, ci, fi, ni in where[:10]:
+            gi, li = ti * p_ + pi, (ki * c_ + ci) * f_ + fi
+            pv = probs[gi, ni, li]
+            print(f"  mismatch at cell {gi} lane {li} request {ni}: bins "
+                  f"card {rg.bins[ti, pi, ki, ci, fi, ni]} CPU "
+                  f"{rc.bins[ti, pi, ki, ci, fi, ni]}, |u - p| = "
+                  f"{abs(float(u[ti, ni]) - float(pv)):.3e}")
+    check(not d_bins.any() and not d_cnt.any(),
+          "card and CPU fault campaigns differ")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -1196,22 +1662,28 @@ def main() -> int:
         thermal_breakdown(env)
         region_path(env)
         region_breakdown(env)
+        fault_path(env)
+        fault_breakdown(env)
         k1.update(path_launches(env, "margin_grid"))
         k2 = kernel_replay(env)
         k3 = kernel_replay_banked(env)
         k4 = kernel_adaptive(env)
         k5 = kernel_replay_regioned(env)
         k6 = kernel_adaptive_regioned(env)
+        k7 = kernel_replay_faulted(env)
+        k8 = kernel_adaptive_faulted(env)
         del env
         torch.cuda.empty_cache()
         cross_device_thermal(cross_device())
         cross_device_region()
+        cross_device_fault()
+        print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
     except Exception:                       # report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6]}))
+    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6, k7, k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,6 +7,7 @@ compute on exactly the reference's inputs without importing it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core.aldram import TimingTable
 from repro_torch.core.charge import ChargeConstants
 from repro_torch.core.dram_sim import Trace
+from repro_torch.core.faults import FaultScenario, FaultSpec
 from repro_torch.core.thermal import SCN_COLS, ThermalScenario
 from repro_torch.core.variation import Population
 from repro_torch.device import resolve_device
@@ -76,3 +78,13 @@ def scenario(row: np.ndarray, name: str = "scenario") -> ThermalScenario:
     if r.shape != (SCN_COLS,):
         raise ValueError(f"scenario row must be [{SCN_COLS}], got {r.shape}")
     return ThermalScenario(name, *(float(x) for x in r))
+
+
+def fault_spec(spec) -> FaultSpec:
+    """The port's `FaultSpec` from the reference's (`faults.FaultSpec`:
+    its scenario rows, field by field, and its seed), so `pack()` is
+    equal."""
+    return FaultSpec(
+        scenarios=tuple(FaultScenario(**dataclasses.asdict(s))
+                        for s in spec.scenarios),
+        seed=int(spec.seed))

@@ -1,5 +1,5 @@
 """Trace-driven DRAM bank-timing simulator (port of `repro.core.dram_sim`,
-single channel, no faults, FCFS order).
+single channel, FCFS order).
 
 Models an in-order memory controller over `n_banks` banks on one
 rank/channel, honoring tRCD / tRAS / tRP / tWR / tCL.  Service latency
@@ -29,6 +29,15 @@ module, per-bank or region-compressed table stacks; `replay_adaptive`
 is its single-stream view.  The bank state and the per-bank heat stay
 per bank whatever the table's spatial layout: only the timing gather
 goes through the region map.
+
+Both replays take an optional `fault` (`repro_torch.core.faults`): per
+lane fault rows, the issue-order error uniforms and, for the static
+replay, the JEDEC row.  A faulted lane carries a watchdog that serves
+the JEDEC row while tripped, draws a margin-conditioned error per
+request (a detected one pays a retry surcharge) and counts detected and
+silent errors, trips, degraded requests and probes; the adaptive replay
+also reads its temperature through the faulted sensor.  `fault=None`
+runs the exact unfaulted arithmetic.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.power import access_energy_from_terms
 from repro_torch.core.thermal import ambient_at
 from repro_torch.core.timing import TimingParams
@@ -225,11 +235,15 @@ def _bank_state0(g: int, n_banks: int, mlp_window: int, s: int,
                      torch.zeros((g,), dtype=torch.int64, device=device))
 
 
-def _service(st: BankState, t, b, rf, w, v, tc, closed, mlp_window: int):
+def _service(st: BankState, t, b, rf, w, v, tc, closed, mlp_window: int,
+             surcharge=None):
     """Service one request of every stream ([G] fields) under every
     timing lane: gather the request's bank row and ring gate, apply
     `service_math`, write the update back where the request is valid.
     `tc` = (trcd, tras, twr, trp, tcl), each [S] or per stream [G, S].
+    `surcharge` ([G, S], optional) is the detected-error retry delay,
+    added to the completion, the latency, a write's recovery and the
+    bank's readiness (the bank stays busy through the re-issue).
     Returns the [G, S] latency (0 at padding) and the [G, S] row-hit
     flags."""
     g_ix = torch.arange(st.bank.shape[0], device=st.bank.device)
@@ -240,6 +254,11 @@ def _service(st: BankState, t, b, rf, w, v, tc, closed, mlp_window: int):
      is_hit) = service_math(t[:, None], gate, rowb[:, 0], rowb[:, 1],
                             rowb[:, 2], rowb[:, 3], rf[:, None], w[:, None],
                             *tc, closed[:, None])
+    if surcharge is not None:
+        done = done + surcharge
+        lat = lat + surcharge
+        wrd_new = torch.where(w[:, None], wrd_new + surcharge, wrd_new)
+        rdy_new = rdy_new + surcharge
     new_row = torch.stack([latched.expand_as(act_new), act_new, wrd_new,
                            rdy_new], dim=1)
     vv = v[:, None]
@@ -254,9 +273,37 @@ def _timing_cols(tp):
     return tp[..., 0], tp[..., 1], tp[..., 2], tp[..., 3], tp[..., 5]
 
 
+def _counters0(shape, device):
+    """The N_COUNTERS int32 fault counters, zero."""
+    return tuple(torch.zeros(shape, dtype=torch.int32, device=device)
+                 for _ in range(faults.N_COUNTERS))
+
+
+def _fault_step(fp, wd, cnt, det, sil, is_probe, v, implaus=None):
+    """The watchdog transition and counter update of one request ([G,
+    L] fields; fault state kept where the request is padding).  Returns
+    (wd', cnt')."""
+    degraded = wd[4] > 0
+    if implaus is None:
+        implaus = torch.zeros_like(det)
+    wd2, new_trip = faults.wd_update(fp, wd, det, implaus, is_probe)
+    vv = v[:, None]
+    wd2 = tuple(torch.where(vv, x, y) for x, y in zip(wd2, wd))
+    return wd2, faults.counter_update(cnt, vv, det, sil, new_trip, degraded,
+                                      is_probe)
+
+
+def _red(tc, jed):
+    """Fractional timing reduction of the served (trcd, tras, twr, trp,
+    tcl) columns against the JEDEC row's, floored at 0 — a true division
+    by the JEDEC sum tensor."""
+    jsum = jed[0] + jed[1] + jed[2] + jed[3]
+    return torch.clamp(1.0 - (tc[0] + tc[1] + tc[2] + tc[3]) / jsum, min=0.0)
+
+
 def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
-                 n_banks: int = 8, mlp_window: int = 8, region_map=None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 n_banks: int = 8, mlp_window: int = 8, region_map=None,
+                 fault=None):
     """Replay G request streams, each under every one of S timing rows.
 
     arrival [G, N] float32; bank/row [G, N] int; is_write/valid [G, N]
@@ -268,8 +315,16 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
     request replays under row map[bank * R + region_of(row, R)]; R is
     the map length // n_banks.  Returns (latency [G, N, S] with zeros
     at padding, total runtime [G, S]: the module is busy until its last
-    ready time or write recovery)."""
+    ready time or write recovery).
+
+    `fault` = (fault rows [S, F_COLS], JEDEC row [6], uniforms [G, N])
+    replays lane s under fault row s: its watchdog serves the JEDEC row
+    while tripped, each request draws an error from its uniform against
+    `faults.error_prob(red, 0)`, and a detected error pays the JEDEC
+    tCL + RETRY_NS.  The return then gains the [N_COUNTERS, G, S] int32
+    counters (detected, silent, trips, degraded, probes)."""
     g, n = arrival.shape
+    dev = arrival.device
     timings = timings.to(torch.float32)
     s_rows = timings.shape[0]
     banked = timings.dim() == 3
@@ -277,21 +332,31 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
         if not banked:
             raise ValueError("region_map needs [S, U, 6] unique-row stores")
         rmap, slots = _region_slots(bank, row, region_map, n_banks, s_rows)
-        lane_i = torch.arange(s_rows, device=arrival.device)
+        lane_i = torch.arange(s_rows, device=dev)
     elif banked and timings.shape[1] != n_banks:
         raise ValueError(f"per-bank timings {tuple(timings.shape)} need "
                          f"{n_banks} banks")
     by_col = timings.permute(1, 0, 2) if banked else None    # [B|U, S, 6]
     tc = None if banked else _timing_cols(timings)
-    st = _bank_state0(g, n_banks, mlp_window, s_rows, arrival.device)
+    st = _bank_state0(g, n_banks, mlp_window, s_rows, dev)
     arrival = arrival.to(torch.float32)
     b_all = bank.long()
     rf_all = row.to(torch.float32)
     w_all = is_write.bool()
     v_all = valid.bool()
     closed = closed.bool()
-    lat = torch.empty((g, n, s_rows), dtype=torch.float32,
-                      device=arrival.device)
+    lat = torch.empty((g, n, s_rows), dtype=torch.float32, device=dev)
+    if fault is not None:
+        f_rows, j_row, u_all = fault
+        fp = torch.as_tensor(f_rows, dtype=torch.float32, device=dev).T
+        if tuple(fp.shape) != (faults.F_COLS, s_rows):
+            raise ValueError(f"fault rows must be [{s_rows}, {faults.F_COLS}]"
+                             f", got {tuple(f_rows.shape)}")
+        jed = torch.as_tensor(j_row, dtype=torch.float32, device=dev)
+        j5 = _timing_cols(jed)
+        u_all = torch.as_tensor(u_all, dtype=torch.float32, device=dev)
+        wd = faults.wd_state0((g, s_rows), dev)
+        cnt = _counters0((g, s_rows), dev)
     for k in range(n):
         b = b_all[:, k]
         if region_map is None:
@@ -300,37 +365,58 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
             tk = _timing_cols(by_col[rmap[slots[:, k]]])     # [G, S, 6]
         else:
             tk = _timing_cols(timings[lane_i, rmap[:, slots[:, k]].T])
+        sur = None
+        if fault is not None:
+            is_probe, use_agg = faults.wd_gate(fp, wd)
+            tk = tuple(torch.where(use_agg, a, jb) for a, jb in zip(tk, j5))
+            p = faults.error_prob(fp, _red(tk, j5), 0.0)
+            _, det, sil = faults.error_draw(fp, u_all[:, k, None], p)
+            sur = torch.where(det, j5[4] + fp[faults.RETRY_NS], 0.0)
         lat[:, k] = _service(st, arrival[:, k], b, rf_all[:, k],
                              w_all[:, k], v_all[:, k], tk, closed,
-                             mlp_window)[0]
+                             mlp_window, surcharge=sur)[0]
+        if fault is not None:
+            wd, cnt = _fault_step(fp, wd, cnt, det, sil, is_probe,
+                                  v_all[:, k])
     total = torch.maximum(st.bank[:, :, 3].amax(1), st.bank[:, :, 2].amax(1))
+    if fault is not None:
+        return lat, total, torch.stack(cnt)
     return lat, total
 
 
 def replay_rows(arrival, bank, row, is_write, valid, timings, closed,
-                n_banks: int = 8, mlp_window: int = 8, region_map=None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                n_banks: int = 8, mlp_window: int = 8, region_map=None,
+                fault=None):
     """One trace ([N] fields) under a [S, 6] (or per-bank [S, banks,
     6], or with `region_map` the [S, U, 6] unique-row store, as in
     `replay_cells`) stack of timing rows; `closed` a bool.  Returns
-    (latency [S, N], total [S])."""
+    (latency [S, N], total [S]); with `fault` = (fault rows [S,
+    F_COLS], JEDEC row [6], uniforms [N]) also the [N_COUNTERS, S]
+    counters."""
     closed_t = torch.as_tensor(bool(closed), device=arrival.device)[None]
-    lat, total = replay_cells(arrival[None], bank[None], row[None],
-                              is_write[None], valid[None], timings,
-                              closed_t, n_banks, mlp_window, region_map)
-    return lat[0].T, total[0]
+    if fault is not None:
+        fault = (fault[0], fault[1],
+                 torch.as_tensor(fault[2], device=arrival.device)[None])
+    out = replay_cells(arrival[None], bank[None], row[None], is_write[None],
+                       valid[None], timings, closed_t, n_banks, mlp_window,
+                       region_map, fault)
+    if fault is not None:
+        return out[0][0].T, out[1][0], out[2][:, 0]
+    return out[0][0].T, out[1][0]
 
 
 def replay_one(arrival, bank, row, is_write, valid, tp_row, closed,
-               n_banks: int = 8, mlp_window: int = 8, region_map=None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               n_banks: int = 8, mlp_window: int = 8, region_map=None,
+               fault=None):
     """One trace under one [6] timing row (or [banks, 6] per-bank rows,
     or with a [banks * R] `region_map` the [U, 6] unique-row store) ->
-    (latency [N], total [])."""
-    lat, total = replay_rows(arrival, bank, row, is_write, valid,
-                             tp_row[None], closed, n_banks, mlp_window,
-                             region_map)
-    return lat[0], total[0]
+    (latency [N], total []); with `fault` = (fault row [F_COLS], JEDEC
+    row [6], uniforms [N]) also the [N_COUNTERS] counters."""
+    if fault is not None:
+        fault = (torch.as_tensor(fault[0])[None], fault[1], fault[2])
+    out = replay_rows(arrival, bank, row, is_write, valid, tp_row[None],
+                      closed, n_banks, mlp_window, region_map, fault)
+    return tuple(x[..., 0] if i == 2 else x[0] for i, x in enumerate(out))
 
 
 class AdaptiveState(NamedTuple):
@@ -345,7 +431,8 @@ class AdaptiveState(NamedTuple):
 
 def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
                           bins, scns, tcfg, closed, n_banks: int = 8,
-                          mlp_window: int = 8, region_map=None):
+                          mlp_window: int = 8, region_map=None, fault=None,
+                          probs: bool = False):
     """Closed-loop replay of G request streams under L lanes, each lane
     a (timing-table stack, thermal scenario) pair with its own
     controller and RC heat.
@@ -371,13 +458,27 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
     selected tRAS window) on the accessed bank.  A padding request
     leaves every state untouched.
 
+    `fault` = (fault rows [L, F_COLS], uniforms [G, N]): the reading
+    of step (3) is `faults.fault_sensor` of the true sensed temperature
+    (request counter = position k); the watchdog serves the JEDEC row
+    (index S) while tripped, except on probes; each request draws an
+    error against `faults.error_prob` of the served row's reduction vs
+    the JEDEC row of its column and the TRUE temperature's excess over
+    the served bin's upper edge (+inf for the JEDEC row); a detected
+    error pays the JEDEC tCL + RETRY_NS; the implausibility check
+    compares the reading with the previous one.  The emitted temps,
+    temp_max/temp_mean report the reading, the bins the served bin, and
+    bin_switches count the served bin against the previous served one.
+
     Returns (lat [G, N, L], total [G, L], temps [G, N, L] (0 at
     padding), bins [G, N, L] int32 (-1 at padding), bank heat
     [G, n_banks, L], (temp_max, temp_mean, bin_switches) each [G, L]).
     The diagnostics accumulate in the loop in request order: temp_max
     from -inf, temp_mean as a running float32 sum divided by the valid
-    count, bin_switches counting new != current bin on valid requests
-    after the first."""
+    count, bin_switches counting changes on valid requests after the
+    first.  With `fault` the return gains the [N_COUNTERS, G, L] int32
+    counters and, with `probs`, the [G, N, L] error probabilities (0 at
+    padding; a diagnostic)."""
     g, n = arrival.shape
     dev = arrival.device
     tables = tables.to(torch.float32)
@@ -422,45 +523,98 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
                       device=dev)
     tsum = torch.zeros((g, lanes), dtype=torch.float32, device=dev)
     switches = torch.zeros((g, lanes), dtype=torch.int32, device=dev)
+    jedec = bins.shape[0]                                # the JEDEC row
+    if fault is not None:
+        f_rows, u_all = fault
+        fp = torch.as_tensor(f_rows, dtype=torch.float32, device=dev).T
+        if tuple(fp.shape) != (faults.F_COLS, lanes):
+            raise ValueError(f"fault rows must be [{lanes}, {faults.F_COLS}]"
+                             f", got {tuple(f_rows.shape)}")
+        u_all = torch.as_tensor(u_all, dtype=torch.float32, device=dev)
+        # bin s's upper edge; the JEDEC row has none
+        edges_ext = torch.cat([bins, torch.full((1,), torch.inf,
+                                                device=dev)])
+        no_r = torch.full((g, lanes), faults.NO_READING, device=dev)
+        lag, held, psen = no_r, no_r, no_r
+        wd = faults.wd_state0((g, lanes), dev)
+        cnt = _counters0((g, lanes), dev)
+        pbin = torch.zeros((g, lanes), dtype=torch.int64, device=dev)
+        p_out = torch.zeros_like(lat) if probs else None
     for k in range(n):
         t, b, v = arrival[:, k], b_all[:, k], v_all[:, k]
+        vv = v[:, None]
         dt = torch.maximum(t - st.t_prev, zero)
         heat = st.heat * torch.exp(-dt / tau)[:, None, None]
         hsum = heat[:, 0]
         for j in range(1, n_banks):
             hsum = hsum + heat[:, j]
-        reading = ambient_at(scn_t, t[:, None]) + hsum       # [G, L]
+        sensed = ambient_at(scn_t, t[:, None]) + hsum        # [G, L]
+        reading = sensed
+        if fault is not None:
+            reading, lag2, held2 = faults.fault_sensor(
+                fp, t[:, None], dt[:, None], sensed, lag, held,
+                torch.tensor(k, dtype=torch.int32, device=dev))
         up = (bins < reading[..., None]).sum(-1)
         down = (bins < (reading + hyst)[..., None]).sum(-1)
         new_bin = torch.maximum(up, torch.minimum(st.cur_bin, down))
+        use_bin = new_bin
+        if fault is not None:
+            is_probe, use_agg = faults.wd_gate(fp, wd)
+            use_bin = torch.where(use_agg, new_bin, jedec)
         if region_map is None:
             col = b[:, None] if banked else None
         elif rmap.dim() == 1:
             col = rmap[slots[:, k]][:, None]                 # [G, 1]
         else:
             col = rmap[lane, slots[:, k][:, None]]           # [G, L]
-        tp = (tables[lane, new_bin, col] if banked
-              else tables[lane, new_bin])                    # [G, L, 6]
+        tp = (tables[lane, use_bin, col] if banked
+              else tables[lane, use_bin])                    # [G, L, 6]
         tc = _timing_cols(tp)
+        sur = None
+        if fault is not None:
+            jt = (tables[lane, jedec, col] if banked
+                  else tables[:, jedec])                     # [.., L, 6]
+            j5 = _timing_cols(jt)
+            excess = torch.clamp(sensed - edges_ext[use_bin], min=0.0)
+            p = faults.error_prob(fp, _red(tc, j5), excess)
+            _, det, sil = faults.error_draw(fp, u_all[:, k, None], p)
+            sur = torch.where(det, j5[4] + fp[faults.RETRY_NS], 0.0)
         lat[:, k], is_hit = _service(st.bank, t, b, rf_all[:, k],
                                      w_all[:, k], v, tc, closed,
-                                     mlp_window)
+                                     mlp_window, surcharge=sur)
         energy = access_energy_from_terms(
             e_burst, e_act_pre, p_as, 1.0 - is_hit.to(torch.float32), tc[1])
         heat[g_ix, b] = heat[g_ix, b] + c_heat * energy
-        vv = v[:, None]
         st.heat.copy_(torch.where(vv[:, :, None], heat, st.heat))
-        switches += (vv & (new_bin != st.cur_bin) & (k > 0)).to(torch.int32)
+        if fault is None:
+            switches += (vv & (new_bin != st.cur_bin)
+                         & (k > 0)).to(torch.int32)
+        else:
+            jump = fp[faults.WD_JUMP_C]
+            implaus = ((jump > 0.0) & (psen > 0.5 * faults.NO_READING)
+                       & (torch.abs(reading - psen) > jump))
+            wd, cnt = _fault_step(fp, wd, cnt, det, sil, is_probe, v,
+                                  implaus)
+            lag = torch.where(vv, lag2, lag)
+            held = torch.where(vv, held2, held)
+            psen = torch.where(vv, reading, psen)
+            switches += (vv & (use_bin != pbin) & (k > 0)).to(torch.int32)
+            pbin = torch.where(vv, use_bin, pbin)
+            if probs:
+                p_out[:, k] = torch.where(vv, p, zero)
         st.cur_bin.copy_(torch.where(vv, new_bin, st.cur_bin))
         st.t_prev.copy_(torch.where(v, t, st.t_prev))
         temps[:, k] = torch.where(vv, reading, zero)
-        sel[:, k] = torch.where(vv, new_bin, -1).to(torch.int32)
+        sel[:, k] = torch.where(vv, use_bin, -1).to(torch.int32)
         tmax = torch.maximum(tmax, torch.where(vv, reading, -torch.inf))
         tsum = tsum + torch.where(vv, reading, zero)
     bst = st.bank.bank
     total = torch.maximum(bst[:, :, 3].amax(1), bst[:, :, 2].amax(1))
     tmean = tsum / v_all.sum(-1).to(torch.float32)[:, None]
-    return lat, total, temps, sel, st.heat, (tmax, tmean, switches)
+    out = (lat, total, temps, sel, st.heat, (tmax, tmean, switches))
+    if fault is None:
+        return out
+    return out + (torch.stack(cnt),) + ((p_out,) if probs else ())
 
 
 def replay_adaptive(arrival, bank, row, is_write, valid, table, bins,
@@ -474,28 +628,31 @@ def replay_adaptive(arrival, bank, row, is_write, valid, table, bins,
     [S+1, U, 6]) and one scenario row ([SCN_COLS]); `closed` a bool.
     Returns (latency [N], total runtime, sensed temperature [N],
     selected bin [N] int32 (-1 at padding), end-of-trace per-bank
-    overheat [n_banks]).  With
-    `c_heat = 0` and a steady scenario it equals `replay_one` of the
-    selected constant row, bit for bit."""
+    overheat [n_banks]); with `fault` = (fault row [F_COLS], uniforms
+    [N]) also the [N_COUNTERS] counters (the temperature and bin then
+    report the reading and the served bin).  With `c_heat = 0` and a
+    steady scenario it equals `replay_one` of the selected constant
+    row, bit for bit."""
     if n_channels * n_ranks != 1:
         raise NotImplementedError(
             "multi-channel adaptive replay is not ported yet: ROADMAP "
             "queue A item 10")
-    if fault is not None:
-        raise NotImplementedError(
-            "faulted adaptive replay is not ported yet: ROADMAP queue A "
-            "item 9")
     dev = arrival.device
     if region_map is not None:
         region_map = torch.as_tensor(region_map, device=dev).reshape(-1)
+    if fault is not None:
+        fault = (torch.as_tensor(fault[0], device=dev)[None],
+                 torch.as_tensor(fault[1], device=dev)[None])
     closed_t = torch.as_tensor(bool(closed), device=dev)[None]
-    lat, total, temps, sel, heat, _ = replay_adaptive_cells(
+    out = replay_adaptive_cells(
         arrival[None], bank[None], row[None], is_write[None], valid[None],
         torch.as_tensor(table, device=dev)[None], bins,
         torch.as_tensor(scn_row, device=dev)[None], tcfg_row, closed_t,
-        n_banks, mlp_window, region_map)
-    return (lat[0, :, 0], total[0, 0], temps[0, :, 0], sel[0, :, 0],
-            heat[0, :, 0])
+        n_banks, mlp_window, region_map, fault)
+    lat, total, temps, sel, heat = out[:5]
+    res = (lat[0, :, 0], total[0, 0], temps[0, :, 0], sel[0, :, 0],
+           heat[0, :, 0])
+    return res + ((out[6][:, 0, 0],) if fault is not None else ())
 
 
 def simulate(trace: Trace, tp: TimingParams, n_banks: int = 8,

@@ -1,7 +1,7 @@
-"""Batched trace-replay campaigns (port of the single-channel, unfaulted
-subset of `repro.core.sim_engine`): the paper's real-system evaluation
-(Sec. 6, Fig. 4) and its closed thermal loop (Sec. 4) as ONE replay
-launch each.
+"""Batched trace-replay campaigns (port of the single-channel subset of
+`repro.core.sim_engine`): the paper's real-system evaluation (Sec. 6,
+Fig. 4) and its closed thermal loop (Sec. 4) as ONE replay launch each,
+optionally under a fault axis.
 
 A `SimSpec` declares the campaign axes — traces (padded to one length
 with a validity mask), scheduling policies (open/closed page, FCFS) and
@@ -20,6 +20,15 @@ in the launch.  `SimEngine.run_bracket` runs the adaptive campaign, the
 worst-bin round-up and the static-worst-case campaign back to back on
 the device.
 
+A `faults.FaultSpec` attached as `SimSpec.faults` replays every cell
+under every fault row in the same launch: static campaigns put the
+(timing x fault) product on the lanes, l = s*F + f, with the last timing
+row as the JEDEC fallback, and unflatten to [T, P, S, F, ...]; adaptive
+campaigns carry F innermost, [T, P, K, C, F, ...].  `SimResult.
+fault_counters` then holds the [..., F, N_COUNTERS] counters.  An
+all-inert spec (`FaultSpec.none()`) runs the unfaulted launch and
+repeats its result along F, with zero counters.
+
 stats="device" (default) reduces masked mean and interpolated p99 on
 the device (`_device_stats`, p99 from a `torch.topk` of static depth)
 and moves only [T, P, S] summaries to the host; stats="host" is the
@@ -34,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import faults as F
 from repro_torch.core import timing as T
 from repro_torch.core.dram_sim import (OPEN_FCFS, Policy, Trace,
                                        check_prefix_valid)
@@ -108,19 +118,20 @@ class SimSpec:
     collect: tuple[str, ...] = ()
     thermal: ThermalSpec | None = None
     region_map: np.ndarray | None = None
+    faults: F.FaultSpec | None = None
     # axes of the reference campaign that are not ported yet
     n_channels: int = 1
     n_ranks: int = 1
-    faults: object = None
 
     def __post_init__(self):
         if self.thermal is not None and not isinstance(self.thermal,
                                                        ThermalSpec):
             raise TypeError(f"thermal must be a ThermalSpec, got "
                             f"{type(self.thermal).__name__}")
-        if self.faults is not None:
-            raise NotImplementedError(
-                "SimSpec.faults is not ported yet: ROADMAP queue A item 9")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      F.FaultSpec):
+            raise TypeError(f"faults must be a FaultSpec, got "
+                            f"{type(self.faults).__name__}")
         if self.n_channels * self.n_ranks != 1:
             raise NotImplementedError(
                 "multi-channel campaigns are not ported yet: ROADMAP "
@@ -173,6 +184,18 @@ class SimSpec:
         elif spatial and self.timings.shape[-2] != self.n_banks:
             raise ValueError(f"per-bank timings {self.timings.shape} need "
                              f"{self.n_banks} banks")
+        if self.fault_on and self.thermal is None and spatial:
+            # the static faulted replay prices retries against ONE JEDEC
+            # row, the last timing row; spatial stacks have none (the
+            # adaptive tables carry their JEDEC rows)
+            raise ValueError("fault axis + spatial (per-bank/per-region) "
+                             "static timings unsupported")
+
+    @property
+    def fault_on(self) -> bool:
+        """True when the fault axis can perturb the replay (an all-inert
+        `FaultSpec` runs the unfaulted launch)."""
+        return self.faults is not None and not self.faults.is_none
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -215,23 +238,51 @@ class SimSpec:
 class SimResult:
     """Result grid of one campaign; arrays lead with [T, P, S] =
     (traces, policies, timing rows), or [T, P, K, C] = (traces,
-    policies, table stacks, thermal scenarios) on the adaptive path.
+    policies, table stacks, thermal scenarios) on the adaptive path,
+    followed by F (fault rows) when the spec has a fault axis.
     `latencies` ([..., N], 0 at padding), `temps` and `bins` (-1 at
     padding) are None unless the spec collected them; the thermal
-    diagnostics and `bank_heat` are set on the adaptive path only."""
+    diagnostics and `bank_heat` are set on the adaptive path only;
+    `fault_counters` ([..., F, N_COUNTERS] int32: detected, silent,
+    trips, degraded, probes) with a fault axis only."""
 
     spec: SimSpec
-    mean_latency_ns: np.ndarray     # [T, P, S] | [T, P, K, C]
+    mean_latency_ns: np.ndarray     # [T, P, S] | [T, P, K, C] (+F)
     p99_latency_ns: np.ndarray      # same leading shape
     total_ns: np.ndarray            # same leading shape
     valid: np.ndarray               # [T, N]
     latencies: np.ndarray | None = None
-    temps: np.ndarray | None = None         # [T, P, K, C, N] sensed C
-    bins: np.ndarray | None = None          # [T, P, K, C, N] int32
-    temp_max: np.ndarray | None = None      # [T, P, K, C]
-    temp_mean: np.ndarray | None = None     # [T, P, K, C]
-    bin_switches: np.ndarray | None = None  # [T, P, K, C]
-    bank_heat: np.ndarray | None = None     # [T, P, K, C, banks] end C
+    temps: np.ndarray | None = None         # [T, P, K, C, (F,) N] read C
+    bins: np.ndarray | None = None          # [T, P, K, C, (F,) N] int32
+    temp_max: np.ndarray | None = None      # [T, P, K, C (, F)]
+    temp_mean: np.ndarray | None = None     # [T, P, K, C (, F)]
+    bin_switches: np.ndarray | None = None  # [T, P, K, C (, F)]
+    bank_heat: np.ndarray | None = None     # [T, P, K, C, (F,) banks] end C
+    fault_counters: np.ndarray | None = None  # [..., F, N_COUNTERS]
+
+    def _counter(self, i: int):
+        return (None if self.fault_counters is None
+                else self.fault_counters[..., i])
+
+    @property
+    def detected_errors(self):      # [..., F] int32
+        return self._counter(0)
+
+    @property
+    def silent_errors(self):        # [..., F] int32
+        return self._counter(1)
+
+    @property
+    def wd_trips(self):             # [..., F] int32
+        return self._counter(2)
+
+    @property
+    def degraded_requests(self):    # [..., F] int32
+        return self._counter(3)
+
+    @property
+    def wd_probes(self):            # [..., F] int32
+        return self._counter(4)
 
 
 def _p99_k(valid: np.ndarray) -> int:
@@ -333,10 +384,13 @@ class SimEngine:
                 "sharded campaigns (mesh) are not ported yet: ROADMAP "
                 "queue A item 10")
 
-    def run(self, spec: SimSpec) -> SimResult:
+    def run(self, spec: SimSpec, fault_uniforms=None) -> SimResult:
         """One replay launch over the whole campaign grid.  The streams
         are checked once, before the launch (the region map was checked
-        by `SimSpec`)."""
+        by `SimSpec`).  With a fault axis the error uniforms are a [T, N]
+        float32 draw from a generator on the engine's device seeded with
+        `FaultSpec.seed`; `fault_uniforms` ([T, N] at the padded stream
+        length) replaces that draw."""
         from repro_torch.kernels.replay import ops as replay_ops
         arrival, bank, row, is_write, valid, closed = spec.pack(self.device)
         dev = self.device
@@ -348,22 +402,47 @@ class SimEngine:
         timings = torch.as_tensor(spec.timings, device=dev)
         rmap = (torch.as_tensor(spec.region_map, device=dev) if regioned
                 else None)
+        fa = spec.faults
+        nf = 0 if fa is None else len(fa)
+        fault = None
+        if spec.fault_on:
+            if fault_uniforms is None:
+                u = F.fault_uniforms(fa.seed, *valid.shape, device=dev)
+            else:
+                u = (fault_uniforms if isinstance(fault_uniforms,
+                                                  torch.Tensor)
+                     else torch.from_numpy(np.array(fault_uniforms,
+                                                    np.float32)))
+                u = u.to(device=dev, dtype=torch.float32)
+                if tuple(u.shape) != valid.shape:
+                    raise ValueError(f"fault_uniforms must be {valid.shape} "
+                                     f"([T, N] padded), got {tuple(u.shape)}")
+            fault = (torch.as_tensor(fa.pack(), device=dev), u)
         self.dispatch_count += 1
+        extra = {}
         if spec.thermal is None:
-            lat, total = replay_ops.replay_grid(
+            s_rows = spec.timings.shape[0]
+            if fault is not None:
+                # lane l = s*F + f replays timing row s under fault row f;
+                # the last timing row is the JEDEC fallback
+                timings = timings.repeat_interleave(nf, dim=0)
+                fault = (fault[0].repeat(s_rows, 1), timings[-1], fault[1])
+            out = replay_ops.replay_grid(
                 arrival, bank, row, is_write, valid_d, timings, closed_d,
                 spec.n_banks, spec.mlp_window, validated=True,
-                region_map=rmap)
-            extra = {}
+                region_map=rmap, fault=fault)
+            lat, total = out[:2]
+            lead = (s_rows, nf) if fault is not None else None
         else:
             scns, bins, tcfg = spec.thermal.pack()
             raw = self.stats == "host" or "temps" in spec.collect \
                 or "bins" in spec.collect
-            lat, total, temps, bin_sel, heat, diag = \
-                replay_ops.replay_grid_adaptive(
-                    arrival, bank, row, is_write, valid_d, timings, bins,
-                    scns, tcfg, closed_d, spec.n_banks, spec.mlp_window,
-                    emit_raw=raw, validated=True, region_map=rmap)
+            out = replay_ops.replay_grid_adaptive(
+                arrival, bank, row, is_write, valid_d, timings, bins, scns,
+                tcfg, closed_d, spec.n_banks, spec.mlp_window,
+                emit_raw=raw, validated=True, region_map=rmap, fault=fault)
+            lat, total, temps, bin_sel, heat, diag = out[:6]
+            lead = None
             if self.stats == "host":
                 diag = _device_thermal_diag(temps, bin_sel, valid_d)
             extra = dict(zip(("temp_max", "temp_mean", "bin_switches"),
@@ -380,11 +459,28 @@ class SimEngine:
                          for x in _device_stats(lat, valid_d, _p99_k(valid)))
             lat_h = (lat.cpu().numpy() if "latencies" in spec.collect
                      else None)
-        return SimResult(spec=spec, mean_latency_ns=mean,
-                         p99_latency_ns=p99, total_ns=total.cpu().numpy(),
-                         valid=valid,
-                         latencies=(lat_h if "latencies" in spec.collect
-                                    else None), **extra)
+        res = dict(mean_latency_ns=mean, p99_latency_ns=p99,
+                   total_ns=total.cpu().numpy(),
+                   latencies=(lat_h if "latencies" in spec.collect
+                              else None), **extra)
+        if fault is not None:
+            res["fault_counters"] = out[-1].cpu().numpy()
+            if lead is not None:
+                # unflatten the static (timing x fault) lanes:
+                # [T, P, S*F, ...] -> [T, P, S, F, ...]
+                res = {k: (None if x is None else
+                           x.reshape(x.shape[:2] + lead + x.shape[3:]))
+                       for k, x in res.items()}
+        elif fa is not None:
+            # an all-inert spec: the unfaulted grid repeated along F
+            # (after S, or after K, C) with zero counters
+            ax = 3 if spec.thermal is None else 4
+            res = {k: (None if x is None else
+                       np.repeat(np.expand_dims(x, ax), nf, ax))
+                   for k, x in res.items()}
+            res["fault_counters"] = np.zeros(
+                res["total_ns"].shape + (F.N_COUNTERS,), np.int32)
+        return SimResult(spec=spec, valid=valid, **res)
 
     def run_bracket(self, spec: SimSpec, base_row,
                     n_real: int | None = None) -> dict:
@@ -407,6 +503,9 @@ class SimEngine:
         if spec.thermal is None or spec.timings.shape[0] != 1:
             raise ValueError("run_bracket needs an adaptive spec with one "
                              "table stack")
+        if spec.fault_on:
+            raise ValueError("run_bracket carries no fault axis: run() the "
+                             "faulted spec")
         if spec.region_map is not None:
             raise ValueError("run_bracket replays per-module or per-bank "
                              "stacks, not a region map")

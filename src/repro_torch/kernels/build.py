@@ -5,8 +5,9 @@ into its own shared library, loaded with `ctypes` (no PyTorch headers,
 so a build takes seconds).  All sources build together, one `nvcc`
 process each, started at once, on first use — never at import — into
 `_build/` beside this file (listed in `.gitignore`).  Libraries are
-named by a digest of their source and flags, so an edited source is
-rebuilt and a stale library is never loaded.
+named by a digest of their source, the headers beside it and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 The build targets Hopper only (`sm_90a`), omits `--use_fast_math`
 (the margin kernel relies on IEEE `expf`/`logf`) and turns off FMA
@@ -54,9 +55,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Content-addressed path of kernel `name`'s shared library."""
+    """Content-addressed path of kernel `name`'s shared library: a
+    digest of its source, the headers beside it (`*.cuh`) and the
+    flags."""
     src = _HERE / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

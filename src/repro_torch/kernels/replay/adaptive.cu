@@ -7,9 +7,12 @@
 // :626): module tables [S+1, 6, L] (variant a), per-bank tables
 // [n_banks, S+1, 6, L] (variant b) and mask-compressed subarray-region
 // tables [U, S+1, 6, L] gathered through an index map (variant c, the
-// regioned branch at replay.py:392), one channel, no faults.
+// regioned branch at replay.py:392), each also under a fault axis
+// (variant d, the faulted branch at replay.py:286-301, :335-350,
+// :367-390, :412-444, :462-502), one channel.
 // Plain version: repro_torch/core/dram_sim.py (`replay_adaptive_cells`,
-// `service_math`, `thermal.ambient_at`, `power.access_energy_from_terms`).
+// `service_math`, `thermal.ambient_at`, `power.access_energy_from_terms`,
+// `faults`).
 //
 // Inputs (row-major, float32 unless noted): closed [G] (1 = closed page);
 // arrival [G, N]; bank, row, is_write, valid [G, N] int32; tables
@@ -19,11 +22,13 @@
 // scn [9, L] scenario rows (base, amp_sin, period_sin, amp_step, t_step,
 // amp_burst, period_burst, duty, hyst_scale); edges [E] ascending bin
 // edges (E = S, or one +inf edge when S = 0); tcfg [6] (tau, c_heat,
-// hyst_c, e_burst, e_act_pre, p_act_standby).
+// hyst_c, e_burst, e_act_pre, p_act_standby); for (d) the lane-tiled fault
+// rows [F_COLS, L] and the issue-order error uniforms [G, N].
 // Outputs: lat [G, N, L] (0 at padding); total, temp_max, temp_mean [G, L];
-// switches [G, L] int32; heat [G, n_banks, L]; and, when emit_raw, the
+// switches [G, L] int32; heat [G, n_banks, L]; when emit_raw, the
 // sensed temperatures [G, N, L] (0 at padding) and selected bins [G, N, L]
-// int32 (-1 at padding).
+// int32 (-1 at padding); for (d) the counters [5, G, L] int32 (detected,
+// silent, trips, degraded, probes).
 //
 // Design.  One block per cell g (x blocks of lanes), one thread per lane.
 // Every lane of a block reads the same stream, so the block stages it
@@ -42,6 +47,22 @@
 // floored modulo — to a unique column u through the map and reads column
 // u at the selected bin (a template instantiation of its own,
 // kRegioned); the heat registers stay per bank.
+//
+// Variant (d), an instantiation of its own (kFaulted) for each layout:
+// the lane also reads its fault row into registers once and carries the
+// sensor state (lag, held and previous reading), the watchdog, the
+// previous served bin and five counters in registers (faults.cuh); the
+// request's uniform is staged with the chunk.  Per request the true
+// sensed temperature runs through the faulted sensor (lag, drift, noise,
+// stuck-at, dropout, quantization, rounding half to even); the bin is
+// selected from that reading; the watchdog serves the JEDEC row while
+// tripped (except on probes); the error probability comes from the served
+// row's reduction against the JEDEC row of the same column and the TRUE
+// temperature's excess over the served bin's upper edge (+inf for the
+// JEDEC row); a detected error adds JEDEC tCL + RETRY_NS to the request;
+// the implausibility check compares the reading with the previous one.
+// Temperatures report the reading, bins the served bin, and switches
+// count served-bin changes.
 //
 // Numerics.  Each step follows the plain version operation for operation:
 // decay heat * expf((-dt) / tau) with a true division; the sensed
@@ -65,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "faults.cuh"
+
 namespace {
 
 constexpr int kChunk = 1024;    // requests staged per shared-memory chunk
@@ -79,7 +102,7 @@ __device__ __forceinline__ float floored_rem(float a, float b) {
   return m;
 }
 
-template <bool kRegioned>
+template <bool kRegioned, bool kFaulted>
 __global__ void adaptive_kernel(
     const float* __restrict__ closed, const float* __restrict__ arrival,
     const int* __restrict__ bank, const int* __restrict__ row,
@@ -87,10 +110,12 @@ __global__ void adaptive_kernel(
     const float* __restrict__ tables, const int* __restrict__ region_map,
     const float* __restrict__ scn,
     const float* __restrict__ edges, const float* __restrict__ tcfg,
+    const float* __restrict__ fault, const float* __restrict__ uniforms,
     float* __restrict__ lat, float* __restrict__ total,
     float* __restrict__ tmax_out, float* __restrict__ tmean_out,
     int* __restrict__ sw_out, float* __restrict__ heat_out,
-    float* __restrict__ temps_out, int* __restrict__ bins_out, int n,
+    float* __restrict__ temps_out, int* __restrict__ bins_out,
+    int* __restrict__ counters, int n,
     int lanes, int n_edges, int n_rows, int n_banks, int mlp_window,
     int banked, int n_regions, int map_per_lane, int emit_raw) {
   extern __shared__ float smem[];
@@ -102,6 +127,7 @@ __global__ void adaptive_kernel(
 
   // shared layout: [chunk arrival][chunk bank][chunk row][chunk flags]
   //                [open][act][wrd][rdy] (each n_banks x bs) [ring W x bs]
+  //                [chunk uniforms] (faulted)
   float* s_arr = smem;
   int* s_bank = reinterpret_cast<int*>(s_arr + kChunk);
   int* s_row = s_bank + kChunk;
@@ -111,6 +137,7 @@ __global__ void adaptive_kernel(
   float* st_wrd = st_act + n_banks * bs;
   float* st_rdy = st_wrd + n_banks * bs;
   float* st_ring = st_rdy + n_banks * bs;
+  float* s_u = st_ring + mlp_window * bs;
 
   for (int b = 0; b < n_banks; ++b) {
     st_open[b * bs + lane] = -1.0f;
@@ -143,6 +170,15 @@ __global__ void adaptive_kernel(
   float t_prev = 0.0f, tmax = -INFINITY, tsum = 0.0f;
   const long long cell = (long long)g * n;
   const long long stack = (long long)n_rows * 6 * lanes;   // one column
+  const int jedec = n_rows - 1;                             // JEDEC row
+  faults::Row fr{};
+  faults::Watchdog wd;
+  faults::Counters cnt;
+  float lag = faults::kNoReading, held = lag, psen = lag;
+  int pbin = 0;
+  if constexpr (kFaulted) {
+    if (live) fr = faults::load_row(fault, lanes, l);
+  }
 
   for (int base_k = 0; base_k < n; base_k += kChunk) {
     const int len = min(kChunk, n - base_k);
@@ -153,6 +189,7 @@ __global__ void adaptive_kernel(
       s_bank[k] = bank[q];
       s_row[k] = row[q];
       s_flag[k] = (is_write[q] != 0 ? 1 : 0) | (valid[q] != 0 ? 2 : 0);
+      if constexpr (kFaulted) s_u[k] = uniforms[q];
     }
     __syncthreads();
     if (!live) continue;
@@ -189,7 +226,10 @@ __global__ void adaptive_kernel(
           ((base + a_sin * sinf((kTwoPi * t) / p_sin)) +
            a_step * (t >= t_step ? 1.0f : 0.0f)) +
           a_b * (floored_rem(t, p_b) < duty * p_b ? 1.0f : 0.0f);
-      const float reading = ambient + hsum;
+      const float sensed = ambient + hsum;
+      float reading = sensed;
+      if constexpr (kFaulted)
+        reading = faults::sensor(fr, t, dt, sensed, lag, held, k);
       const float reading_h = reading + hyst;
       int up = 0, down = 0;
       for (int j = 0; j < n_edges; ++j) {
@@ -198,6 +238,12 @@ __global__ void adaptive_kernel(
         down += e < reading_h ? 1 : 0;
       }
       const int new_bin = max(up, min(cur, down));
+      int use_bin = new_bin;
+      bool is_probe = false;
+      if constexpr (kFaulted) {
+        is_probe = faults::wd_probe(wd, fr);
+        if (!(wd.tripped == 0 || is_probe)) use_bin = jedec;
+      }
       int col = banked ? bk : 0;
       if constexpr (kRegioned) {
         int off = s_row[kk] % kSubarrayRows;
@@ -205,11 +251,23 @@ __global__ void adaptive_kernel(
         const int slot = bk * n_regions + off * n_regions / kSubarrayRows;
         col = region_map[map_per_lane ? slot * lanes + l : slot];
       }
-      const float* tp = tables + col * stack +
-                        (long long)new_bin * 6 * lanes + l;
+      const float* tc = tables + col * stack + l;
+      const float* tp = tc + (long long)use_bin * 6 * lanes;
       const float trcd = tp[0 * lanes], tras = tp[1 * lanes];
       const float twr = tp[2 * lanes], trp = tp[3 * lanes];
       const float tcl = tp[5 * lanes];
+      bool det = false, sil = false;
+      float sur = 0.0f;
+      if constexpr (kFaulted) {
+        const float* jp = tc + (long long)jedec * 6 * lanes;
+        const float jsum =
+            ((jp[0 * lanes] + jp[1 * lanes]) + jp[2 * lanes]) + jp[3 * lanes];
+        const float edge = use_bin >= jedec ? INFINITY : edges[use_bin];
+        faults::error_outcome(fr, faults::reduction(trcd, tras, twr, trp,
+                                                    jsum),
+                              fmaxf(sensed - edge, 0.0f), s_u[kk], det, sil);
+        sur = det ? jp[5 * lanes] + fr.retry_ns : 0.0f;
+      }
 
       // service_math (dram_sim.py), operation for operation
       const float gate = st_ring[ri];
@@ -225,13 +283,21 @@ __global__ void adaptive_kernel(
       const float data_start =
           is_hit ? start
                  : (is_empty ? start + trcd : (conflict_start + trp) + trcd);
-      const float done = data_start + tcl;
-      const float wrd_new = w ? done + twr : wrd_b;
+      float done = data_start + tcl;
+      float wrd_new = w ? done + twr : wrd_b;
       const float pre_start = fmaxf(fmaxf(done, act_new + tras), wrd_new);
+      float ready_new = is_closed ? pre_start + trp : done;
+      float lat_v = done - fmaxf(t, gate);
+      if constexpr (kFaulted) {     // the retry surcharge
+        done = done + sur;
+        lat_v = lat_v + sur;
+        wrd_new = w ? wrd_new + sur : wrd_new;
+        ready_new = ready_new + sur;
+      }
       st_open[bi] = is_closed ? -1.0f : rf;
       st_act[bi] = act_new;
       st_wrd[bi] = wrd_new;
-      st_rdy[bi] = is_closed ? pre_start + trp : done;
+      st_rdy[bi] = ready_new;
       st_ring[ri] = done;
 
       // closed loop: the access energy of the row just selected
@@ -242,16 +308,30 @@ __global__ void adaptive_kernel(
       for (int b = 0; b < kMaxBanks; ++b)
         if (b == bk) heat[b] = heat[b] + deposit;
 
-      if (k > 0 && new_bin != cur) ++switches;
+      if constexpr (kFaulted) {
+        const bool implaus = fr.jump_c > 0.0f &&
+                             psen > faults::kNoReadingHalf &&
+                             fabsf(reading - psen) > fr.jump_c;
+        const bool degraded = wd.tripped > 0;
+        const bool new_trip =
+            faults::wd_update(wd, fr, det, implaus, is_probe);
+        faults::count(cnt, det, sil, new_trip, degraded, is_probe);
+        held = reading;
+        psen = reading;
+        if (k > 0 && use_bin != pbin) ++switches;
+        pbin = use_bin;
+      } else {
+        if (k > 0 && new_bin != cur) ++switches;
+      }
       cur = new_bin;
       t_prev = t;
       tmax = fmaxf(tmax, reading);
       tsum = tsum + reading;
       ++n_valid;
-      lat[out] = done - fmaxf(t, gate);
+      lat[out] = lat_v;
       if (emit_raw) {
         temps_out[out] = reading;
-        bins_out[out] = new_bin;
+        bins_out[out] = use_bin;
       }
     }
   }
@@ -271,6 +351,8 @@ __global__ void adaptive_kernel(
     for (int b = 0; b < kMaxBanks; ++b)
       if (b < n_banks) heat_out[((long long)g * n_banks + b) * lanes + l] =
           heat[b];
+    if constexpr (kFaulted)
+      faults::store(cnt, counters, (long long)gridDim.x * lanes, o);
   }
 }
 
@@ -280,34 +362,44 @@ int block_lanes(int lanes) {
 
 }  // namespace
 
-extern "C" int adaptive_smem_bytes(int lanes, int n_banks, int mlp_window) {
-  return (4 * kChunk) * 4 + (4 * n_banks + mlp_window) * block_lanes(lanes) * 4;
+extern "C" int adaptive_smem_bytes(int lanes, int n_banks, int mlp_window,
+                                   int faulted) {
+  return (4 * kChunk) * 4 +
+         (4 * n_banks + mlp_window) * block_lanes(lanes) * 4 +
+         (faulted ? kChunk * 4 : 0);
 }
 
 // C interface (ctypes).  Returns the cudaError_t of the launch (0 =
 // success); the kernel runs asynchronously on `stream` (a cudaStream_t).
 // temps_out and bins_out may be NULL when emit_raw is 0, region_map when
-// n_regions is 0 (variants a and b).
+// n_regions is 0 (variants a and b); fault, uniforms and counters are all
+// NULL (variants a-c) or all given (variant d).
 extern "C" int adaptive_launch(
     const float* closed, const float* arrival, const int* bank,
     const int* row, const int* is_write, const int* valid,
     const float* tables, const int* region_map, const float* scn,
-    const float* edges,
-    const float* tcfg, float* lat, float* total, float* tmax_out,
+    const float* edges, const float* tcfg, const float* fault,
+    const float* uniforms, float* lat, float* total, float* tmax_out,
     float* tmean_out, int* sw_out, float* heat_out, float* temps_out,
-    int* bins_out, int g, int n, int lanes, int n_edges, int n_rows,
-    int n_banks, int mlp_window, int banked, int n_regions,
+    int* bins_out, int* counters, int g, int n, int lanes, int n_edges,
+    int n_rows, int n_banks, int mlp_window, int banked, int n_regions,
     int map_per_lane, int emit_raw, void* stream) {
+  const bool faulted = fault != nullptr;
   if (g <= 0 || n <= 0 || lanes <= 0 || n_edges <= 0 || n_rows <= 0 ||
       n_banks <= 0 || n_banks > kMaxBanks || mlp_window <= 0 ||
       n_regions < 0 || (n_regions > 0 && (!banked || region_map == nullptr)) ||
-      (emit_raw && (temps_out == nullptr || bins_out == nullptr)))
+      (emit_raw && (temps_out == nullptr || bins_out == nullptr)) ||
+      (faulted && (uniforms == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int bs = block_lanes(lanes);
-  const int smem = adaptive_smem_bytes(lanes, n_banks, mlp_window);
-  // the region gather is compiled into the (c) instantiation only, so
-  // (a) and (b) pay nothing for it
-  auto kern = n_regions > 0 ? adaptive_kernel<true> : adaptive_kernel<false>;
+  const int smem = adaptive_smem_bytes(lanes, n_banks, mlp_window, faulted);
+  // the region gather and the fault loop are compiled into their own
+  // instantiations, so (a) and (b) pay nothing for them
+  auto kern = n_regions > 0
+                  ? (faulted ? adaptive_kernel<true, true>
+                             : adaptive_kernel<true, false>)
+                  : (faulted ? adaptive_kernel<false, true>
+                             : adaptive_kernel<false, false>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -318,8 +410,8 @@ extern "C" int adaptive_launch(
   dim3 grid((unsigned)g, (unsigned)gy);
   kern<<<grid, bs, smem, (cudaStream_t)stream>>>(
       closed, arrival, bank, row, is_write, valid, tables, region_map, scn,
-      edges, tcfg, lat, total, tmax_out, tmean_out, sw_out, heat_out,
-      temps_out, bins_out, n, lanes, n_edges, n_rows, n_banks, mlp_window,
-      banked, n_regions, map_per_lane, emit_raw);
+      edges, tcfg, fault, uniforms, lat, total, tmax_out, tmean_out, sw_out,
+      heat_out, temps_out, bins_out, counters, n, lanes, n_edges, n_rows,
+      n_banks, mlp_window, banked, n_regions, map_per_lane, emit_raw);
   return (int)cudaGetLastError();
 }

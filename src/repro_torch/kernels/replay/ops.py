@@ -19,7 +19,11 @@ row [6]; the lane axis of `adaptive_blocks` carries the flattened
 tensors and run the plain versions (`dram_sim.replay_cells`,
 `dram_sim.replay_adaptive_cells`) for CPU tensors — chosen by the
 tensors' device alone; a CUDA tensor never falls back.  Module,
-per-bank and region-compressed timing tiles are ported.
+per-bank and region-compressed timing tiles are ported, and the fault
+axis (`repro_torch.core.faults`): `fault=` takes lane-tiled fault rows
+[F_COLS, lanes], the issue-order uniforms [G, N] and, static, the
+JEDEC column [6], and adds the [N_COUNTERS, G, lanes] int32 counters
+(static faults take module rows only, as the reference's campaigns).
 
 The region map's range is a property of the campaign: `SimSpec` checks
 it once on the host and `SimEngine` launches with `validated=True`.  A
@@ -33,6 +37,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.dram_sim import (check_prefix_valid,
                                        replay_adaptive_cells, replay_cells)
 from repro_torch.core.thermal import SCN_COLS
@@ -45,7 +50,7 @@ MAX_BANKS = 16
 
 def _replay_lib() -> ctypes.CDLL:
     lib = build.load("replay_blocks")
-    lib.replay_launch.argtypes = [ctypes.c_void_p] * 10 \
+    lib.replay_launch.argtypes = [ctypes.c_void_p] * 14 \
         + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.replay_launch.restype = ctypes.c_int
     return lib
@@ -53,7 +58,7 @@ def _replay_lib() -> ctypes.CDLL:
 
 def _adaptive_lib() -> ctypes.CDLL:
     lib = build.load("adaptive_blocks")
-    lib.adaptive_launch.argtypes = [ctypes.c_void_p] * 19 \
+    lib.adaptive_launch.argtypes = [ctypes.c_void_p] * 22 \
         + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.adaptive_launch.restype = ctypes.c_int
     return lib
@@ -90,6 +95,22 @@ def _check_streams(where: str, closed, arrival, bank, row, is_write,
                   ("valid", valid)):
         _check(f"{where}: {nm}", x, torch.int32, (g, n))
     return g, n
+
+
+def _check_fault(where: str, fault, lanes: int, g: int, n: int,
+                 static: bool):
+    """Shape, dtype and contiguity of a kernel-layout fault tuple: the
+    [F_COLS, lanes] fault tile, the static replay's [6] JEDEC column
+    and the [G, N] uniforms."""
+    want = "(fault_t, jedec, u)" if static else "(fault_t, u)"
+    if not isinstance(fault, (tuple, list)) \
+            or len(fault) != want.count(",") + 1:
+        raise ValueError(f"{where}: fault must be a tuple {want}")
+    _check(f"{where}: fault tile", fault[0], torch.float32,
+           (faults.F_COLS, lanes))
+    if static:
+        _check(f"{where}: JEDEC column", fault[1], torch.float32, (6,))
+    _check(f"{where}: fault uniforms", fault[-1], torch.float32, (g, n))
 
 
 def check_data(where: str, bank, valid, n_banks: int, row=None,
@@ -131,30 +152,39 @@ def _check_map(where: str, region_map, n_banks: int, lanes: int) -> int:
 
 def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
                   n_banks: int = 8, mlp_window: int = 8,
-                  validated: bool = False, region_map=None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  validated: bool = False, region_map=None, fault=None):
     """closed [G] float32 (1 = closed page); arrival [G, N] float32;
     bank/row/is_write/valid [G, N] int32; timings_t [6, S] float32, the
     per-bank tile [n_banks, 6, S], or with `region_map` (int32 [banks *
     R] shared or [banks * R, S] per lane) the unique-row store
-    [U, 6, S] -> (lat [G, N, S], total [G, S]).  CUDA tensors launch
-    the kernel (counted in `replay_blocks.launches`, the per-bank tile
-    also in `launches_banked`, the region store in `launches_regioned`);
-    CPU tensors run `dram_sim.replay_cells`.  `validated=True` skips the
-    data checks, which wait for the device (bank range, prefix mask and,
-    regioned, row sign and map range): only for a caller that has
-    checked these same inputs already."""
+    [U, 6, S] -> (lat [G, N, S], total [G, S]).  `fault` = (fault tile
+    [F_COLS, S], JEDEC column [6], uniforms [G, N], all float32) with
+    module rows adds the [N_COUNTERS, G, S] int32 counters (variant e).
+    CUDA tensors launch the kernel (counted in `replay_blocks.launches`,
+    an unfaulted per-bank tile also in `launches_banked`, an unfaulted
+    region store in `launches_regioned`, a faulted launch in
+    `launches_faulted`); CPU tensors run `dram_sim.replay_cells`.
+    `validated=True` skips the data checks, which wait for the device
+    (bank range, prefix mask and, regioned, row sign and map range):
+    only for a caller that has checked these same inputs already."""
     regioned = region_map is not None
-    ins = (closed, arrival, bank, row, is_write, valid, timings_t) \
-        + ((region_map,) if regioned else ())
-    dev = _on_cuda("replay_blocks", ins)
+    faulted = fault is not None
     banked = timings_t.dim() == 3
+    if faulted and banked:
+        raise ValueError("replay_blocks: a fault axis takes module rows "
+                         "[6, S] (the JEDEC fallback is one row)")
+    ins = (closed, arrival, bank, row, is_write, valid, timings_t) \
+        + ((region_map,) if regioned else ()) \
+        + (tuple(fault) if faulted else ())
+    dev = _on_cuda("replay_blocks", ins)
     if dev is None:
         tim = (timings_t.permute(2, 0, 1) if banked else timings_t.T)
         return replay_cells(arrival, bank, row, is_write.bool(),
                             valid.bool(), tim, closed > 0.5, n_banks,
                             mlp_window,
-                            ref.lane_map(region_map) if regioned else None)
+                            ref.lane_map(region_map) if regioned else None,
+                            (fault[0].T, fault[1], fault[2]) if faulted
+                            else None)
     g, n = _check_streams("replay_blocks", closed, arrival, bank, row,
                           is_write, valid)
     if timings_t.dtype != torch.float32 or not timings_t.is_contiguous() \
@@ -168,10 +198,14 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
     s = timings_t.shape[-1]
     n_regions = (_check_map("replay_blocks", region_map, n_banks, s)
                  if regioned else 0)
+    if faulted:
+        _check_fault("replay_blocks", fault, s, g, n, static=True)
     lat = torch.empty((g, n, s), dtype=torch.float32, device=dev)
     total = torch.empty((g, s), dtype=torch.float32, device=dev)
+    cnt = (torch.zeros((faults.N_COUNTERS, g, s), dtype=torch.int32,
+                       device=dev) if faulted else None)
     if g == 0 or n == 0 or s == 0:
-        return lat, total.zero_()
+        return (lat, total.zero_()) + ((cnt,) if faulted else ())
     if not validated:
         check_data("replay_blocks", bank, valid, n_banks,
                    *((row, region_map, timings_t.shape[0]) if regioned
@@ -183,28 +217,33 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
             row.data_ptr(), is_write.data_ptr(), valid.data_ptr(),
             timings_t.data_ptr(),
             region_map.data_ptr() if regioned else None,
-            lat.data_ptr(), total.data_ptr(), g, n, s, n_banks, mlp_window,
-            int(banked), n_regions, int(regioned and region_map.dim() == 2),
-            stream)
+            *((fault[0].data_ptr(), fault[1].data_ptr(),
+               fault[2].data_ptr()) if faulted else (None,) * 3),
+            lat.data_ptr(), total.data_ptr(),
+            cnt.data_ptr() if faulted else None, g, n, s, n_banks,
+            mlp_window, int(banked), n_regions,
+            int(regioned and region_map.dim() == 2), stream)
     if rc != 0:
         raise RuntimeError(f"replay_blocks launch failed: cudaError {rc} "
                            f"(G={g}, N={n}, S={s}, banked={banked}, "
-                           f"regions={n_regions})")
+                           f"regions={n_regions}, faulted={faulted})")
     replay_blocks.launches += 1
     replay_blocks.launches_banked += int(banked and not regioned)
     replay_blocks.launches_regioned += int(regioned)
-    return lat, total
+    replay_blocks.launches_faulted += int(faulted)
+    return (lat, total) + ((cnt,) if faulted else ())
 
 
 replay_blocks.launches = 0
 replay_blocks.launches_banked = 0
 replay_blocks.launches_regioned = 0
+replay_blocks.launches_faulted = 0
 
 
 def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
                     scn_t, bins, tcfg, n_banks: int = 8,
                     mlp_window: int = 8, emit_raw: bool = False,
-                    validated: bool = False, region_map=None):
+                    validated: bool = False, region_map=None, fault=None):
     """Closed-loop replay launch.  closed [G] float32; arrival [G, N]
     float32; bank/row/is_write/valid [G, N] int32; tables_t [S+1, 6, L]
     (lane l's table stack, JEDEC row last), the per-bank tile
@@ -212,29 +251,38 @@ def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
     shared or [banks * R, L] per lane) the unique-column tile
     [U, S+1, 6, L]; scn_t [SCN_COLS, L] scenario rows per lane; bins
     [S] ascending edges; tcfg [6] `ThermalConfig.as_row`, all float32.
+    `fault` = (fault tile [F_COLS, L], uniforms [G, N], float32) runs
+    the faulted sensor and the watchdog on every lane (variant d, any
+    table layout).
 
     Returns (lat [G, N, L], total [G, L], temp_max [G, L], temp_mean
     [G, L], bin_switches [G, L] int32, bank_heat [G, n_banks, L], temps
-    [G, N, L] | None, bins [G, N, L] int32 | None): the raw sensed
-    temperatures and selected bins only when `emit_raw`.  CUDA tensors
-    launch the kernel (counted in `adaptive_blocks.launches`, the
-    per-bank tile also in `launches_banked`, the region tile in
-    `launches_regioned`); CPU tensors run
+    [G, N, L] | None, bins [G, N, L] int32 | None): the raw sensed (or,
+    faulted, read) temperatures and selected (served) bins only when
+    `emit_raw`; with `fault` also the [N_COUNTERS, G, L] int32
+    counters.  CUDA tensors launch the kernel (counted in
+    `adaptive_blocks.launches`, an unfaulted per-bank tile also in
+    `launches_banked`, an unfaulted region tile in `launches_regioned`,
+    a faulted launch in `launches_faulted`); CPU tensors run
     `dram_sim.replay_adaptive_cells`.  `validated` as in
     `replay_blocks`."""
     regioned = region_map is not None
+    faulted = fault is not None
     ins = (closed, arrival, bank, row, is_write, valid, tables_t, scn_t,
-           bins, tcfg) + ((region_map,) if regioned else ())
+           bins, tcfg) + ((region_map,) if regioned else ()) \
+        + (tuple(fault) if faulted else ())
     dev = _on_cuda("adaptive_blocks", ins)
     banked = tables_t.dim() == 4
     if dev is None:
-        lat, total, temps, sel, heat, diag = replay_adaptive_cells(
+        out = replay_adaptive_cells(
             arrival, bank, row, is_write.bool(), valid.bool(),
             ref.lane_stacks(tables_t), bins, scn_t.T, tcfg, closed > 0.5,
             n_banks, mlp_window,
-            ref.lane_map(region_map) if regioned else None)
-        return (lat, total, *diag, heat,
-                temps if emit_raw else None, sel if emit_raw else None)
+            ref.lane_map(region_map) if regioned else None,
+            (fault[0].T, fault[1]) if faulted else None)
+        lat, total, temps, sel, heat, diag = out[:6]
+        return (lat, total, *diag, heat, temps if emit_raw else None,
+                sel if emit_raw else None) + out[6:]
     g, n = _check_streams("adaptive_blocks", closed, arrival, bank, row,
                           is_write, valid)
     if bins.dim() != 1:
@@ -263,6 +311,8 @@ def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
                          f"L={lanes})")
     n_regions = (_check_map("adaptive_blocks", region_map, n_banks, lanes)
                  if regioned else 0)
+    if faulted:
+        _check_fault("adaptive_blocks", fault, lanes, g, n, static=False)
     f32 = dict(dtype=torch.float32, device=dev)
     lat = torch.empty((g, n, lanes), **f32)
     total = torch.empty((g, lanes), **f32)
@@ -273,6 +323,8 @@ def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
     temps = torch.empty((g, n, lanes), **f32) if emit_raw else None
     sel = (torch.empty((g, n, lanes), dtype=torch.int32, device=dev)
            if emit_raw else None)
+    cnt = (torch.empty((faults.N_COUNTERS, g, lanes), dtype=torch.int32,
+                       device=dev) if faulted else None)
     if not validated:
         check_data("adaptive_blocks", bank, valid, n_banks,
                    *((row, region_map, lead) if regioned else ()))
@@ -285,37 +337,46 @@ def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
             row.data_ptr(), is_write.data_ptr(), valid.data_ptr(),
             tables_t.data_ptr(),
             region_map.data_ptr() if regioned else None,
-            scn_t.data_ptr(), edges.data_ptr(),
-            tcfg.data_ptr(), lat.data_ptr(), total.data_ptr(),
+            scn_t.data_ptr(), edges.data_ptr(), tcfg.data_ptr(),
+            *((fault[0].data_ptr(), fault[1].data_ptr()) if faulted
+              else (None, None)),
+            lat.data_ptr(), total.data_ptr(),
             tmax.data_ptr(), tmean.data_ptr(), sw.data_ptr(),
             heat.data_ptr(), temps.data_ptr() if emit_raw else None,
             sel.data_ptr() if emit_raw else None,
+            cnt.data_ptr() if faulted else None,
             g, n, lanes, edges.shape[0], s + 1, n_banks, mlp_window,
             int(banked), n_regions, int(regioned and region_map.dim() == 2),
             int(emit_raw), stream)
     if rc != 0:
         raise RuntimeError(f"adaptive_blocks launch failed: cudaError {rc} "
                            f"(G={g}, N={n}, L={lanes}, banked={banked}, "
-                           f"regions={n_regions})")
+                           f"regions={n_regions}, faulted={faulted})")
     adaptive_blocks.launches += 1
-    adaptive_blocks.launches_banked += int(banked and not regioned)
-    adaptive_blocks.launches_regioned += int(regioned)
-    return lat, total, tmax, tmean, sw, heat, temps, sel
+    adaptive_blocks.launches_banked += int(banked and not regioned
+                                           and not faulted)
+    adaptive_blocks.launches_regioned += int(regioned and not faulted)
+    adaptive_blocks.launches_faulted += int(faulted)
+    return (lat, total, tmax, tmean, sw, heat, temps, sel) \
+        + ((cnt,) if faulted else ())
 
 
 adaptive_blocks.launches = 0
 adaptive_blocks.launches_banked = 0
 adaptive_blocks.launches_regioned = 0
+adaptive_blocks.launches_faulted = 0
 
 
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
                 n_banks: int = 8, mlp_window: int = 8,
-                validated: bool = False, region_map=None):
+                validated: bool = False, region_map=None, fault=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N] (prefix-true);
     timings [S, 6] or per-bank [S, n_banks, 6]; closed [P] bool ->
     (latency [T, P, S, N], total [T, P, S]), on the device of
     `arrival`.  With `region_map` ([banks * R] shared or [S, banks * R]
-    per lane) `timings` is the [S, U, 6] unique-row store."""
+    per lane) `timings` is the [S, U, 6] unique-row store.  `fault` =
+    (fault rows [S, F_COLS], JEDEC row [6], uniforms [T, N]) with
+    module rows adds the [T, P, S, NC] int32 counters."""
     if timings.dim() not in (2, 3):
         raise ValueError(f"timings must be [S, 6] or [S, banks, 6], got "
                          f"{tuple(timings.shape)}")
@@ -327,17 +388,23 @@ def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
     dev = arrival.device
     cells = ref.to_cells(arrival, bank, row, is_write, valid, closed)
     tile = ref.timing_tile(torch.as_tensor(timings, device=dev))
-    lat, total = replay_blocks(
+    if fault is not None:
+        fault = (ref.fault_tile(torch.as_tensor(fault[0], device=dev)),
+                 torch.as_tensor(fault[1], dtype=torch.float32,
+                                 device=dev).contiguous(),
+                 ref.cell_uniforms(torch.as_tensor(fault[2], device=dev), p))
+    out = replay_blocks(
         *cells, tile, n_banks, mlp_window, validated=validated,
         region_map=(None if region_map is None
-                    else ref.map_tile(region_map, dev)))
-    return ref.from_cells(lat, total, t, p)
+                    else ref.map_tile(region_map, dev)), fault=fault)
+    return ref.from_cells(*out[:2], t, p, *out[2:])
 
 
 def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
                          bins, scns, tcfg, closed, n_banks: int = 8,
                          mlp_window: int = 8, emit_raw: bool = False,
-                         validated: bool = False, region_map=None):
+                         validated: bool = False, region_map=None,
+                         fault=None):
     """Adaptive campaign: arrival/bank/row/is_write [T, P, N]; valid
     [T, N]; tables [K, S+1, 6] or per-bank [K, S+1, n_banks, 6] (JEDEC
     row last), or with `region_map` ([banks * R] shared or [K, banks *
@@ -346,7 +413,10 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
     (lat [T, P, K, C, N], total [T, P, K, C], temps | None, bins |
     None (both [T, P, K, C, N], only with `emit_raw`), bank_heat
     [T, P, K, C, n_banks], (temp_max, temp_mean, bin_switches) each
-    [T, P, K, C], reduced inside the launch)."""
+    [T, P, K, C], reduced inside the launch).  `fault` = (fault rows
+    [F, F_COLS], uniforms [T, N]) rides the lanes innermost, l = (k*C +
+    c)*F + f: every grid gains F after C, and the return the
+    [T, P, K, C, F, NC] int32 counters."""
     dev = arrival.device
     tables = torch.as_tensor(tables, dtype=torch.float32, device=dev)
     scns = torch.as_tensor(scns, dtype=torch.float32, device=dev)
@@ -360,13 +430,19 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
         check_prefix_valid(valid, "replay_grid_adaptive")
     t, p, _ = arrival.shape
     k, c = tables.shape[0], scns.shape[0]
+    nf = None if fault is None else fault[0].shape[0]
+    reps = c * (nf or 1)
     cells = ref.to_cells(arrival, bank, row, is_write, valid, closed)
+    if fault is not None:
+        fault = (ref.fault_tile(ref.lane_faults(
+                     torch.as_tensor(fault[0], device=dev), k * c)),
+                 ref.cell_uniforms(torch.as_tensor(fault[1], device=dev), p))
     out = adaptive_blocks(
-        *cells, ref.table_tile(ref.lane_tables(tables, c)),
-        ref.lane_scenarios(scns, k).T.contiguous(),
+        *cells, ref.table_tile(ref.lane_tables(tables, reps)),
+        ref.lane_scenarios(scns, k, nf or 1).T.contiguous(),
         torch.as_tensor(bins, dtype=torch.float32, device=dev).contiguous(),
         torch.as_tensor(tcfg, dtype=torch.float32, device=dev).contiguous(),
         n_banks, mlp_window, emit_raw=emit_raw, validated=validated,
         region_map=(None if region_map is None else ref.map_tile(
-            ref.lane_stack_map(region_map, c, dev), dev)))
-    return ref.from_lanes(out, t, p, k, c)
+            ref.lane_stack_map(region_map, reps, dev), dev)), fault=fault)
+    return ref.from_lanes(out, t, p, k, c, nf)

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the replay kernels under the campaign
 contract: `repro_torch.core.dram_sim.replay_cells` (static) and
 `replay_adaptive_cells` (closed thermal loop) over the flattened
-(trace x policy) cells.  The CPU path of `ops` and the yardstick the
-kernels are held to on the card."""
+(trace x policy) cells, unfaulted or with a fault axis.  The CPU path
+of `ops` and the yardstick the kernels are held to on the card."""
 
 from __future__ import annotations
 
@@ -31,12 +31,36 @@ def to_cells(arrival, bank, row, is_write, valid, closed):
             .to(torch.int32))
 
 
-def from_cells(lat, total, t: int, p: int):
-    """Kernel layout (lat [G, N, S], total [G, S]) -> the campaign
-    contract (lat [T, P, S, N], total [T, P, S])."""
+def from_cells(lat, total, t: int, p: int, cnt=None):
+    """Kernel layout (lat [G, N, S], total [G, S], counters [NC, G, S])
+    -> the campaign contract (lat [T, P, S, N], total [T, P, S],
+    counters [T, P, S, NC] when given)."""
     g, n, s = lat.shape
-    return (lat.reshape(t, p, n, s).permute(0, 1, 3, 2),
-            total.reshape(t, p, s))
+    out = (lat.reshape(t, p, n, s).permute(0, 1, 3, 2),
+           total.reshape(t, p, s))
+    if cnt is None:
+        return out
+    return out + (cnt.reshape(-1, t, p, s).permute(1, 2, 3, 0),)
+
+
+def cell_uniforms(u, p: int) -> torch.Tensor:
+    """[T, N] error uniforms -> one stream per kernel cell g = t*P + p:
+    [T*P, N] float32 (contiguous; shared by a trace's policies)."""
+    u = u.to(torch.float32)
+    t, n = u.shape
+    return u[:, None, :].expand(t, p, n).reshape(t * p, n).contiguous()
+
+
+def fault_tile(f_rows) -> torch.Tensor:
+    """Per-lane fault rows [L, F_COLS] -> the kernels' [F_COLS, L] tile
+    (contiguous float32)."""
+    return f_rows.to(torch.float32).T.contiguous()
+
+
+def lane_faults(f_rows, kc: int) -> torch.Tensor:
+    """[F, F_COLS] fault rows -> one row per adaptive lane l = (k*C +
+    c)*F + f: [K*C*F, F_COLS]."""
+    return f_rows.to(torch.float32).repeat(kc, 1)
 
 
 def timing_tile(timings) -> torch.Tensor:
@@ -77,10 +101,10 @@ def lane_stack_map(region_map, c: int, device):
     return rm.repeat_interleave(c, dim=0) if rm.dim() == 2 else rm
 
 
-def lane_scenarios(scns, k: int) -> torch.Tensor:
-    """[C, SCN_COLS] scenario rows -> one row per lane l = k*C + c:
-    [K*C, SCN_COLS]."""
-    return scns.to(torch.float32).repeat(k, 1)
+def lane_scenarios(scns, k: int, nf: int = 1) -> torch.Tensor:
+    """[C, SCN_COLS] scenario rows -> one row per lane l = (k*C + c)*F
+    + f: [K*C*F, SCN_COLS]."""
+    return scns.to(torch.float32).repeat_interleave(nf, dim=0).repeat(k, 1)
 
 
 def table_tile(lane_tabs) -> torch.Tensor:
@@ -98,45 +122,60 @@ def lane_stacks(tables_t) -> torch.Tensor:
     return tables_t.permute(3, 1, 0, 2)
 
 
-def from_lanes(out, t: int, p: int, k: int, c: int):
+def from_lanes(out, t: int, p: int, k: int, c: int, nf: int | None = None):
     """Kernel layout of `adaptive_blocks`' outputs -> the campaign
     contract: [G, N, L] -> [T, P, K, C, N], [G, L] -> [T, P, K, C],
-    heat [G, B, L] -> [T, P, K, C, B]; None stays None."""
-    lat, total, tmax, tmean, sw, heat, temps, bins = out
+    heat [G, B, L] -> [T, P, K, C, B]; None stays None.  With a fault
+    axis of `nf` rows every grid gains F after C, and the [NC, G, L]
+    counters (a ninth output) become [T, P, K, C, F, NC]."""
+    lat, total, tmax, tmean, sw, heat, temps, bins = out[:8]
+    lanes = (k, c) if nf is None else (k, c, nf)
 
     def grid4(x):
-        return x.reshape(t, p, k, c)
+        return x.reshape(t, p, *lanes)
 
     def grid5(x):
         if x is None:
             return None
         n = x.shape[1]
-        return x.reshape(t, p, n, k, c).permute(0, 1, 3, 4, 2)
+        r = len(lanes)
+        return x.reshape(t, p, n, *lanes).permute(
+            0, 1, *range(3, 3 + r), 2)
 
-    return (grid5(lat), grid4(total), grid5(temps), grid5(bins),
-            grid5(heat), (grid4(tmax), grid4(tmean), grid4(sw)))
+    res = (grid5(lat), grid4(total), grid5(temps), grid5(bins),
+           grid5(heat), (grid4(tmax), grid4(tmean), grid4(sw)))
+    if nf is None:
+        return res
+    cnt = out[8].reshape(-1, t, p, *lanes)
+    return res + (cnt.permute(*range(1, cnt.dim()), 0),)
 
 
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
-                n_banks: int = 8, mlp_window: int = 8, region_map=None):
+                n_banks: int = 8, mlp_window: int = 8, region_map=None,
+                fault=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N]; timings
     [S, 6] or per-bank [S, banks, 6]; closed [P] bool -> (latency
     [T, P, S, N], total [T, P, S]).  With `region_map` ([banks * R]
     shared or [S, banks * R] per lane) `timings` is the [S, U, 6]
-    unique-row store (`dram_sim.replay_cells`)."""
+    unique-row store (`dram_sim.replay_cells`).  `fault` = (fault rows
+    [S, F_COLS], JEDEC row [6], uniforms [T, N]) adds the [T, P, S, NC]
+    counters."""
     t, p, _ = arrival.shape
     closed_c, arr, bk, rw, wr, val = to_cells(arrival, bank, row, is_write,
                                               valid, closed)
-    lat, total = replay_cells(arr, bk, rw, wr, val,
-                              torch.as_tensor(timings, device=arr.device),
-                              closed_c > 0.5, n_banks, mlp_window,
-                              region_map)
-    return from_cells(lat, total, t, p)
+    if fault is not None:
+        fault = (fault[0], fault[1], cell_uniforms(
+            torch.as_tensor(fault[2], device=arr.device), p))
+    out = replay_cells(arr, bk, rw, wr, val,
+                       torch.as_tensor(timings, device=arr.device),
+                       closed_c > 0.5, n_banks, mlp_window, region_map,
+                       fault)
+    return from_cells(*out[:2], t, p, *out[2:])
 
 
 def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
                          bins, scns, tcfg, closed, n_banks: int = 8,
-                         mlp_window: int = 8, region_map=None):
+                         mlp_window: int = 8, region_map=None, fault=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N]; tables
     [K, S+1, 6] or per-bank [K, S+1, banks, 6] (JEDEC row last); bins
     [S]; scns [C, SCN_COLS]; tcfg [6]; closed [P] -> (lat [T, P, K, C,
@@ -144,17 +183,27 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
     int32, bank_heat [T, P, K, C, banks], (temp_max, temp_mean,
     bin_switches) each [T, P, K, C]).  With `region_map` ([banks * R]
     shared by every stack or [K, banks * R] per stack) `tables` is the
-    [K, S+1, U, 6] unique-column stack."""
+    [K, S+1, U, 6] unique-column stack.  `fault` = (fault rows [F,
+    F_COLS], uniforms [T, N]) rides the lanes innermost: every grid
+    gains F after C and the return the [T, P, K, C, F, NC] counters."""
     t, p, _ = arrival.shape
     dev = arrival.device
     tables = torch.as_tensor(tables, device=dev)
     scns = torch.as_tensor(scns, device=dev)
     k, c = tables.shape[0], scns.shape[0]
+    nf = None if fault is None else fault[0].shape[0]
+    reps = c * (nf or 1)
     closed_c, arr, bk, rw, wr, val = to_cells(arrival, bank, row, is_write,
                                               valid, closed)
-    lat, total, temps, sel, heat, (tmax, tmean, sw) = replay_adaptive_cells(
-        arr, bk, rw, wr, val, lane_tables(tables, c), bins,
-        lane_scenarios(scns, k), tcfg, closed_c > 0.5, n_banks, mlp_window,
-        lane_stack_map(region_map, c, dev))
-    return from_lanes((lat, total, tmax, tmean, sw, heat, temps, sel),
-                      t, p, k, c)
+    lane_fault = None
+    if fault is not None:
+        lane_fault = (lane_faults(torch.as_tensor(fault[0], device=dev),
+                                  k * c),
+                      cell_uniforms(torch.as_tensor(fault[1], device=dev), p))
+    out = replay_adaptive_cells(
+        arr, bk, rw, wr, val, lane_tables(tables, reps), bins,
+        lane_scenarios(scns, k, nf or 1), tcfg, closed_c > 0.5, n_banks,
+        mlp_window, lane_stack_map(region_map, reps, dev), lane_fault)
+    lat, total, temps, sel, heat, (tmax, tmean, sw) = out[:6]
+    return from_lanes((lat, total, tmax, tmean, sw, heat, temps, sel)
+                      + out[6:], t, p, k, c, nf)

@@ -1,20 +1,26 @@
 // Batched DRAM trace replay for Hopper: every (cell g, timing row s) lane
 // replays cell g's request stream under timing row s.
 //
-// Replaces variants (a), (b) and (c) of the Pallas TPU kernel
+// Replaces variants (a), (b), (c) and (e) of the Pallas TPU kernel
 // `replay_blocks` of src/repro/kernels/replay/replay.py (`_kernel`):
 // module-level timing rows [6, S] (a), the per-bank tile [n_banks, 6, S]
-// (b, the banked branch at replay.py:99/:172) or the mask-compressed
+// (b, the banked branch at replay.py:99/:172), the mask-compressed
 // subarray-region store [U, 6, S] gathered through an index map (c, the
-// regioned branch at replay.py:162), one channel, no faults.  Plain
-// version: repro_torch/core/dram_sim.py (`replay_cells`, `service_math`).
+// regioned branch at replay.py:162) and module rows under a fault axis
+// (e, the faulted branch at replay.py:82-90, :125-134, :181-193,
+// :201-237), one channel.  Plain version: repro_torch/core/dram_sim.py
+// (`replay_cells`, `service_math`).
 //
 // Inputs (row-major): closed [G] float32 (1 = closed page); arrival [G, N]
 // float32; bank, row, is_write, valid [G, N] int32 (flags 0/1); timings
 // [6, S], [n_banks, 6, S] or [U, 6, S] float32 (rows = trcd, tras, twr,
 // trp, trefi, tcl); for (c) region_map int32 [n_banks * R] shared by every
-// lane, or [n_banks * R, S] per lane, with values in [0, U).
-// Outputs: lat [G, N, S] float32 (0 at padding), total [G, S] float32.
+// lane, or [n_banks * R, S] per lane, with values in [0, U); for (e) the
+// lane-tiled fault rows [F_COLS, S], the JEDEC column [6] and the
+// issue-order error uniforms [G, N], all float32.
+// Outputs: lat [G, N, S] float32 (0 at padding), total [G, S] float32;
+// for (e) the counters [5, G, S] int32 (detected, silent, trips, degraded,
+// probes).
 //
 // Design.  One block per cell g (x blocks of timing rows), one thread per
 // timing-row lane.  Every lane of a block reads the same stream, so the
@@ -37,6 +43,17 @@
 // column.  The branches are uniform; the gather of (c) is a template
 // instantiation of its own (kRegioned).
 //
+// Variant (e), its own instantiation (kFaulted): one thread per (timing
+// row x fault row) lane as in (a).  The lane reads its fault row into
+// registers once (faults.cuh) and carries its watchdog and five counters
+// in registers; the request's uniform u[g, k] is shared by every lane of
+// the cell, so it is staged with the request chunk.  Per request the
+// watchdog gate serves the JEDEC column while tripped (except on probes),
+// the served row's reduction against JEDEC sets the error probability
+// (a true division), and a detected error adds JEDEC tCL + RETRY_NS to the
+// completion, the latency, a write's recovery and the bank's readiness,
+// as `dram_sim._service(surcharge=...)` does.
+//
 // Each request runs `service_math` (src/repro/core/dram_sim.py:652)
 // operation for operation.  It is float32 add, max and select only (no
 // multiply, so nothing can contract into an FMA), which makes `lat` and
@@ -55,13 +72,15 @@
 
 #include <cuda_runtime.h>
 
+#include "faults.cuh"
+
 namespace {
 
 constexpr int kChunk = 1024;   // requests staged per shared-memory chunk
 constexpr int kMaxLanes = 128; // timing rows per block
 constexpr int kSubarrayRows = 512;  // dram_sim.SUBARRAY_ROWS
 
-template <bool kRegioned>
+template <bool kRegioned, bool kFaulted>
 __global__ void replay_kernel(const float* __restrict__ closed,
                               const float* __restrict__ arrival,
                               const int* __restrict__ bank,
@@ -70,8 +89,12 @@ __global__ void replay_kernel(const float* __restrict__ closed,
                               const int* __restrict__ valid,
                               const float* __restrict__ timings,
                               const int* __restrict__ region_map,
+                              const float* __restrict__ fault,
+                              const float* __restrict__ jedec,
+                              const float* __restrict__ uniforms,
                               float* __restrict__ lat,
-                              float* __restrict__ total, int n, int s_rows,
+                              float* __restrict__ total,
+                              int* __restrict__ counters, int n, int s_rows,
                               int n_banks, int mlp_window, int banked,
                               int n_regions, int map_per_lane) {
   extern __shared__ float smem[];
@@ -83,6 +106,7 @@ __global__ void replay_kernel(const float* __restrict__ closed,
 
   // shared layout: [chunk arrival][chunk bank][chunk row][chunk flags]
   //                [open][act][wrd][rdy] (each n_banks x bs) [ring W x bs]
+  //                [chunk uniforms] (faulted)
   float* s_arr = smem;
   int* s_bank = reinterpret_cast<int*>(s_arr + kChunk);
   int* s_row = s_bank + kChunk;
@@ -92,6 +116,7 @@ __global__ void replay_kernel(const float* __restrict__ closed,
   float* st_wrd = st_act + n_banks * bs;
   float* st_rdy = st_wrd + n_banks * bs;
   float* st_ring = st_rdy + n_banks * bs;
+  float* s_u = st_ring + mlp_window * bs;
 
   for (int b = 0; b < n_banks; ++b) {
     st_open[b * bs + lane] = -1.0f;
@@ -111,6 +136,20 @@ __global__ void replay_kernel(const float* __restrict__ closed,
     tcl = timings[5 * s_rows + s];
   }
   const long long cell = (long long)g * n;
+  faults::Row fr{};
+  faults::Watchdog wd;
+  faults::Counters cnt;
+  float j_trcd = 0.f, j_tras = 0.f, j_twr = 0.f, j_trp = 0.f, j_tcl = 0.f;
+  float jsum = 1.f;
+  if constexpr (kFaulted) {
+    if (live) fr = faults::load_row(fault, s_rows, s);
+    j_trcd = jedec[0];
+    j_tras = jedec[1];
+    j_twr = jedec[2];
+    j_trp = jedec[3];
+    j_tcl = jedec[5];
+    jsum = ((j_trcd + j_tras) + j_twr) + j_trp;
+  }
 
   for (int base = 0; base < n; base += kChunk) {
     const int len = min(kChunk, n - base);
@@ -121,6 +160,7 @@ __global__ void replay_kernel(const float* __restrict__ closed,
       s_bank[k] = bank[q];
       s_row[k] = row[q];
       s_flag[k] = (is_write[q] != 0 ? 1 : 0) | (valid[q] != 0 ? 2 : 0);
+      if constexpr (kFaulted) s_u[k] = uniforms[q];
     }
     __syncthreads();
     if (!live) continue;
@@ -149,6 +189,26 @@ __global__ void replay_kernel(const float* __restrict__ closed,
         tcl = tb[5 * s_rows];
       }
 
+      // the served row: the lane's own, or JEDEC while the watchdog is
+      // tripped (except on a probe); then the error draw and its price
+      float c_rcd = trcd, c_ras = tras, c_wr = twr, c_rp = trp, c_cl = tcl;
+      bool is_probe = false, det = false, sil = false;
+      float sur = 0.0f;
+      if constexpr (kFaulted) {
+        is_probe = faults::wd_probe(wd, fr);
+        if (!(wd.tripped == 0 || is_probe)) {
+          c_rcd = j_trcd;
+          c_ras = j_tras;
+          c_wr = j_twr;
+          c_rp = j_trp;
+          c_cl = j_tcl;
+        }
+        faults::error_outcome(
+            fr, faults::reduction(c_rcd, c_ras, c_wr, c_rp, jsum), 0.0f,
+            s_u[kk], det, sil);
+        sur = det ? j_tcl + fr.retry_ns : 0.0f;
+      }
+
       // service_math (dram_sim.py:652), operation for operation
       const float gate = st_ring[ri];
       const float open_b = st_open[bi], act_b = st_act[bi];
@@ -156,19 +216,26 @@ __global__ void replay_kernel(const float* __restrict__ closed,
       const float start = fmaxf(fmaxf(t, rdy_b), gate);
       const bool is_hit = open_b == rf;
       const bool is_empty = open_b == -1.0f;
-      const float pre_ok = fmaxf(act_b + tras, wrd_b);
+      const float pre_ok = fmaxf(act_b + c_ras, wrd_b);
       const float conflict_start = fmaxf(start, pre_ok);
       const float act_new =
-          is_hit ? act_b : (is_empty ? start + 0.0f : conflict_start + trp);
+          is_hit ? act_b : (is_empty ? start + 0.0f : conflict_start + c_rp);
       const float data_start =
           is_hit ? start
-                 : (is_empty ? start + trcd : (conflict_start + trp) + trcd);
-      const float done = data_start + tcl;
-      const float wrd_new = w ? done + twr : wrd_b;
-      const float pre_start = fmaxf(fmaxf(done, act_new + tras), wrd_new);
-      const float ready_new = is_closed ? pre_start + trp : done;
+                 : (is_empty ? start + c_rcd
+                             : (conflict_start + c_rp) + c_rcd);
+      float done = data_start + c_cl;
+      float wrd_new = w ? done + c_wr : wrd_b;
+      const float pre_start = fmaxf(fmaxf(done, act_new + c_ras), wrd_new);
+      float ready_new = is_closed ? pre_start + c_rp : done;
       const float latched = is_closed ? -1.0f : rf;
-      const float lat_v = done - fmaxf(t, gate);
+      float lat_v = done - fmaxf(t, gate);
+      if constexpr (kFaulted) {     // the retry surcharge
+        done = done + sur;
+        lat_v = lat_v + sur;
+        wrd_new = w ? wrd_new + sur : wrd_new;
+        ready_new = ready_new + sur;
+      }
 
       if (v) {
         st_open[bi] = latched;
@@ -176,6 +243,12 @@ __global__ void replay_kernel(const float* __restrict__ closed,
         st_wrd[bi] = wrd_new;
         st_rdy[bi] = ready_new;
         st_ring[ri] = done;
+        if constexpr (kFaulted) {
+          const bool degraded = wd.tripped > 0;
+          const bool new_trip =
+              faults::wd_update(wd, fr, det, false, is_probe);
+          faults::count(cnt, det, sil, new_trip, degraded, is_probe);
+        }
       }
       lat[(cell + k) * s_rows + s] = v ? lat_v : 0.0f;
     }
@@ -188,35 +261,53 @@ __global__ void replay_kernel(const float* __restrict__ closed,
       wrd_max = fmaxf(wrd_max, st_wrd[b * bs + lane]);
     }
     total[(long long)g * s_rows + s] = fmaxf(rdy_max, wrd_max);
+    if constexpr (kFaulted)
+      faults::store(cnt, counters, (long long)gridDim.x * s_rows,
+                    (long long)g * s_rows + s);
   }
+}
+
+int block_lanes(int s_rows) {
+  return s_rows < kMaxLanes ? ((s_rows + 31) / 32) * 32 : kMaxLanes;
 }
 
 }  // namespace
 
-extern "C" int replay_smem_bytes(int s_rows, int n_banks, int mlp_window) {
-  const int bs = s_rows < kMaxLanes ? ((s_rows + 31) / 32) * 32 : kMaxLanes;
-  return (4 * kChunk) * 4 + (4 * n_banks + mlp_window) * bs * 4;
+extern "C" int replay_smem_bytes(int s_rows, int n_banks, int mlp_window,
+                                 int faulted) {
+  return (4 * kChunk) * 4 +
+         (4 * n_banks + mlp_window) * block_lanes(s_rows) * 4 +
+         (faulted ? kChunk * 4 : 0);
 }
 
 // C interface (ctypes).  Returns the cudaError_t of the launch (0 =
 // success); the kernel runs asynchronously on `stream` (a cudaStream_t).
-// region_map may be NULL when n_regions is 0 (variants a and b).
+// region_map may be NULL when n_regions is 0 (variants a, b and e); fault,
+// jedec, uniforms and counters are all NULL (variants a-c) or all given
+// (variant e, module rows only).
 extern "C" int replay_launch(const float* closed, const float* arrival,
                              const int* bank, const int* row,
                              const int* is_write, const int* valid,
                              const float* timings, const int* region_map,
-                             float* lat, float* total, int g, int n,
+                             const float* fault, const float* jedec,
+                             const float* uniforms, float* lat,
+                             float* total, int* counters, int g, int n,
                              int s_rows, int n_banks, int mlp_window,
                              int banked, int n_regions, int map_per_lane,
                              void* stream) {
+  const bool faulted = fault != nullptr;
   if (g <= 0 || n <= 0 || s_rows <= 0 || n_banks <= 0 || mlp_window <= 0 ||
-      n_regions < 0 || (n_regions > 0 && (!banked || region_map == nullptr)))
+      n_regions < 0 || (n_regions > 0 && (!banked || region_map == nullptr)) ||
+      (faulted && (banked || jedec == nullptr || uniforms == nullptr ||
+                   counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int bs = s_rows < kMaxLanes ? ((s_rows + 31) / 32) * 32 : kMaxLanes;
-  const int smem = replay_smem_bytes(s_rows, n_banks, mlp_window);
-  // the region gather is compiled into the (c) instantiation only, so
-  // (a) and (b) pay nothing for it
-  auto kern = n_regions > 0 ? replay_kernel<true> : replay_kernel<false>;
+  const int bs = block_lanes(s_rows);
+  const int smem = replay_smem_bytes(s_rows, n_banks, mlp_window, faulted);
+  // the region gather and the fault loop are compiled into their own
+  // instantiations (c and e), so (a) and (b) pay nothing for them
+  auto kern = faulted ? replay_kernel<false, true>
+              : n_regions > 0 ? replay_kernel<true, false>
+                              : replay_kernel<false, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -226,7 +317,8 @@ extern "C" int replay_launch(const float* closed, const float* arrival,
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)g, (unsigned)gy);
   kern<<<grid, bs, smem, (cudaStream_t)stream>>>(
-      closed, arrival, bank, row, is_write, valid, timings, region_map, lat,
-      total, n, s_rows, n_banks, mlp_window, banked, n_regions, map_per_lane);
+      closed, arrival, bank, row, is_write, valid, timings, region_map, fault,
+      jedec, uniforms, lat, total, counters, n, s_rows, n_banks, mlp_window,
+      banked, n_regions, map_per_lane);
   return (int)cudaGetLastError();
 }

@@ -336,7 +336,7 @@ def test_sim_spec_thermal_validation():
 
 
 @pytest.mark.parametrize("kw,item", [({"n_channels": 2}, "10"),
-                                     ({"fault": object()}, "9")])
+                                     ({"n_ranks": 2}, "10")])
 def test_unported_adaptive_axes_raise(kw, item):
     z = torch.zeros(4)
     zi = torch.zeros(4, dtype=torch.int32)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro_torch.core import charge, dram_sim
+from repro_torch.core import faults as F
 from repro_torch.core import thermal as TH
 from repro_torch.core import timing as T
 from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
@@ -131,6 +132,42 @@ def _region_tables(lanes: int, u: int, regions: int, per_lane: bool):
     tile = tabs[0][None].repeat(u, 1, 1, 1)                   # [U, 4, 6, L]
     tile[:, :3, :4] *= (0.9 + 0.1 * f)[:, None, None, :]
     return (tile.contiguous(), rmap) + tabs[1:]
+
+
+# every fault mode, cycled over the lanes: inert, margin errors (with and
+# without the watchdog), a cold stuck-at sensor, drift + lag +
+# quantization, noise and dropout with the implausibility watchdog
+FAULT_ROWS = (
+    F.FaultScenario(),
+    F.FaultScenario(err_scale=0.8, err_free_red=0.0, detect_frac=0.9,
+                    retry_ns=60.0),
+    F.FaultScenario(err_scale=0.8, err_free_red=0.0, wd_err_n=4,
+                    wd_probe=16, wd_recover_n=2),
+    F.FaultScenario(stuck_c=30.0, stuck_from_ns=100.0, err_scale=0.5,
+                    err_bin_c=0.02, err_free_red=0.0, detect_frac=0.75),
+    F.FaultScenario(drift_c_per_ns=2e-3, lag_tau_ns=400.0, quant_c=0.5,
+                    err_bin_c=0.05, wd_err_n=3, wd_probe=8, wd_recover_n=2),
+    F.FaultScenario(noise_c=6.0, dropout_p=0.3, err_scale=0.5,
+                    err_free_red=0.0, wd_err_n=3, wd_sense_n=4,
+                    wd_jump_c=8.0, wd_probe=12, wd_recover_n=2, seed=5),
+)
+
+
+def _fault_inputs(lanes: int, g: int, n: int, inert: bool = False,
+                  seed: int = 9):
+    """The kernel-layout fault tile [F_COLS, lanes] (FAULT_ROWS cycled,
+    or all inert) and [G, N] uniforms."""
+    rows = [FAULT_ROWS[0 if inert else i % len(FAULT_ROWS)]
+            for i in range(lanes)]
+    tile = torch.tensor(np.stack([r.as_row() for r in rows]).T.copy())
+    gen = torch.Generator().manual_seed(seed)
+    return tile, torch.rand((g, n), generator=gen)
+
+
+def _bitwise(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 # --------------------------------------------------------------- the card
@@ -374,6 +411,135 @@ def test_wrappers_reject_bad_inputs(cuda):
         replay_ops.replay_blocks(ins[0], ins[1], bad, *ins[3:], tim)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_rows", [6, 54, 130])
+def test_faulted_replay_kernel_bitwise_equals_plain(cuda, s_rows):
+    """Variant (e): module rows x fault rows on the lanes as the engine
+    lays them out (l = s*F + f), the JEDEC row last; latencies, totals
+    and the five counters bitwise."""
+    ins = [x.to(cuda) for x in _streams(5, 900, seed=10)]
+    idx = (np.arange(s_rows) // len(FAULT_ROWS)) % 3
+    tim = torch.tensor(ROWS[::-1][idx], device=cuda)
+    ftile, u = (x.to(cuda) for x in _fault_inputs(s_rows, 5, 900))
+    jed = torch.tensor(ROWS[0], device=cuda)
+    before = (replay_ops.replay_blocks.launches,
+              replay_ops.replay_blocks.launches_faulted)
+    lat, total, cnt = replay_ops.replay_blocks(*ins, tim.T.contiguous(),
+                                               fault=(ftile, jed, u))
+    torch.cuda.synchronize()
+    assert (replay_ops.replay_blocks.launches,
+            replay_ops.replay_blocks.launches_faulted) == \
+        (before[0] + 1, before[1] + 1)
+    closed, arr, bank, row, wr, valid = ins
+    lat2, total2, cnt2 = dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(), tim, closed > 0.5,
+        fault=(ftile.T, jed, u))
+    assert cnt.shape == (5, 5, s_rows)
+    assert _bitwise(lat, lat2) and _bitwise(total, total2)
+    assert torch.equal(cnt, cnt2)
+    assert all(int(c.sum()) > 0 for c in cnt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["module", "bank", "region"])
+@pytest.mark.parametrize("lanes", [12, 130])
+def test_faulted_adaptive_kernel_bitwise_equals_plain(cuda, layout, lanes):
+    """Variant (d) on every table layout with every fault mode, raw temps
+    and bins emitted: latencies, totals, bins, switches and counters
+    bitwise; temperatures and heat within rtol 1e-5, atol 1e-4 (printed
+    if not bitwise)."""
+    from repro_torch.kernels.replay import ref as replay_ref
+    ins = [x.to(cuda) for x in _streams(5, 900, seed=11)]
+    rmap = None
+    if layout == "region":
+        tabs, rmap, scn, bins, tcfg = (x.to(cuda) for x in _region_tables(
+            lanes, 7, 4, True))
+    else:
+        tabs, scn, bins, tcfg = (x.to(cuda) for x in _adaptive_inputs(
+            lanes, layout == "bank"))
+    ftile, u = (x.to(cuda) for x in _fault_inputs(lanes, 5, 900))
+    before = (replay_ops.adaptive_blocks.launches,
+              replay_ops.adaptive_blocks.launches_faulted)
+    out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                     emit_raw=True, region_map=rmap,
+                                     fault=(ftile, u))
+    torch.cuda.synchronize()
+    assert (replay_ops.adaptive_blocks.launches,
+            replay_ops.adaptive_blocks.launches_faulted) == \
+        (before[0] + 1, before[1] + 1)
+    closed, arr, bank, row, wr, valid = ins
+    p = dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(), replay_ref.lane_stacks(tabs),
+        bins, scn.T, tcfg, closed > 0.5,
+        region_map=None if rmap is None else rmap.T, fault=(ftile.T, u))
+    lat, total, tmax, tmean, sw, heat, temps, sel, cnt = out
+    plat, ptot, ptemps, psel, pheat, (ptmax, ptmean, psw), pcnt = p
+    assert torch.equal(sel, psel) and torch.equal(sw, psw)
+    assert torch.equal(cnt, pcnt)
+    assert _bitwise(lat, plat) and _bitwise(total, ptot)
+    assert int(cnt[0].sum()) > 0 and int(cnt[2].sum()) > 0
+    assert int(cnt[4].sum()) > 0 and int(sel.max()) == 3
+    for a, b in ((temps, ptemps), (heat, pheat), (tmax, ptmax),
+                 (tmean, ptmean)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    nonbit = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                 for a, b in ((temps, ptemps), (heat, pheat)))
+    print(f"adaptive_blocks (d) {layout} lanes={lanes}: {nonbit} temperature"
+          " elements not bitwise equal to the plain version")
+
+
+@pytest.mark.gpu
+def test_inert_fault_rows_equal_unfaulted_kernels(cuda):
+    """All-inert fault rows reproduce variants (a) of both kernels bit
+    for bit, with zero counters."""
+    ins = [x.to(cuda) for x in _streams(5, 700, seed=12)]
+    tim = torch.tensor(ROWS[::-1].copy(), device=cuda).T.contiguous()
+    ftile, u = (x.to(cuda) for x in _fault_inputs(3, 5, 700, inert=True))
+    a = replay_ops.replay_blocks(*ins, tim)
+    b = replay_ops.replay_blocks(*ins, tim, fault=(
+        ftile, torch.tensor(ROWS[0], device=cuda), u))
+    torch.cuda.synchronize()
+    assert all(_bitwise(x, y) for x, y in zip(a, b[:2]))
+    assert int(b[2].abs().sum()) == 0
+    tabs, scn, bins, tcfg = (x.to(cuda) for x in _adaptive_inputs(8, False))
+    ftile, u = (x.to(cuda) for x in _fault_inputs(8, 5, 700, inert=True))
+    a = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                   emit_raw=True)
+    b = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                   emit_raw=True, fault=(ftile, u))
+    torch.cuda.synchronize()
+    assert all(_bitwise(x, y) for x, y in zip(a, b[:8]))
+    assert int(b[8].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_fault_wrappers_reject_bad_inputs(cuda):
+    ins = [x.to(cuda) for x in _streams(3, 50)]
+    tim = torch.tensor(ROWS, device=cuda).T.contiguous()
+    jed = torch.tensor(ROWS[0], device=cuda)
+    ftile, u = (x.to(cuda) for x in _fault_inputs(3, 3, 50))
+    for bad in ((ftile[:-1].contiguous(), jed, u),       # F_COLS - 1 rows
+                (ftile.double(), jed, u),
+                (ftile, jed[:5].contiguous(), u),
+                (ftile, jed, u[:, :-1].contiguous()),
+                (ftile, jed, u.T.contiguous().T),          # not contiguous
+                (ftile, u)):                               # no JEDEC column
+        with pytest.raises(ValueError):
+            replay_ops.replay_blocks(*ins, tim, fault=bad)
+    with pytest.raises(ValueError):                        # a mix of devices
+        replay_ops.replay_blocks(*ins, tim, fault=(ftile, jed, u.cpu()))
+    tim_b = torch.ones((8, 6, 3), device=cuda)
+    with pytest.raises(ValueError, match="module rows"):
+        replay_ops.replay_blocks(*ins, tim_b, fault=(ftile, jed, u))
+    tabs, scn, bins, tcfg = (x.to(cuda) for x in _adaptive_inputs(8, False))
+    ftile, u = (x.to(cuda) for x in _fault_inputs(8, 3, 50))
+    for bad in ((ftile[:, :7].contiguous(), u), (ftile, u[:2].contiguous()),
+                (ftile, u.half()), (ftile, jed, u)):
+        with pytest.raises(ValueError):
+            replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                       fault=bad)
+
+
 # ---------------------------------------------------------------- the CPU
 
 def test_margin_grid_cpu_runs_plain_version():
@@ -464,11 +630,54 @@ def test_regioned_wrappers_cpu_run_plain_versions(per_lane):
     assert torch.equal(out[0], pa[0]) and torch.equal(out[5], pa[4])
 
 
+@pytest.mark.parametrize("layout", ["module", "bank"])
+def test_faulted_wrappers_cpu_run_plain_versions(layout):
+    """On CPU tensors the faulted wrappers run the plain versions (no
+    launch counted); all-inert fault rows equal the unfaulted replay."""
+    ins = _streams(3, 90)
+    closed, arr, bank, row, wr, valid = ins
+    ftile, u = _fault_inputs(6, 3, 90)
+    before = (replay_ops.replay_blocks.launches,
+              replay_ops.adaptive_blocks.launches)
+    if layout == "module":
+        tim = torch.tensor(np.tile(ROWS[::-1], (2, 1)))
+        jed = torch.tensor(ROWS[0])
+        lat, total, cnt = replay_ops.replay_blocks(
+            *ins, tim.T.contiguous(), fault=(ftile, jed, u))
+        p = dram_sim.replay_cells(arr, bank, row, wr.bool(), valid.bool(),
+                                  tim, closed > 0.5, fault=(ftile.T, jed, u))
+        assert all(torch.equal(x, y) for x, y in zip((lat, total, cnt), p))
+        assert cnt.shape == (5, 3, 6) and int(cnt[0].sum()) > 0
+        inert, _ = _fault_inputs(6, 3, 90, inert=True)
+        a = replay_ops.replay_blocks(*ins, tim.T.contiguous())
+        b = replay_ops.replay_blocks(*ins, tim.T.contiguous(),
+                                     fault=(inert, jed, u))
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    tabs, scn, bins, tcfg = _adaptive_inputs(6, layout == "bank")
+    out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                     emit_raw=True, fault=(ftile, u))
+    from repro_torch.kernels.replay import ref as replay_ref
+    p = dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(), replay_ref.lane_stacks(tabs),
+        bins, scn.T, tcfg, closed > 0.5, fault=(ftile.T, u))
+    assert torch.equal(out[0], p[0]) and torch.equal(out[7], p[3])
+    assert torch.equal(out[8], p[6]) and out[8].shape == (5, 3, 6)
+    inert, _ = _fault_inputs(6, 3, 90, inert=True)
+    a = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg, emit_raw=True)
+    b = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg, emit_raw=True,
+                                   fault=(inert, u))
+    assert all(torch.equal(x, y) for x, y in zip(a, b[:8]))
+    assert int(b[8].sum()) == 0
+    assert (replay_ops.replay_blocks.launches,
+            replay_ops.adaptive_blocks.launches) == before
+
+
 def test_port_never_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "benchmarks" /
+              "port_fault_bench.py"]
     assert len(files) > 15
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in pat.finditer(f.read_text())]

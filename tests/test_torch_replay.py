@@ -217,14 +217,14 @@ class TestNotPorted:
             tdram.Policy(reorder_window=16)
 
     @pytest.mark.parametrize("kw", [{"n_ranks": 2},
-                                    {"faults": object()},
+                                    {"traces": object()},
                                     {"n_channels": 2}])
     def test_unported_sim_axes_raise(self, kw):
         tr = tdram.Trace(torch.zeros(4), torch.zeros(4, dtype=torch.int32),
                          torch.zeros(4, dtype=torch.int32),
                          torch.zeros(4, dtype=torch.bool))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsim.SimSpec(traces=(tr,), timings=ROWS[:1], **kw)
+            tsim.SimSpec(**{"traces": (tr,), "timings": ROWS[:1], **kw})
 
     def test_banked_timings_raise(self):
         """Per-bank rows are ported; a bank axis that does not match

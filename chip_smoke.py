@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region and
-fault-injection paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region,
+fault-injection and multi-channel traffic paths on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -64,6 +64,19 @@ Phases (any failure exits non-zero and prints no result line):
      printed (its >= 10x bracket depends on the draw and is not
      asserted, its watchdog bound is); then the same path under
      `torch.profiler` for the device busy share;
+  6c. the traffic path at full size, launch counts reset just before and
+     read just after: `port_traffic_bench.run(fast=False)` — 16
+     multi-tenant streams x n = 8192 x 3 FR-FCFS interleave policies x 8
+     timing rows on 1, 2 and 4 channels, per channel count a warm-up,
+     the FR-FCFS prepass timed alone and 3 timed runs of ONE replay
+     launch each (replay_blocks (a) on one channel, (d) on two and four,
+     asserted); then a multi-channel closed-loop campaign (2 channels,
+     the 8 default thermal lanes on the deployed module stack, 16
+     streams x n = 2048), which runs the plain step loop on the card
+     (the adaptive kernel is single-channel, as the reference's); then
+     one 4-channel run under `torch.profiler` for the busy share, after
+     phase 7 (its ~262k kernel records once left the next profiler
+     session of a kernel timing with no record);
   7. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
      (b) and adaptive_blocks (module and per-bank tables, raw temps and
      bins emitted) against their plain versions on the card at the
@@ -78,8 +91,10 @@ Phases (any failure exits non-zero and prints no result line):
      emitted), replay_blocks (e) at the static fault campaign's shape
      and adaptive_blocks (d) at the closed-loop fault campaigns' shape
      for all three table layouts (latencies, totals, bins, switches and
-     counters bitwise; temperatures within rtol 1e-5, atol 1e-4), with
-     their times;
+     counters bitwise; temperatures within rtol 1e-5, atol 1e-4), and
+     replay_blocks (d) at the traffic shape (48 cells x 8192 requests x
+     8 rows on 2 and 4 channels, and faulted with 3 fault rows per row;
+     latencies, totals and counters bitwise), with their times;
   8. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
      the card and on the CPU: chosen combos must agree (a flip only
      where the CPU's deciding margin is within 2e-4 of 0) and the
@@ -95,8 +110,12 @@ Phases (any failure exits non-zero and prints no result line):
      `evaluate_region_system(n=1024)` gmeans within 1e-5 relative; then
      `port_fault_bench` at --fast scale on the reference's uniforms on
      both: every served bin and counter equal (a mismatch is printed
-     with its cell, lane, request and |u - p|).
+     with its cell, lane, request and |u - p|); then
+     `port_traffic_bench.run(fast=True)` on the same tenant streams on
+     both: per channel count the mean, p99 and gap equal, and the
+     4-channel latency grid bitwise equal.
 
+Before them a `phase seconds:` line gives each phase's host seconds.
 The last lines are the card (`nvidia-smi` name and power limit), one
 JSON object of per-kernel numbers, and the result object.
 """
@@ -199,6 +218,7 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 # in `launches`; a launch counted in none of these is variant (a))
 VARIANTS = {"replay_blocks": {"b": "launches_banked",
                               "c": "launches_regioned",
+                              "d": "launches_multi",
                               "e": "launches_faulted"},
             "adaptive_blocks": {"b": "launches_banked",
                                 "c": "launches_regioned",
@@ -229,6 +249,18 @@ def read_counts() -> dict:
         var = {v: getattr(fn, attr) for v, attr in VARIANTS[name].items()}
         out[f"{name} (a)"] = fn.launches - sum(var.values())
         out.update({f"{name} ({v})": c for v, c in var.items()})
+    return out
+
+
+PHASE_SECONDS: dict = {}
+
+
+def phase(fn, *args):
+    """Run one phase, adding its host seconds to `PHASE_SECONDS`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[fn.__name__] = round(
+        PHASE_SECONDS.get(fn.__name__, 0.0) + time.perf_counter() - t0, 1)
     return out
 
 
@@ -375,7 +407,8 @@ def path_launches(env, kernel: str) -> dict:
     """A kernel variant's launches: the total over the paths driven,
     and per path."""
     by_path = {path: env[f"launches_{path}"][kernel]
-               for path in ("main", "thermal", "region", "fault")
+               for path in ("main", "thermal", "region", "fault",
+                            "traffic")
                if f"launches_{path}" in env}
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -1631,6 +1664,252 @@ def cross_device_fault() -> None:
           "card and CPU fault campaigns differ")
 
 
+# ---------------------------------------------------------- traffic path
+
+# operations per request per lane of variant (d) on top of service_math:
+# the bus gather and max, the slot and channel unpack, the bus write
+MULTI_OPS = 6
+MULTI_ADAPTIVE_SHAPE = (16, 2048)     # streams x requests, 2 channels
+
+
+def _multi_adaptive_spec(env, traces):
+    """The one-off multi-channel closed-loop campaign: the deployed
+    module stack (5 bins + JEDEC) under the 4 + 4 default thermal
+    lanes, one FR-FCFS row-interleave policy, 2 channels."""
+    from repro_torch.core import thermal as TH
+    from repro_torch.core.aldram import default_scenarios
+    from repro_torch.core.dram_sim import Policy, Trace
+    from repro_torch.core.sim_engine import SimSpec
+
+    rows, edges = env["ctrl"].table.safe_stack()
+    scns = default_scenarios()
+    t, n = MULTI_ADAPTIVE_SHAPE
+    return SimSpec(
+        traces=tuple(Trace(*(f[:n] for f in tr)) for tr in traces[:t]),
+        timings=rows[None], policies=(Policy(reorder_window=16),),
+        thermal=TH.ThermalSpec(scns + tuple(x.oracle() for x in scns),
+                               tuple(edges.tolist()), TH.ThermalConfig()),
+        n_channels=2, collect=("bins",))
+
+
+def traffic_path(env) -> None:
+    """Phase 6c: the multi-channel, multi-tenant traffic path at full
+    size, kernel launch counts reset just before and read just after:
+    `port_traffic_bench.run(fast=False)` (one replay launch per run:
+    (a) on one channel, (d) on two and four) and the multi-channel
+    closed-loop campaign, which runs the plain step loop on the card."""
+    import numpy as np
+    from benchmarks import port_traffic_bench as B
+    from repro_torch.core import perf_model
+    from repro_torch.core.sim_engine import SimEngine
+
+    n, n_streams, _ = B.grid(False)
+    traces = perf_model.tenant_spec(n=n, n_streams=n_streams,
+                                    seed=0).materialize("cuda")
+    spec_a = _multi_adaptive_spec(env, traces)
+    eng = SimEngine(device="cuda")
+    reset_counts()
+    bench, t_bench = wall(lambda: B.run(False, "cuda", traces))
+    adap, t_adap = wall(lambda: eng.run(spec_a))
+    launches = read_counts()
+
+    for c, d in bench["per_channel"].items():
+        print(f"traffic C={c}: mean {d['mean_ns']:.4f} ns, p99 "
+              f"{d['p99_ns']:.4f} ns, gap {d['static_vs_adaptive_gap']:.5f}x,"
+              f" wall {d['wall_s']:.4f} s (median of {d['replays']} runs), "
+              f"prepass {d['prepass_s']:.4f} s ({d['prepass_share']:.1%} of "
+              f"the wall), {d['throughput_req_s'] / 1e6:.3f} Mreq/s, "
+              f"launches in the timed runs {json.dumps(d['launches'])}")
+    print(f"traffic bench: {bench['requests']} requests per run, "
+          f"{t_bench:.3f} s in all; gap slope "
+          f"{bench['gap_contention_slope']:.5f}")
+    t, n_a = MULTI_ADAPTIVE_SHAPE
+    print(f"multi-channel adaptive campaign (C=2, {t} streams x n={n_a}, "
+          f"8 thermal lanes, FR-FCFS window 16) ran the plain step loop on "
+          f"the card (the adaptive kernel is single-channel): {t_adap:.3f} "
+          f"s; grid {adap.mean_latency_ns.shape}, mean "
+          f"{float(adap.mean_latency_ns.mean()):.4f} ns, p99 "
+          f"{float(adap.p99_latency_ns.mean()):.4f} ns, switches "
+          f"{int(adap.bin_switches.sum())}, bank_heat "
+          f"{adap.bank_heat.shape}")
+    print("traffic path kernels: " + json.dumps(launches))
+
+    per = bench["per_channel"]
+    for c, d in per.items():
+        check(d["replays"] == 3 and d["launches"]["total"] == 3,
+              f"C={c}: {d['replays']} runs, launches {d['launches']}")
+        check(np.isfinite([d["mean_ns"], d["p99_ns"],
+                           d["static_vs_adaptive_gap"]]).all()
+              and d["static_vs_adaptive_gap"] > 1.0, f"C={c}: {d}")
+    check(per["1"]["launches"]["multi"] == 0
+          and per["2"]["launches"]["multi"] == 3
+          and per["4"]["launches"]["multi"] == 3,
+          "one channel must launch (a), two and four (d)")
+    check(per["1"]["p99_ns"] > per["2"]["p99_ns"] >= per["4"]["p99_ns"],
+          "more channels must lower the p99")
+    # per channel count a warm-up and 3 timed runs; the closed loop
+    # launches no adaptive kernel
+    check(launches["replay_blocks (a)"] == 4
+          and launches["replay_blocks (d)"] == 8
+          and sum(v for k, v in launches.items()
+                  if k.startswith("adaptive_blocks")) == 0,
+          f"traffic path launches {launches}")
+    check(adap.bank_heat.shape[-1] == 2 * 8
+          and np.isfinite(adap.mean_latency_ns).all()
+          and int(adap.bins.max()) <= 5 and int(adap.bins.min()) >= 0,
+          "multi-channel adaptive campaign")
+    env.update(launches_traffic=launches, traffic_traces=traces,
+               traffic_bench=bench)
+
+
+def traffic_breakdown(env) -> None:
+    """Phase 6c, its profile (run after phase 7): one 4-channel traffic
+    run (FR-FCFS prepass, one launch of (d), device statistics) under
+    `torch.profiler`."""
+    from benchmarks import port_traffic_bench as B
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+
+    _, _, n_rows = B.grid(False)
+    spec = SimSpec(traces=env["traffic_traces"],
+                   timings=B.timing_rows(n_rows), policies=B.policies(),
+                   n_channels=4)
+    eng = SimEngine(device="cuda")
+    busy_share("traffic path (one 4-channel run)", lambda: eng.run(spec))
+
+
+def kernel_replay_multi(env) -> dict:
+    """Phase 7h: replay_blocks (d) against its plain version at the
+    traffic shape — the 16 tenant streams x 3 policies in their FR-FCFS
+    issue orders (48 cells), N = 8192, the 8 timing rows — on 2 and 4
+    channels, and faulted (8 rows x 3 fault rows, 4 channels); its times
+    (the entry's are the 4-channel unfaulted launch's)."""
+    import numpy as np
+    import torch
+    from benchmarks import port_traffic_bench as B
+    from repro_torch.core import dram_sim, faults
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+    from repro_torch.kernels.replay import ops, ref
+
+    n, _, n_rows = B.grid(False)
+    rows = torch.tensor(B.timing_rows(n_rows), device="cuda")
+    spec = SimSpec(traces=env["traffic_traces"], timings=B.timing_rows(
+        n_rows), policies=B.policies(), n_channels=4)
+    arrival, bank, row, is_write, valid, closed = SimEngine(
+        device="cuda").reorder_streams(spec)
+    t, p, _ = arrival.shape
+    cells = ref.to_cells(arrival, bank, row, is_write,
+                         torch.tensor(valid, device="cuda"),
+                         torch.tensor(closed, device="cuda"))
+    closed_c, arr, bk, rw, wr, val = cells
+    g = arr.shape[0]
+    codes = ref.cell_codes(torch.tensor(spec.ileave_codes, device="cuda"),
+                           t, p, "cuda")
+    fspec = faults.FaultSpec(scenarios=(
+        faults.FaultScenario(),
+        faults.FaultScenario(name="err", err_scale=0.8, err_free_red=0.0,
+                             detect_frac=0.9, retry_ns=60.0),
+        faults.FaultScenario(name="wd", err_scale=0.8, err_free_red=0.0,
+                             detect_frac=1.0, wd_err_n=4, wd_probe=16,
+                             wd_recover_n=2)), seed=SEED)
+    nf = len(fspec)
+    cases = {"C=2": (2, rows, None), "C=4": (4, rows, None),
+             "C=4 faulted": (4, rows.repeat_interleave(nf, dim=0), (
+                 ref.fault_tile(torch.tensor(fspec.pack(), device="cuda")
+                                .repeat(n_rows, 1)),
+                 rows[0].contiguous(),
+                 ref.cell_uniforms(_fault_uniforms(t, n), p)))}
+    res = {}
+    for name, (c, tim, fault) in cases.items():
+        tile = ref.timing_tile(tim)
+        s = tim.shape[0]
+        chan = (c, 1, 5.0)
+
+        def fn():
+            return ops.replay_blocks(*cells, tile, fault=fault, chan=chan,
+                                     ileave=codes)
+
+        out = fn()
+        plain, plain_s = wall(lambda: dram_sim.replay_cells(
+            arr, bk, rw, wr.bool(), val.bool(), tim, closed_c > 0.5,
+            fault=None if fault is None else (fault[0].T, fault[1],
+                                              fault[2]),
+            n_channels=c, n_ranks=1, ileave=codes, t_burst=5.0))
+        lanes = ((out[0].view(torch.int32) != plain[0].view(torch.int32))
+                 .any(1) | (out[1].view(torch.int32)
+                            != plain[1].view(torch.int32)))
+        if fault is not None:
+            lanes |= (out[2] != plain[2]).any(0)
+        n_bad = int(lanes.sum())
+        err = max((out[0] - plain[0]).abs().max().item(),
+                  (out[1] - plain[1]).abs().max().item())
+        call = cuda_ms(fn)
+        ms = kernel_ms(fn, "replay_kernel")
+        n_bytes = (g * n * 5 * 4 + g * 4 * 2 + tim.numel() * 4
+                   + g * n * s * 4 + g * s * 4
+                   + (0 if fault is None else g * n * 4
+                      + fault[0].numel() * 4 + 24 + g * s * 4 * 5))
+        ops_step = REPLAY_OPS_PER_STEP + MULTI_OPS + (
+            0 if fault is None else FAULT_OPS_STATIC)
+        b_ms, b_by = bound_ms(n_bytes, ops_step * g * n * s)
+        counted = ("" if fault is None else
+                   f"; {int(out[2].sum())} counted events")
+        print(f"replay_blocks (d, {name}) G={g} N={n} S={s}: {n_bad} of "
+              f"{g * s} lanes not bitwise equal to plain in latencies, "
+              f"totals{' or counters' if fault is not None else ''} (max "
+              f"abs {err:.3e}{counted}); kernel {ms:.3f} ms (wrapper call "
+              f"{call:.3f} ms), plain {plain_s * 1e3:.1f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
+              f"path {n} dependent requests; {ms / n * 1e3:.4f} us per "
+              "step")
+        check(n_bad == 0, f"replay_blocks (d, {name}): {n_bad} lanes differ")
+        if fault is not None:
+            check(int(out[2][0].sum()) > 0, "faulted (d) counted nothing")
+        res[name] = (ms, plain_s * 1e3, b_ms, b_by, err)
+    ms, plain_ms, b_ms, b_by, _ = res["C=4"]
+    return {"name": "replay_blocks", "variant": "d", "route": "cuda",
+            "source": "src/repro_torch/kernels/replay/replay.cu",
+            "replaces": "src/repro/kernels/replay/replay.py:640",
+            **path_launches(env, "replay_blocks (d)"),
+            "max_abs_err": max(r[4] for r in res.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "ms_by_case": {k: r[0] for k, r in res.items()},
+            "plain_ms_by_case": {k: r[1] for k, r in res.items()}}
+
+
+def cross_device_traffic() -> None:
+    """Phase 8e: `port_traffic_bench.run(fast=True)` on the card and on
+    the CPU on the same tenant streams: the per-channel statistics
+    equal, and the 4-channel latency grid bitwise equal."""
+    import numpy as np
+    from benchmarks import port_traffic_bench as B
+    from repro_torch.core import perf_model
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+
+    n, n_streams, n_rows = B.grid(True)
+    ten = perf_model.tenant_spec(n=n, n_streams=n_streams, seed=0)
+    out, grids = {}, {}
+    for dev in ("cuda", "cpu"):
+        traces = ten.materialize(dev)
+        out[dev], secs = wall(lambda: B.run(True, dev, traces))
+        grids[dev] = SimEngine(device=dev).run(SimSpec(
+            traces=traces, timings=B.timing_rows(n_rows),
+            policies=B.policies(), n_channels=4, collect=("latencies",)))
+        print(f"  port_traffic_bench --fast on {dev}: {secs:.2f} s")
+    worst = 0.0
+    for c in B.CHANNEL_SWEEP:
+        a, b = out["cuda"]["per_channel"][str(c)], out["cpu"][
+            "per_channel"][str(c)]
+        for k in ("mean_ns", "p99_ns", "static_vs_adaptive_gap"):
+            worst = max(worst, abs(a[k] / b[k] - 1.0))
+    same = np.array_equal(grids["cuda"].latencies.view(np.int32),
+                          grids["cpu"].latencies.view(np.int32))
+    print(f"cross-device traffic bench --fast: max relative difference of "
+          f"the per-channel mean / p99 / gap {worst:.3e}; 4-channel latency "
+          f"grid {grids['cuda'].latencies.shape} bitwise equal: {same}")
+    check(same and worst <= 1e-6, "card and CPU traffic campaigns differ")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -1655,35 +1934,34 @@ def main() -> int:
             for line in build.log_path(name).read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-        env = main_path({})
-        time_breakdown(env)
-        k1 = kernel_margin_grid(env)
-        thermal_path(env)
-        thermal_breakdown(env)
-        region_path(env)
-        region_breakdown(env)
-        fault_path(env)
-        fault_breakdown(env)
+        env = phase(main_path, {})
+        phase(time_breakdown, env)
+        k1 = phase(kernel_margin_grid, env)
+        for fn in (thermal_path, thermal_breakdown, region_path,
+                   region_breakdown, fault_path, fault_breakdown,
+                   traffic_path):
+            phase(fn, env)
         k1.update(path_launches(env, "margin_grid"))
-        k2 = kernel_replay(env)
-        k3 = kernel_replay_banked(env)
-        k4 = kernel_adaptive(env)
-        k5 = kernel_replay_regioned(env)
-        k6 = kernel_adaptive_regioned(env)
-        k7 = kernel_replay_faulted(env)
-        k8 = kernel_adaptive_faulted(env)
+        k2, k3, k4, k5, k6, k7, k8, k9 = (phase(fn, env) for fn in (
+            kernel_replay, kernel_replay_banked, kernel_adaptive,
+            kernel_replay_regioned, kernel_adaptive_regioned,
+            kernel_replay_faulted, kernel_adaptive_faulted,
+            kernel_replay_multi))
+        phase(traffic_breakdown, env)
         del env
         torch.cuda.empty_cache()
-        cross_device_thermal(cross_device())
-        cross_device_region()
-        cross_device_fault()
+        phase(cross_device_thermal, phase(cross_device))
+        for fn in (cross_device_region, cross_device_fault,
+                   cross_device_traffic):
+            phase(fn)
+        print("phase seconds: " + json.dumps(PHASE_SECONDS))
         print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
     except Exception:                       # report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6, k7, k8]}))
+    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6, k7, k8, k9]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

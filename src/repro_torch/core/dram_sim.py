@@ -1,9 +1,8 @@
-"""Trace-driven DRAM bank-timing simulator (port of `repro.core.dram_sim`,
-single channel, FCFS order).
+"""Trace-driven DRAM bank-timing simulator (port of `repro.core.dram_sim`).
 
-Models an in-order memory controller over `n_banks` banks on one
-rank/channel, honoring tRCD / tRAS / tRP / tWR / tCL.  Service latency
-per request under the default open-page policy:
+Models an in-order memory controller over `n_banks` banks per rank,
+honoring tRCD / tRAS / tRP / tWR / tCL.  Service latency per request
+under the default open-page policy:
 
   row hit      : tCL
   row empty    : tRCD + tCL
@@ -38,11 +37,29 @@ request (a detected one pays a retry surcharge) and counts detected and
 silent errors, trips, degraded requests and probes; the adaptive replay
 also reads its temperature through the faulted sensor.  `fault=None`
 runs the exact unfaulted arithmetic.
+
+Every replay also takes a multi-channel, multi-rank geometry
+(`n_channels`, `n_ranks`, `t_burst`) with a per-stream interleave code
+(`ILEAVE_CODES`): each request maps to a (channel, rank) through
+`chan_rank`, the bank state grows to C*R*n_banks slots indexed (ch*R +
+rank)*n_banks + bank, and a request's issue also waits for its
+channel's data bus, busy for `t_burst` ns from each burst start.
+Timing tables stay keyed on the rank-level bank.  C*R == 1 runs the
+exact single-channel arithmetic.
+
+FR-FCFS-lite reordering (`Policy.reorder_window` > 1) issues, within a
+bounded window of pending requests, the oldest one that hits its
+bank's open row: `frfcfs_order` is the host oracle, `frfcfs_reorder`
+its content-cached host pass, `frfcfs_perm` the device scheduler (one
+step per request over a [cells, window] pending buffer) and
+`replay_rows_frfcfs` the scheduler merged into the static replay.
+`TenantSpec` synthesizes multi-tenant request streams.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
@@ -62,29 +79,62 @@ class Trace(NamedTuple):
     is_write: torch.Tensor   # bool
 
 
+# address-interleaving policies: how a request's (bank, row) address maps
+# onto the channels of a multi-channel module — "row" keeps whole rows on
+# one channel, "cacheline" stripes consecutive addresses across channels,
+# "bank_xor" hashes the bank into the channel pick
+ILEAVE_CODES = {"row": 0, "cacheline": 1, "bank_xor": 2}
+
+
+def chan_rank(bank, row, ileave, n_channels: int, n_ranks: int,
+              n_banks: int = 8):
+    """Elementwise (channel, rank) of each request under interleave
+    code(s) `ileave` (broadcast against bank/row), in int32 arithmetic
+    with floored modulo and division, as the reference's."""
+    c = n_channels
+    b = bank if bank.dtype == torch.int32 else bank.to(torch.int32)
+    r = row if row.dtype == torch.int32 else row.to(torch.int32)
+    il = torch.as_tensor(ileave, dtype=torch.int32, device=b.device)
+    addr = r * n_banks + b                         # flat address proxy
+    ch = torch.where(il == 0, torch.remainder(r, c),
+                     torch.where(il == 1, torch.remainder(addr, c),
+                                 torch.remainder(torch.bitwise_xor(b, r), c)))
+    rank = torch.remainder(torch.div(r, c, rounding_mode="floor"), n_ranks)
+    return ch.to(torch.int32), rank.to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """One memory-controller scheduling policy (a campaign axis).
 
     page: "open" (default) or "closed" (auto-precharge every access).
-    Only FCFS order is ported: `reorder_window` > 1 (FR-FCFS-lite)
-    raises.
+    reorder_window: FR-FCFS-lite lookahead; <= 1 keeps FCFS order.
+    reorder_slack_ns: a row hit is promoted over the head request only
+    when it arrives within this slack of the head (waiting longer for a
+    hit costs more than the conflict it avoids).
+    interleave: address-interleaving policy of a multi-channel campaign
+    (one of `ILEAVE_CODES`; inert on one channel).
     """
 
     page: str = "open"
     reorder_window: int = 0
+    reorder_slack_ns: float = 30.0
+    interleave: str = "row"
 
     def __post_init__(self):
         if self.page not in ("open", "closed"):
             raise ValueError(f"page must be 'open' or 'closed': {self.page}")
-        if self.reorder_window > 1:
-            raise NotImplementedError(
-                "FR-FCFS reordering (reorder_window > 1) is not ported "
-                "yet: ROADMAP queue A items 4 and 10")
+        if self.interleave not in ILEAVE_CODES:
+            raise ValueError(f"interleave must be one of "
+                             f"{tuple(ILEAVE_CODES)}: {self.interleave}")
 
     @property
     def closed(self) -> bool:
         return self.page == "closed"
+
+    @property
+    def ileave_code(self) -> int:
+        return ILEAVE_CODES[self.interleave]
 
 
 OPEN_FCFS = Policy()
@@ -131,6 +181,114 @@ def synth_trace(generator: torch.Generator, n: int, n_banks: int = 8,
                  is_write.to(dev))
 
 
+@dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """A multi-tenant trace batch: each stream is a mixture of tenants
+    drawn per request from a shared pool, each tenant with its own
+    locality / write / inter-arrival knobs and arrival-rate process
+    (`thermal.rate_scenario` rows read by `ambient_at` as a rate
+    multiplier).
+
+    Pool axes ([K] tenants): `row_hits`, `write_fracs`,
+    `inter_arrivals`, and `arrivals` — each tenant's rate-scenario row
+    ([K][SCN_COLS], `ThermalScenario`s or "poisson" / "bursty" /
+    "diurnal"; one entry is cycled over the pool).  Stream axis ([T]):
+    `mixes`, the [T][K] tenant weights (normalized by the draw), and
+    `offsets`, the per-stream generator ids (default the stream index).
+
+    Per stream and request: a tenant is drawn from the mix, the
+    request's locality and write knobs are its tenant's, exponential
+    gaps are scaled by the tenant's inter-arrival time and divided by
+    its rate (floored at 0.05) at the unmodulated cumulative time.
+    `materialize` draws each stream from its own CPU `torch.Generator`
+    (seeded from `seed` and the stream's offset, as
+    `perf_model.trace_batch` seeds its traces): the bits are the port's
+    own, not the reference's threefry streams."""
+
+    n: int
+    mixes: tuple
+    row_hits: tuple[float, ...]
+    write_fracs: tuple[float, ...]
+    inter_arrivals: tuple[float, ...]
+    arrivals: tuple = ("poisson",)
+    offsets: tuple[int, ...] = ()
+    seed: int = 0
+    n_banks: int = 8
+    n_rows: int = 4096
+
+    def __post_init__(self):
+        from repro_torch.core import thermal
+        k = len(self.row_hits)
+        mixes = tuple(tuple(float(x) for x in m) for m in self.mixes)
+        if not mixes or any(len(m) != k for m in mixes):
+            raise ValueError(f"mixes must be [T][{k}] tenant weights")
+        rows = []
+        for a in (self.arrivals if len(self.arrivals) > 1
+                  else tuple(self.arrivals) * k):
+            if isinstance(a, str):
+                a = thermal.rate_scenario(a)
+            if isinstance(a, thermal.ThermalScenario):
+                a = a.as_row()
+            rows.append(tuple(float(x) for x in np.asarray(a)))
+        if len(rows) != k:
+            raise ValueError(f"arrivals: {len(rows)} rows for {k} tenants")
+        offsets = (tuple(range(len(mixes))) if not self.offsets
+                   else tuple(int(o) for o in self.offsets))
+        if len(offsets) != len(mixes):
+            raise ValueError(f"offsets: {len(offsets)} for {len(mixes)} "
+                             "streams")
+        object.__setattr__(self, "mixes", mixes)
+        object.__setattr__(self, "arrivals", tuple(rows))
+        object.__setattr__(self, "offsets", offsets)
+        for f in ("row_hits", "write_fracs", "inter_arrivals"):
+            object.__setattr__(
+                self, f, tuple(float(x) for x in getattr(self, f)))
+            if len(getattr(self, f)) != k:
+                raise ValueError(f"{f}: {len(getattr(self, f))} for {k} "
+                                 "tenants")
+        object.__setattr__(self, "_cache", {})
+
+    def __len__(self) -> int:
+        return len(self.mixes)
+
+    def _stream(self, i: int) -> Trace:
+        from repro_torch.core.perf_model import _trace_generator
+        gen = _trace_generator(self.seed, self.offsets[i])
+        f32 = torch.float32
+        rhs = torch.tensor(self.row_hits, dtype=f32)
+        wfs = torch.tensor(self.write_fracs, dtype=f32)
+        ias = torch.tensor(self.inter_arrivals, dtype=f32)
+        scn = torch.tensor(self.arrivals, dtype=f32)            # [K, SCN]
+        mix = torch.tensor(self.mixes[i], dtype=torch.float64)
+        tenant = torch.multinomial(mix + 1e-9, self.n, replacement=True,
+                                   generator=gen)
+        bank = torch.randint(0, self.n_banks, (self.n,), generator=gen,
+                             dtype=torch.int32)
+        new_row = torch.randint(0, self.n_rows, (self.n,), generator=gen,
+                                dtype=torch.int32)
+        reuse = torch.rand(self.n, generator=gen) < rhs[tenant]
+        row = _row_pick(bank, new_row, reuse, self.n_banks)
+        is_write = torch.rand(self.n, generator=gen) < wfs[tenant]
+        gaps = torch.empty(self.n, dtype=f32).exponential_(
+            generator=gen) * ias[tenant]
+        rate = ambient_at(scn[tenant].T, torch.cumsum(gaps, 0))
+        arrival = torch.cumsum(gaps / torch.clamp(rate, min=0.05), 0)
+        return Trace(arrival, bank, row, is_write)
+
+    def materialize(self, device: str | torch.device = "cuda"
+                    ) -> tuple[Trace, ...]:
+        """The streams as a tuple of [n] `Trace`s on `device` (drawn on
+        the host, so every device gets the same bits; cached per
+        device)."""
+        dev = resolve_device(device)
+        key = str(dev)
+        if key not in self._cache:
+            self._cache[key] = tuple(
+                Trace(*(f.to(dev) for f in self._stream(i)))
+                for i in range(len(self)))
+        return self._cache[key]
+
+
 def check_prefix_valid(valid, where: str = "replay") -> None:
     """Enforce the padding-suffix invariant the replay ring gate relies
     on: each trace's `valid` mask is True on a prefix, False after."""
@@ -147,6 +305,160 @@ def check_prefix_valid(valid, where: str = "replay") -> None:
             f"strictly a suffix) — trace row {t} has {int(cnt[t])} valid "
             f"requests but an invalid slot at index {first_gap} is "
             "followed by valid ones")
+
+
+def _host(x) -> np.ndarray:
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
+
+
+def frfcfs_order(trace: Trace, window: int, slack_ns: float = 30.0,
+                 max_defer: int | None = None) -> np.ndarray:
+    """Issue-order permutation of FR-FCFS-lite, the host oracle: among
+    the next `window` pending requests, issue the oldest one hitting
+    its bank's open row (else the oldest request).  A candidate is
+    promoted only when it arrives within `slack_ns` of the head
+    request, and a starvation cap forces the head out after
+    `max_defer` (default 4 * window) consecutive deferrals.  The
+    horizon arithmetic is float32, as `frfcfs_perm`'s."""
+    arrival = _host(trace.arrival).astype(np.float32)
+    bank = _host(trace.bank)
+    row = _host(trace.row)
+    n = arrival.shape[0]
+    cap = 4 * window if max_defer is None else max_defer
+    slack = np.float32(slack_ns)
+    order = np.empty(n, np.int64)
+    open_row: dict[int, int] = {}
+    pend = list(range(n))
+    defer = 0
+    for k in range(n):
+        pick = 0
+        if defer < cap:
+            horizon = np.float32(arrival[pend[0]] + slack)
+            for j in range(min(window, len(pend))):
+                idx = pend[j]
+                if (arrival[idx] <= horizon and
+                        open_row.get(int(bank[idx]), -1) == int(row[idx])):
+                    pick = j
+                    break
+        idx = pend.pop(pick)
+        defer = defer + 1 if pick > 0 else 0
+        open_row[int(bank[idx])] = int(row[idx])
+        order[k] = idx
+    return order
+
+
+# Host-reorder results cached across `SimSpec.pack()` calls, keyed on a
+# content digest of the trace (not its identity: an array mutated in place
+# must not hit a stale permutation) plus the policy knobs; LRU-evicted.
+_REORDER_CACHE: "dict[tuple, Trace]" = {}
+_REORDER_CACHE_MAX = 128
+
+
+def _trace_digest(trace: Trace) -> bytes:
+    """Content digest of every request field."""
+    h = hashlib.blake2b(digest_size=16)
+    for f in trace:
+        a = np.ascontiguousarray(_host(f))
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.digest()
+
+
+def frfcfs_reorder(trace: Trace, window: int, slack_ns: float = 30.0,
+                   max_defer: int | None = None) -> Trace:
+    """FR-FCFS-lite on the host (`frfcfs_order`): the requests keep
+    their arrival times, only the issue order changes.  Returns a
+    `Trace` of read-only numpy arrays, cached on (content digest,
+    window, slack, cap): a returned trace is shared by later equal
+    lookups, so mutating it raises.  `window <= 1` returns `trace`."""
+    if window <= 1:
+        return trace
+    key = (_trace_digest(trace), window, float(slack_ns), max_defer)
+    hit = _REORDER_CACHE.pop(key, None)
+    if hit is not None:
+        _REORDER_CACHE[key] = hit             # refresh the LRU position
+        return hit
+    order = frfcfs_order(trace, window, slack_ns, max_defer)
+    fields = []
+    for f in trace:
+        a = _host(f)[order]
+        a.flags.writeable = False
+        fields.append(a)
+    out = Trace(*fields)
+    while len(_REORDER_CACHE) >= _REORDER_CACHE_MAX:
+        _REORDER_CACHE.pop(next(iter(_REORDER_CACHE)))
+    _REORDER_CACHE[key] = out
+    return out
+
+
+def frfcfs_perm(arrival, bank, row, valid, window, slack_ns, cap,
+                max_window: int, n_banks: int = 8) -> torch.Tensor:
+    """The device scheduler of `frfcfs_order`: the issue-order
+    permutation (int64) of each padded stream, computed on the streams'
+    device with one step per request over a [cells, max_window] buffer
+    of the first pending requests (the only candidates FR-FCFS-lite
+    ever promotes), the per-bank open rows and the starvation counter.
+
+    arrival/bank/row/valid [N] or [cells, N]; `window`, `slack_ns` and
+    `cap` scalars or one per cell; `max_window` the buffer size (>=
+    every cell's window, <= N).  `window <= 1` gives the identity.
+    Padding (`valid` False) must be a suffix: padded slots are never
+    promoted, so they drain in order after the last real request.
+    Plain torch: the reference formulation is a `lax.scan`, never a
+    Pallas kernel."""
+    single = arrival.dim() == 1
+    if single:
+        arrival, bank, row, valid = (x[None] for x in (arrival, bank, row,
+                                                       valid))
+    c, n = arrival.shape
+    w = int(max_window)
+    if not 1 <= w <= n:
+        raise ValueError(f"max_window {w} must lie in [1, {n}]")
+    dev = arrival.device
+
+    def per_cell(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev).reshape(-1) \
+            .expand(c)
+
+    window = per_cell(window, torch.int64)
+    slack = per_cell(slack_ns, torch.float32)
+    cap = per_cell(cap, torch.int32)
+    # the streams with one sentinel column at index n: the refill once
+    # the stream runs dry, never valid, so it drains in order
+    def ext(x, fill):
+        return torch.cat([x, fill], 1)
+
+    a = ext(arrival.to(torch.float32), arrival[:, -1:].to(torch.float32))
+    b = ext(bank.long(), bank[:, -1:].long())
+    r = ext(row.to(torch.int32), row[:, -1:].to(torch.int32))
+    v = ext(valid.bool(), torch.zeros((c, 1), dtype=torch.bool, device=dev))
+    slots = torch.arange(w, device=dev)
+    slot_ok = slots[None, :] < window[:, None]
+    i_buf = slots[None, :].expand(c, w).contiguous()    # stream indices
+    open_row = torch.full((c, n_banks), -1, dtype=torch.int32, device=dev)
+    defer = torch.zeros(c, dtype=torch.int32, device=dev)
+    perm = torch.empty((c, n), dtype=torch.int64, device=dev)
+    for k in range(n):
+        b_buf = b.gather(1, i_buf)
+        r_buf = r.gather(1, i_buf)
+        a_buf = a.gather(1, i_buf)
+        hit = open_row.gather(1, b_buf) == r_buf
+        horizon = a_buf[:, :1] + slack[:, None]
+        elig = hit & (a_buf <= horizon) & v.gather(1, i_buf) & slot_ok
+        promo = elig.any(1) & (defer < cap)
+        pick = torch.where(promo, elig.to(torch.uint8).argmax(1),
+                           0)[:, None]
+        perm[:, k] = i_buf.gather(1, pick)[:, 0]
+        open_row.scatter_(1, b_buf.gather(1, pick), r_buf.gather(1, pick))
+        defer = torch.where(pick[:, 0] > 0, defer + 1, 0)
+        # shift the buffer left past the picked slot; the freed last
+        # slot refills from the stream (the sentinel once it runs dry)
+        fill = torch.full((c, 1), min(w + k, n), dtype=torch.int64,
+                          device=dev)
+        i_buf = torch.cat([i_buf, fill], 1).gather(
+            1, slots[None, :] + (slots[None, :] >= pick))
+    return perm[0] if single else perm
 
 
 # Rows per subarray (DDR3 512x512 mats): consecutive row addresses sit
@@ -218,38 +530,60 @@ def service_math(t, gate, open_b, act_b, wrd_b, rdy_b, rf, w, trcd,
 
 class BankState(NamedTuple):
     """Controller state of G streams x S timing lanes (updated in place
-    by `_service`)."""
+    by `_service`); the bank axis holds C*R*n_banks slots."""
 
-    bank: torch.Tensor        # [G, B, 4, S] open_row, act, wr_done, ready
+    bank: torch.Tensor        # [G, slots, 4, S] open_row, act, wr_done, ready
     done_ring: torch.Tensor   # [G, W, S] completion times, ring buffer
     idx: torch.Tensor         # [G] int64 served-request counter
+    chan_free: torch.Tensor | None = None   # [G, C, S] bus free (C*R > 1)
 
 
-def _bank_state0(g: int, n_banks: int, mlp_window: int, s: int,
-                 device) -> BankState:
-    bank = torch.zeros((g, n_banks, 4, s), dtype=torch.float32,
+def _bank_state0(g: int, n_slots: int, mlp_window: int, s: int,
+                 device, n_channels: int = 0) -> BankState:
+    """Zero state; `n_channels` > 0 adds the per-channel bus-free row."""
+    bank = torch.zeros((g, n_slots, 4, s), dtype=torch.float32,
                        device=device)
     bank[:, :, 0] = -1.0
+    cf = (torch.zeros((g, n_channels, s), dtype=torch.float32,
+                      device=device) if n_channels else None)
     return BankState(bank, torch.zeros((g, mlp_window, s),
                                        dtype=torch.float32, device=device),
-                     torch.zeros((g,), dtype=torch.int64, device=device))
+                     torch.zeros((g,), dtype=torch.int64, device=device), cf)
+
+
+def _chan_slots(bank, row, ileave, chan, n_banks: int):
+    """Each request's channel and global bank slot ((ch*R + rank)*B +
+    bank), both [G, N] int64, for `chan` = (C, R, t_burst) with C*R > 1;
+    `ileave` is one code or one per stream ([G])."""
+    il = torch.as_tensor(0 if ileave is None else ileave, device=bank.device)
+    if il.dim():
+        il = il[:, None]
+    ch, rk = chan_rank(bank, row, il, chan[0], chan[1], n_banks)
+    return ch.long(), (ch.long() * chan[1] + rk.long()) * n_banks \
+        + bank.long()
 
 
 def _service(st: BankState, t, b, rf, w, v, tc, closed, mlp_window: int,
-             surcharge=None):
+             surcharge=None, ch=None, t_burst: float = 0.0):
     """Service one request of every stream ([G] fields) under every
     timing lane: gather the request's bank row and ring gate, apply
     `service_math`, write the update back where the request is valid.
-    `tc` = (trcd, tras, twr, trp, tcl), each [S] or per stream [G, S].
-    `surcharge` ([G, S], optional) is the detected-error retry delay,
-    added to the completion, the latency, a write's recovery and the
-    bank's readiness (the bank stays busy through the re-issue).
-    Returns the [G, S] latency (0 at padding) and the [G, S] row-hit
-    flags."""
+    `b` is the request's bank slot; `tc` = (trcd, tras, twr, trp, tcl),
+    each [S] or per stream [G, S].  `surcharge` ([G, S], optional) is
+    the detected-error retry delay, added to the completion, the
+    latency, a write's recovery and the bank's readiness (the bank stays
+    busy through the re-issue).  With `ch` ([G] channels) the issue
+    also waits for the channel's bus, which then stays busy for
+    `t_burst` from the burst start (done - tCL).  Returns the [G, S]
+    latency (0 at padding) and the [G, S] row-hit flags."""
     g_ix = torch.arange(st.bank.shape[0], device=st.bank.device)
     rowb = st.bank[g_ix, b]                          # [G, 4, S]
     slot = st.idx % mlp_window
-    gate = st.done_ring[g_ix, slot]                  # [G, S]
+    gate0 = st.done_ring[g_ix, slot]                 # [G, S]
+    gate = gate0
+    if ch is not None:
+        cf_b = st.chan_free[g_ix, ch]
+        gate = torch.maximum(gate0, cf_b)
     (latched, act_new, wrd_new, rdy_new, done, lat,
      is_hit) = service_math(t[:, None], gate, rowb[:, 0], rowb[:, 1],
                             rowb[:, 2], rowb[:, 3], rf[:, None], w[:, None],
@@ -263,7 +597,10 @@ def _service(st: BankState, t, b, rf, w, v, tc, closed, mlp_window: int,
                            rdy_new], dim=1)
     vv = v[:, None]
     st.bank[g_ix, b] = torch.where(vv[:, :, None], new_row, rowb)
-    st.done_ring[g_ix, slot] = torch.where(vv, done, gate)
+    st.done_ring[g_ix, slot] = torch.where(vv, done, gate0)
+    if ch is not None:
+        st.chan_free[g_ix, ch] = torch.where(vv, done - tc[4] + t_burst,
+                                             cf_b)
     st.idx.add_(v.to(torch.int64))
     return torch.where(vv, lat, torch.zeros_like(lat)), is_hit
 
@@ -303,7 +640,8 @@ def _red(tc, jed):
 
 def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
                  n_banks: int = 8, mlp_window: int = 8, region_map=None,
-                 fault=None):
+                 fault=None, n_channels: int = 1, n_ranks: int = 1,
+                 ileave=None, t_burst: float = 5.0):
     """Replay G request streams, each under every one of S timing rows.
 
     arrival [G, N] float32; bank/row [G, N] int; is_write/valid [G, N]
@@ -322,7 +660,14 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
     while tripped, each request draws an error from its uniform against
     `faults.error_prob(red, 0)`, and a detected error pays the JEDEC
     tCL + RETRY_NS.  The return then gains the [N_COUNTERS, G, S] int32
-    counters (detected, silent, trips, degraded, probes)."""
+    counters (detected, silent, trips, degraded, probes).
+
+    With `n_channels * n_ranks` > 1 the bank state holds C*R*n_banks
+    slots and a [G, C, S] bus-free row: request (bank, row) of stream g
+    maps through `chan_rank(ileave[g])` (`ileave` one code or [G]
+    codes), waits for max(ring gate, its channel's bus) and leaves the
+    bus busy until done - tCL + `t_burst`.  The timing gather stays on
+    the rank-level bank."""
     g, n = arrival.shape
     dev = arrival.device
     timings = timings.to(torch.float32)
@@ -338,7 +683,12 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
                          f"{n_banks} banks")
     by_col = timings.permute(1, 0, 2) if banked else None    # [B|U, S, 6]
     tc = None if banked else _timing_cols(timings)
-    st = _bank_state0(g, n_banks, mlp_window, s_rows, dev)
+    multi = n_channels * n_ranks > 1
+    st = _bank_state0(g, n_channels * n_ranks * n_banks, mlp_window, s_rows,
+                      dev, n_channels if multi else 0)
+    if multi:
+        ch_all, gb_all = _chan_slots(bank, row, ileave,
+                                     (n_channels, n_ranks), n_banks)
     arrival = arrival.to(torch.float32)
     b_all = bank.long()
     rf_all = row.to(torch.float32)
@@ -372,9 +722,12 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
             p = faults.error_prob(fp, _red(tk, j5), 0.0)
             _, det, sil = faults.error_draw(fp, u_all[:, k, None], p)
             sur = torch.where(det, j5[4] + fp[faults.RETRY_NS], 0.0)
-        lat[:, k] = _service(st, arrival[:, k], b, rf_all[:, k],
+        lat[:, k] = _service(st, arrival[:, k],
+                             gb_all[:, k] if multi else b, rf_all[:, k],
                              w_all[:, k], v_all[:, k], tk, closed,
-                             mlp_window, surcharge=sur)[0]
+                             mlp_window, surcharge=sur,
+                             ch=ch_all[:, k] if multi else None,
+                             t_burst=t_burst)[0]
         if fault is not None:
             wd, cnt = _fault_step(fp, wd, cnt, det, sil, is_probe,
                                   v_all[:, k])
@@ -386,20 +739,22 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
 
 def replay_rows(arrival, bank, row, is_write, valid, timings, closed,
                 n_banks: int = 8, mlp_window: int = 8, region_map=None,
-                fault=None):
+                fault=None, n_channels: int = 1, n_ranks: int = 1,
+                ileave=None, t_burst: float = 5.0):
     """One trace ([N] fields) under a [S, 6] (or per-bank [S, banks,
     6], or with `region_map` the [S, U, 6] unique-row store, as in
-    `replay_cells`) stack of timing rows; `closed` a bool.  Returns
-    (latency [S, N], total [S]); with `fault` = (fault rows [S,
-    F_COLS], JEDEC row [6], uniforms [N]) also the [N_COUNTERS, S]
-    counters."""
+    `replay_cells`) stack of timing rows; `closed` a bool; `ileave` one
+    interleave code.  Returns (latency [S, N], total [S]); with `fault`
+    = (fault rows [S, F_COLS], JEDEC row [6], uniforms [N]) also the
+    [N_COUNTERS, S] counters."""
     closed_t = torch.as_tensor(bool(closed), device=arrival.device)[None]
     if fault is not None:
         fault = (fault[0], fault[1],
                  torch.as_tensor(fault[2], device=arrival.device)[None])
     out = replay_cells(arrival[None], bank[None], row[None], is_write[None],
                        valid[None], timings, closed_t, n_banks, mlp_window,
-                       region_map, fault)
+                       region_map, fault, n_channels, n_ranks, ileave,
+                       t_burst)
     if fault is not None:
         return out[0][0].T, out[1][0], out[2][:, 0]
     return out[0][0].T, out[1][0]
@@ -407,16 +762,145 @@ def replay_rows(arrival, bank, row, is_write, valid, timings, closed,
 
 def replay_one(arrival, bank, row, is_write, valid, tp_row, closed,
                n_banks: int = 8, mlp_window: int = 8, region_map=None,
-               fault=None):
+               fault=None, n_channels: int = 1, n_ranks: int = 1,
+               ileave=None, t_burst: float = 5.0):
     """One trace under one [6] timing row (or [banks, 6] per-bank rows,
     or with a [banks * R] `region_map` the [U, 6] unique-row store) ->
     (latency [N], total []); with `fault` = (fault row [F_COLS], JEDEC
-    row [6], uniforms [N]) also the [N_COUNTERS] counters."""
+    row [6], uniforms [N]) also the [N_COUNTERS] counters.  The channel
+    geometry is `replay_cells`'."""
     if fault is not None:
         fault = (torch.as_tensor(fault[0])[None], fault[1], fault[2])
     out = replay_rows(arrival, bank, row, is_write, valid, tp_row[None],
-                      closed, n_banks, mlp_window, region_map, fault)
+                      closed, n_banks, mlp_window, region_map, fault,
+                      n_channels, n_ranks, ileave, t_burst)
     return tuple(x[..., 0] if i == 2 else x[0] for i, x in enumerate(out))
+
+
+def replay_rows_frfcfs(arrival, bank, row, is_write, valid, timings,
+                       closed, window, slack_ns, cap, max_window: int,
+                       n_banks: int = 8, mlp_window: int = 8,
+                       all_valid: bool = False, n_channels: int = 1,
+                       n_ranks: int = 1, ileave=None, t_burst: float = 5.0,
+                       fault=None, region_map=None):
+    """FR-FCFS-lite merged into the static replay: one step per request
+    both picks the request to issue (`frfcfs_perm`'s pending-buffer
+    scheduler, operation for operation) and services it against
+    `replay_rows`' lane-major state, so it equals `replay_rows` of the
+    `frfcfs_perm`-permuted stream bit for bit.
+
+    One stream ([N] fields); `timings` [S, 6], per-bank [S, banks, 6]
+    or with `region_map` ([banks * R] or [S, banks * R]) the [S, U, 6]
+    store; `closed` a bool; `window`, `slack_ns`, `cap` the policy's
+    knobs (`window <= 1` is FCFS); `max_window` the buffer size.  The
+    stream is packed [5, N+1] in float32 (bank and row ids exact below
+    2**24) with a sentinel column whose row, -2, never matches an open
+    row.  `all_valid=True` asserts no padding and runs the ring as a
+    roll.  The scheduler keys its open rows on the rank-level bank; the
+    service half carries the channel state of `replay_cells`.  `fault`
+    = (fault rows [S, F_COLS], JEDEC row [6], uniforms [N]) consumes
+    the uniforms by ISSUE step, as the prepass pipeline does.
+
+    Returns (latency [S, N] in issue order, total [S]) and, with
+    `fault`, the [N_COUNTERS, S] counters."""
+    n = arrival.shape[0]
+    w = int(max_window)
+    if not 1 <= w <= n:
+        raise ValueError(f"max_window {w} must lie in [1, {n}]")
+    dev = arrival.device
+    f32 = torch.float32
+    timings = timings.to(f32)
+    s_rows = timings.shape[0]
+    banked = timings.dim() == 3
+    multi = n_channels * n_ranks > 1
+    if region_map is not None:
+        if not banked:
+            raise ValueError("region_map needs [S, U, 6] unique-row stores")
+        rmap = torch.as_tensor(region_map, device=dev).long()
+        n_regions = rmap.shape[-1] // n_banks
+        lane_i = torch.arange(s_rows, device=dev)
+    elif banked and timings.shape[1] != n_banks:
+        raise ValueError(f"per-bank timings {tuple(timings.shape)} need "
+                         f"{n_banks} banks")
+    by_col = timings.permute(1, 0, 2) if banked else None    # [B|U, S, 6]
+    tc0 = None if banked else _timing_cols(timings)
+    il = torch.as_tensor(0 if ileave is None else ileave, dtype=torch.int32,
+                         device=dev)
+    closed_t = torch.as_tensor(bool(closed), device=dev)
+    window = torch.as_tensor(window, device=dev)
+    slack = torch.as_tensor(slack_ns, dtype=f32, device=dev)
+    cap = torch.as_tensor(cap, device=dev)
+    stream = torch.cat([
+        torch.stack([arrival.to(f32), bank.to(f32), row.to(f32),
+                     is_write.to(f32), valid.to(f32)]),
+        torch.tensor([[0.0], [0.0], [-2.0], [0.0], [0.0]], device=dev)], 1)
+    slots = torch.arange(w, device=dev)
+    buf = stream[:, :w].clone()                       # pending buffer
+    open_pred = torch.full((n_banks,), -1.0, device=dev)
+    defer = torch.zeros((), dtype=torch.int32, device=dev)
+    st = _bank_state0(1, n_channels * n_ranks * n_banks, mlp_window, s_rows,
+                      dev, n_channels if multi else 0)
+    lat = torch.empty((n, s_rows), dtype=f32, device=dev)
+    if fault is not None:
+        f_rows, j_row, u_all = fault
+        fp = torch.as_tensor(f_rows, dtype=f32, device=dev).T
+        jed = torch.as_tensor(j_row, dtype=f32, device=dev)
+        j5 = _timing_cols(jed)
+        u_all = torch.as_tensor(u_all, dtype=f32, device=dev)
+        wd = faults.wd_state0((1, s_rows), dev)
+        cnt = _counters0((1, s_rows), dev)
+    for k in range(n):
+        # scheduler: pick the issue slot (mirrors frfcfs_perm)
+        b_int = buf[1].long()
+        hit = open_pred[b_int] == buf[2]
+        horizon = buf[0, 0] + slack
+        elig = hit & (buf[0] <= horizon) & (buf[4] > 0) & (slots < window)
+        promo = elig.any() & (defer < cap)
+        pick = torch.where(promo, elig.to(torch.uint8).argmax(), 0)
+        req = buf[:, pick]
+        t, rf, v = req[0], req[2], req[4] > 0
+        b = req[1].long()
+        wr = req[3] > 0
+        open_pred[b] = rf
+        defer = torch.where(pick > 0, defer + 1, 0)
+        shifted = torch.cat([buf[:, 1:], stream[:, min(w + k, n), None]], 1)
+        buf = torch.where(slots[None, :] >= pick, shifted, buf)
+        # service: replay_cells' state, one stream
+        gb = b
+        ch = None
+        if multi:
+            ch, rk = chan_rank(b.to(torch.int32), rf.to(torch.int32), il,
+                               n_channels, n_ranks, n_banks)
+            ch = ch.long()
+            gb = (ch * n_ranks + rk.long()) * n_banks + b
+        if region_map is not None:
+            g_id = b * n_regions + region_of(rf, n_regions).long()
+            tk = (_timing_cols(timings[lane_i, rmap[:, g_id]])
+                  if rmap.dim() == 2 else _timing_cols(by_col[rmap[g_id]]))
+        else:
+            tk = _timing_cols(by_col[b]) if banked else tc0
+        sur = None
+        if fault is not None:
+            is_probe, use_agg = faults.wd_gate(fp, wd)
+            tk = tuple(torch.where(use_agg, a, jb) for a, jb in zip(tk, j5))
+            p = faults.error_prob(fp, _red(tk, j5), 0.0)
+            _, det, sil = faults.error_draw(fp, u_all[k], p)
+            sur = torch.where(det, j5[4] + fp[faults.RETRY_NS], 0.0)
+        if all_valid:
+            st.idx.zero_()          # the gate is the rolled ring's head
+        lat[k] = _service(st, t[None], gb[None], rf[None], wr[None],
+                          v[None], tk, closed_t[None], mlp_window,
+                          surcharge=sur,
+                          ch=None if ch is None else ch[None],
+                          t_burst=t_burst)[0][0]
+        if all_valid:               # ring <- ring[1:] + [done]
+            st.done_ring.copy_(st.done_ring.roll(-1, 1))
+        if fault is not None:
+            wd, cnt = _fault_step(fp, wd, cnt, det, sil, is_probe, v[None])
+    total = torch.maximum(st.bank[0, :, 3].amax(0), st.bank[0, :, 2].amax(0))
+    if fault is not None:
+        return lat.T, total, torch.stack(cnt)[:, 0]
+    return lat.T, total
 
 
 class AdaptiveState(NamedTuple):
@@ -432,7 +916,9 @@ class AdaptiveState(NamedTuple):
 def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
                           bins, scns, tcfg, closed, n_banks: int = 8,
                           mlp_window: int = 8, region_map=None, fault=None,
-                          probs: bool = False):
+                          probs: bool = False, n_channels: int = 1,
+                          n_ranks: int = 1, ileave=None,
+                          t_burst: float = 5.0):
     """Closed-loop replay of G request streams under L lanes, each lane
     a (timing-table stack, thermal scenario) pair with its own
     controller and RC heat.
@@ -478,7 +964,15 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
     count, bin_switches counting changes on valid requests after the
     first.  With `fault` the return gains the [N_COUNTERS, G, L] int32
     counters and, with `probs`, the [G, N, L] error probabilities (0 at
-    padding; a diagnostic)."""
+    padding; a diagnostic).
+
+    The channel geometry is `replay_cells`': with C*R > 1 the bank state
+    and the heat grow to C*R*n_banks slots (the sensor sums all of
+    them, slot 0 first, and the returned heat is [G, C*R*n_banks, L]),
+    the timing gather stays on the rank-level bank, and each request
+    also waits for its channel's bus.  The adaptive kernel is
+    single-channel, as the reference's: a multi-channel campaign runs
+    this plain step loop on its device."""
     g, n = arrival.shape
     dev = arrival.device
     tables = tables.to(torch.float32)
@@ -503,9 +997,12 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
     hyst = hyst_c * scn_t[8]                             # [L]
     lane = torch.arange(lanes, device=dev)
     g_ix = torch.arange(g, device=dev)
+    multi = n_channels * n_ranks > 1
+    n_slots = n_channels * n_ranks * n_banks
     st = AdaptiveState(
-        bank=_bank_state0(g, n_banks, mlp_window, lanes, dev),
-        heat=torch.zeros((g, n_banks, lanes), dtype=torch.float32,
+        bank=_bank_state0(g, n_slots, mlp_window, lanes, dev,
+                          n_channels if multi else 0),
+        heat=torch.zeros((g, n_slots, lanes), dtype=torch.float32,
                          device=dev),
         cur_bin=torch.zeros((g, lanes), dtype=torch.int64, device=dev),
         t_prev=torch.zeros((g,), dtype=torch.float32, device=dev))
@@ -540,13 +1037,16 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
         cnt = _counters0((g, lanes), dev)
         pbin = torch.zeros((g, lanes), dtype=torch.int64, device=dev)
         p_out = torch.zeros_like(lat) if probs else None
+    if multi:
+        ch_all, gb_all = _chan_slots(bank, row, ileave,
+                                     (n_channels, n_ranks), n_banks)
     for k in range(n):
         t, b, v = arrival[:, k], b_all[:, k], v_all[:, k]
         vv = v[:, None]
         dt = torch.maximum(t - st.t_prev, zero)
         heat = st.heat * torch.exp(-dt / tau)[:, None, None]
         hsum = heat[:, 0]
-        for j in range(1, n_banks):
+        for j in range(1, n_slots):
             hsum = hsum + heat[:, j]
         sensed = ambient_at(scn_t, t[:, None]) + hsum        # [G, L]
         reading = sensed
@@ -579,12 +1079,15 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
             p = faults.error_prob(fp, _red(tc, j5), excess)
             _, det, sil = faults.error_draw(fp, u_all[:, k, None], p)
             sur = torch.where(det, j5[4] + fp[faults.RETRY_NS], 0.0)
-        lat[:, k], is_hit = _service(st.bank, t, b, rf_all[:, k],
+        gb = gb_all[:, k] if multi else b
+        lat[:, k], is_hit = _service(st.bank, t, gb, rf_all[:, k],
                                      w_all[:, k], v, tc, closed,
-                                     mlp_window, surcharge=sur)
+                                     mlp_window, surcharge=sur,
+                                     ch=ch_all[:, k] if multi else None,
+                                     t_burst=t_burst)
         energy = access_energy_from_terms(
             e_burst, e_act_pre, p_as, 1.0 - is_hit.to(torch.float32), tc[1])
-        heat[g_ix, b] = heat[g_ix, b] + c_heat * energy
+        heat[g_ix, gb] = heat[g_ix, gb] + c_heat * energy
         st.heat.copy_(torch.where(vv[:, :, None], heat, st.heat))
         if fault is None:
             switches += (vv & (new_bin != st.cur_bin)
@@ -632,11 +1135,9 @@ def replay_adaptive(arrival, bank, row, is_write, valid, table, bins,
     [N]) also the [N_COUNTERS] counters (the temperature and bin then
     report the reading and the served bin).  With `c_heat = 0` and a
     steady scenario it equals `replay_one` of the selected constant
-    row, bit for bit."""
-    if n_channels * n_ranks != 1:
-        raise NotImplementedError(
-            "multi-channel adaptive replay is not ported yet: ROADMAP "
-            "queue A item 10")
+    row, bit for bit.  With `n_channels * n_ranks` > 1 (one interleave
+    code `ileave`) the overheat is [C*R*n_banks] (`replay_cells`'
+    channel geometry)."""
     dev = arrival.device
     if region_map is not None:
         region_map = torch.as_tensor(region_map, device=dev).reshape(-1)
@@ -648,7 +1149,8 @@ def replay_adaptive(arrival, bank, row, is_write, valid, table, bins,
         arrival[None], bank[None], row[None], is_write[None], valid[None],
         torch.as_tensor(table, device=dev)[None], bins,
         torch.as_tensor(scn_row, device=dev)[None], tcfg_row, closed_t,
-        n_banks, mlp_window, region_map, fault)
+        n_banks, mlp_window, region_map, fault, n_channels=n_channels,
+        n_ranks=n_ranks, ileave=ileave, t_burst=t_burst)
     lat, total, temps, sel, heat = out[:5]
     res = (lat[0, :, 0], total[0, 0], temps[0, :, 0], sel[0, :, 0],
            heat[0, :, 0])
@@ -659,9 +1161,10 @@ def simulate(trace: Trace, tp: TimingParams, n_banks: int = 8,
              mlp_window: int = 8, policy: Policy = OPEN_FCFS,
              device: str | torch.device = "cuda") -> dict:
     """Replay one trace under one set of timing parameters (a 1x1x1
-    `SimEngine` campaign with host statistics)."""
+    `SimEngine` campaign with host statistics and host reordering)."""
     from repro_torch.core import sim_engine
-    res = sim_engine.SimEngine(stats="host", device=device).run(
+    res = sim_engine.SimEngine(stats="host", reorder="host",
+                               device=device).run(
         sim_engine.SimSpec(traces=(trace,), timings=tp, policies=(policy,),
                            n_banks=n_banks, mlp_window=mlp_window,
                            collect=("latencies",)))

@@ -47,6 +47,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 # ---------------------------------------------------------------- layout
 # fault-row column indices (`FaultScenario.as_row()` packs them)
 STUCK_C = 0        # stuck-at reading (C); active once t >= STUCK_FROM
@@ -178,11 +180,13 @@ class FaultSpec:
 
 
 def fault_uniforms(seed: int, n_traces: int, n: int,
-                   device: str | torch.device = "cpu") -> torch.Tensor:
+                   device: str | torch.device = "cuda") -> torch.Tensor:
     """[T, N] float32 error uniforms in [0, 1): one issue-order stream
     per trace row, shared by every lane of that row, drawn from a
-    `torch.Generator` on `device` seeded with `seed`."""
-    dev = torch.device(device)
+    `torch.Generator` on `device` seeded with `seed` (the card unless
+    the caller asks for the CPU; a generator on another device draws
+    other bits)."""
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return torch.rand((n_traces, n), generator=gen, dtype=torch.float32,
                       device=dev)

@@ -132,6 +132,30 @@ def trace_batch(n: int = 8192, seed: int = 0, n_banks: int = 8,
                             for f in zip(*traces)))
 
 
+def tenant_spec(n: int = 8192, n_streams: int = 8, seed: int = 0,
+                n_banks: int = 8,
+                kinds=("poisson", "bursty", "diurnal")
+                ) -> dram_sim.TenantSpec:
+    """Multi-tenant traffic over the same workload pool: the 70 pool
+    entries become tenants with the knobs of `_pool_knobs` and an
+    arrival-rate process cycled from `kinds` (`thermal.rate_scenario`);
+    every stream is a Dirichlet tenant mix (alpha 0.15: a few dominant
+    tenants, the rest background) drawn from `np.random.default_rng(
+    seed)` exactly as the reference draws it, so the mixes are bitwise
+    the reference's (the streams `TenantSpec.materialize` draws are the
+    port's own)."""
+    offs, rhs, wfs, ias = _pool_knobs()
+    k = len(rhs)
+    r = np.random.default_rng(seed)
+    mixes = r.dirichlet(np.full(k, 0.15), size=n_streams)
+    return dram_sim.TenantSpec(
+        n=n, mixes=tuple(tuple(m) for m in mixes),
+        row_hits=tuple(rhs), write_fracs=tuple(wfs),
+        inter_arrivals=tuple(ias),
+        arrivals=tuple(kinds[i % len(kinds)] for i in range(k)),
+        seed=seed, n_banks=n_banks)
+
+
 def evaluate_many(timings, n: int = 8192, seed: int = 0,
                   engine: SimEngine | None = None,
                   policies: tuple[dram_sim.Policy, ...] = (dram_sim.OPEN_FCFS,),

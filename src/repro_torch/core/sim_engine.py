@@ -1,10 +1,11 @@
-"""Batched trace-replay campaigns (port of the single-channel subset of
-`repro.core.sim_engine`): the paper's real-system evaluation (Sec. 6,
-Fig. 4) and its closed thermal loop (Sec. 4) as ONE replay launch each,
-optionally under a fault axis.
+"""Batched trace-replay campaigns (port of `repro.core.sim_engine`): the
+paper's real-system evaluation (Sec. 6, Fig. 4) and its closed thermal
+loop (Sec. 4) as ONE replay launch each, optionally under a fault axis,
+on a multi-channel, multi-rank module.
 
 A `SimSpec` declares the campaign axes — traces (padded to one length
-with a validity mask), scheduling policies (open/closed page, FCFS) and
+with a validity mask), scheduling policies (open/closed page, FR-FCFS-lite
+reordering, address interleave) and
 stacked timing rows [S, 6], per-bank [S, banks, 6], or the
 mask-compressed subarray-region store [S, U, 6] with its index map
 (`region_map`) — and
@@ -29,6 +30,19 @@ fault_counters` then holds the [..., F, N_COUNTERS] counters.  An
 all-inert spec (`FaultSpec.none()`) runs the unfaulted launch and
 repeats its result along F, with zero counters.
 
+FR-FCFS-lite policies (`reorder_window` > 1, open page) replay their
+issue orders: `reorder="device"` (default) computes them with
+`dram_sim.frfcfs_perm` on the engine's device before the launch, one
+scheduler run per window group over a pending buffer cut to the exact
+slack-horizon bound (`_eff_window`); `reorder="host"` packs them through
+`dram_sim.frfcfs_reorder`, the host oracle.  Fault uniforms stay in
+issue position: request k of every policy's issue order draws u[t, k].
+`n_channels`/`n_ranks` > 1 launches the multi-channel variant (d) of
+`replay_blocks` with each policy's interleave code; the adaptive kernel
+is single-channel, as the reference's, so a multi-channel adaptive
+campaign runs the plain step loop (`replay.ref.replay_grid_adaptive`) on
+the engine's device.
+
 stats="device" (default) reduces masked mean and interpolated p99 on
 the device (`_device_stats`, p99 from a `torch.topk` of static depth)
 and moves only [T, P, S] summaries to the host; stats="host" is the
@@ -46,7 +60,8 @@ import torch
 from repro_torch.core import faults as F
 from repro_torch.core import timing as T
 from repro_torch.core.dram_sim import (OPEN_FCFS, Policy, Trace,
-                                       check_prefix_valid)
+                                       check_prefix_valid, frfcfs_perm,
+                                       frfcfs_reorder)
 from repro_torch.core.thermal import ThermalSpec
 from repro_torch.device import resolve_device
 
@@ -101,6 +116,11 @@ class SimSpec:
     is then a stack of per-bin tables ([K, S+1, 6] or per-bank
     [K, S+1, banks, 6]) and the grid is [T, P, K, C] (C = scenarios).
 
+    `n_channels` x `n_ranks` independent bank groups, with each
+    policy's `interleave` mapping requests to channels, and
+    `t_burst_ns` the per-channel bus occupancy of one burst; 1 x 1 is
+    the single-channel replay.
+
     `region_map` (int, [banks * R] shared, or [S, banks * R] / [K,
     banks * R] per timing row / table stack) switches the spatial axis
     of `timings` to the unique-row store ([S, U, 6] / [K, S+1, U, 6]):
@@ -119,9 +139,9 @@ class SimSpec:
     thermal: ThermalSpec | None = None
     region_map: np.ndarray | None = None
     faults: F.FaultSpec | None = None
-    # axes of the reference campaign that are not ported yet
     n_channels: int = 1
     n_ranks: int = 1
+    t_burst_ns: float = 5.0
 
     def __post_init__(self):
         if self.thermal is not None and not isinstance(self.thermal,
@@ -132,10 +152,9 @@ class SimSpec:
                                                       F.FaultSpec):
             raise TypeError(f"faults must be a FaultSpec, got "
                             f"{type(self.faults).__name__}")
-        if self.n_channels * self.n_ranks != 1:
-            raise NotImplementedError(
-                "multi-channel campaigns are not ported yet: ROADMAP "
-                "queue A item 10")
+        if self.n_channels < 1 or self.n_ranks < 1:
+            raise ValueError(f"n_channels and n_ranks must be >= 1, got "
+                             f"{self.n_channels} x {self.n_ranks}")
         tr = self.traces
         if isinstance(tr, Trace):
             tr = (tuple(Trace(*(f[i] for f in tr))
@@ -207,31 +226,79 @@ class SimSpec:
     def closed_flags(self) -> np.ndarray:
         return np.array([p.closed for p in self.policies])
 
-    def pack(self, device: torch.device):
-        """Pad the traces into dense [T, P, N] request tensors on
-        `device` (FCFS order, shared by every policy) plus the [T, N]
-        validity mask (host numpy) and the [P] closed-page flags."""
+    @property
+    def multi(self) -> bool:
+        return self.n_channels * self.n_ranks > 1
+
+    @property
+    def chan(self) -> tuple:
+        """The channel geometry (n_channels, n_ranks, t_burst_ns)."""
+        return (self.n_channels, self.n_ranks, float(self.t_burst_ns))
+
+    @property
+    def ileave_codes(self) -> np.ndarray:
+        """Per-policy interleave codes [P] int32."""
+        return np.array([p.ileave_code for p in self.policies], np.int32)
+
+    def policy_knobs(self):
+        """Per-policy FR-FCFS (window, slack, cap) columns.  Closed page
+        auto-precharges after every access, so no row hit can be
+        promoted: window 0 keeps closed-page and FCFS policies in
+        arrival order."""
+        windows = np.array([0 if p.closed or p.reorder_window <= 1
+                            else p.reorder_window for p in self.policies],
+                           np.int32)
+        slacks = np.array([p.reorder_slack_ns for p in self.policies],
+                          np.float32)
+        caps = np.array([4 * max(int(w), 1) for w in windows], np.int32)
+        return windows, slacks, caps
+
+    def _pack(self, traces, device, lead: tuple):
         lens = [int(t.arrival.shape[0]) for t in self.traces]
-        n, nt, npol = max(lens), len(self.traces), len(self.policies)
-        arrival = torch.zeros((nt, n), dtype=torch.float32, device=device)
-        bank = torch.zeros((nt, n), dtype=torch.int32, device=device)
-        row = torch.zeros((nt, n), dtype=torch.int32, device=device)
-        is_write = torch.zeros((nt, n), dtype=torch.bool, device=device)
-        valid = np.zeros((nt, n), bool)
-        for i, t in enumerate(self.traces):
-            k = lens[i]
-            valid[i, :k] = True
-            arrival[i, :k] = torch.as_tensor(t.arrival, device=device)
-            bank[i, :k] = torch.as_tensor(t.bank, device=device)
-            row[i, :k] = torch.as_tensor(t.row, device=device)
-            is_write[i, :k] = torch.as_tensor(t.is_write, device=device)
+        n = max(lens)
+        arrival = torch.zeros(lead + (n,), dtype=torch.float32,
+                              device=device)
+        bank = torch.zeros(lead + (n,), dtype=torch.int32, device=device)
+        row = torch.zeros(lead + (n,), dtype=torch.int32, device=device)
+        is_write = torch.zeros(lead + (n,), dtype=torch.bool, device=device)
+        valid = np.zeros((len(lens), n), bool)
+        for ix, t in traces:
+            k = lens[ix[0]]
+            valid[ix[0], :k] = True
+            for dst, f in zip((arrival, bank, row, is_write), t):
+                if not isinstance(f, torch.Tensor):
+                    f = torch.from_numpy(np.array(f))
+                dst[ix + (slice(0, k),)] = f.to(device)
         check_prefix_valid(valid, "SimSpec.pack")
+        return arrival, bank, row, is_write, valid
 
-        def per_policy(x):
-            return x[:, None, :].expand(nt, npol, n)
+    def pack_device(self, device: torch.device):
+        """The FCFS streams: dense [T, N] request tensors on `device`
+        plus the [T, N] validity mask (host numpy)."""
+        return self._pack(((((i,), t) for i, t in enumerate(self.traces))),
+                          device, (len(self.traces),))
 
-        return (per_policy(arrival), per_policy(bank), per_policy(row),
-                per_policy(is_write), valid, self.closed_flags)
+    def pack(self, device: torch.device):
+        """Dense [T, P, N] request tensors on `device`, each policy's
+        in its FR-FCFS issue order computed on the host
+        (`dram_sim.frfcfs_reorder`, cached by content; closed-page and
+        FCFS policies keep arrival order), plus the [T, N] validity mask
+        (host numpy) and the [P] closed-page flags."""
+        windows, _, _ = self.policy_knobs()
+
+        def cells():
+            for i, t in enumerate(self.traces):
+                done: dict = {}
+                for j, (p, w) in enumerate(zip(self.policies, windows)):
+                    key = None if w <= 1 else (int(w), p.reorder_slack_ns)
+                    if key not in done:
+                        done[key] = t if key is None else frfcfs_reorder(
+                            t, *key)
+                    yield (i, j), done[key]
+
+        return self._pack(cells(), device,
+                          (len(self.traces), len(self.policies))) \
+            + (self.closed_flags,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,9 +409,84 @@ def _device_thermal_diag(temps: torch.Tensor, bin_sel: torch.Tensor,
     return tmax, tmean, switches
 
 
+def _eff_window(arrival: np.ndarray, valid: np.ndarray, window: int,
+                slack_ns: float) -> int:
+    """The exact FR-FCFS buffer size: with non-decreasing arrivals,
+    buffer slot j holds a request at stream distance >= j from the
+    head, so it can be promoted only while j < cnt_i = |{k >= i :
+    arr[k] <= arr[i] + slack}|; a buffer of max_i cnt_i gives the same
+    permutation as the nominal window.  float32 horizons, as
+    `frfcfs_perm`'s.  Decreasing arrivals in any valid prefix fall back
+    to `window`."""
+    eff = 1
+    slack = np.float32(slack_ns)
+    for t in range(arrival.shape[0]):
+        c = int(valid[t].sum())
+        if c == 0:
+            continue
+        arr = arrival[t, :c].astype(np.float32)
+        if np.any(np.diff(arr) < 0):
+            return window
+        horizon = (arr + slack).astype(np.float32)
+        cnt = np.searchsorted(arr, horizon, side="right") \
+            - np.arange(c, dtype=np.int64)
+        eff = max(eff, int(cnt.max()))
+    return max(1, min(window, eff, arrival.shape[1]))
+
+
+def _plan_entries(windows: np.ndarray, policies, arrival: np.ndarray,
+                  valid: np.ndarray) -> tuple:
+    """The reorder plan: one `(window, eff, policy indices)` entry per
+    window > 1, its buffer cut to the `_eff_window` bound of the group's
+    largest slack (a larger slack can only need a deeper buffer)."""
+    groups: dict[int, list[int]] = {}
+    for i, w in enumerate(windows.tolist()):
+        if w > 1:
+            groups.setdefault(int(w), []).append(i)
+    plan = []
+    for w, ix in sorted(groups.items()):
+        slack = max(float(policies[i].reorder_slack_ns) for i in ix)
+        plan.append((w, _eff_window(arrival, valid, w, slack), tuple(ix)))
+    return tuple(plan)
+
+
+def _reorder_prepass(arrival, bank, row, is_write, valid, slacks, caps,
+                     plan: tuple, n_banks: int, n_policies: int):
+    """[T, N] FCFS streams -> [T, P, N] per-policy issue orders on their
+    device: each plan group runs `frfcfs_perm` over its (trace x
+    policy) cells with the group's exact buffer; the other policies keep
+    arrival order."""
+    t, n = arrival.shape
+
+    def bcast(x):
+        return x[:, None, :].expand(t, n_policies, n)
+
+    if not plan:
+        return bcast(arrival), bcast(bank), bcast(row), bcast(is_write)
+    dev = arrival.device
+    perm = torch.arange(n, device=dev).expand(t, n_policies, n).clone()
+    for window, eff, idx in plan:
+        m = len(idx)
+
+        def cells(x):
+            return x[:, None, :].expand(t, m, n).reshape(t * m, n)
+
+        sel = list(idx)
+        perm[:, sel] = frfcfs_perm(
+            cells(arrival), cells(bank), cells(row), cells(valid), window,
+            torch.as_tensor(slacks[sel], device=dev).repeat(t),
+            torch.as_tensor(caps[sel], device=dev).repeat(t), min(eff, n),
+            n_banks).reshape(t, m, n)
+    return tuple(torch.gather(bcast(x), 2, perm)
+                 for x in (arrival, bank, row, is_write))
+
+
 def _masked_stats(lat: np.ndarray, valid: np.ndarray):
     """Host reference of `_device_stats`: masked mean over each trace's
-    valid prefix and the interpolated p99, in numpy float32."""
+    valid prefix and the interpolated p99, in numpy float32.  The grid
+    is made contiguous first: numpy sums a contiguous row pairwise and a
+    strided one in another order."""
+    lat = np.ascontiguousarray(lat)
     mid = (1,) * (lat.ndim - 2)
     v = valid.reshape((valid.shape[0],) + mid + (valid.shape[1],))
     cnt = valid.sum(-1).astype(np.float32).reshape((valid.shape[0],) + mid)
@@ -368,36 +510,70 @@ def _masked_stats(lat: np.ndarray, valid: np.ndarray):
 class SimEngine:
     """Compiles a `SimSpec` into one replay launch on `device` (default
     "cuda"; raises without a card).  `dispatch_count` increments once
-    per `run`."""
+    per `run`.  `reorder` says where FR-FCFS issue orders are computed:
+    "device" (the scheduler on the engine's device, before the launch)
+    or "host" (`dram_sim.frfcfs_reorder` while packing)."""
 
     device: str | torch.device = "cuda"
     dispatch_count: int = 0
     stats: str = "device"
+    reorder: str = "device"
     mesh: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         if self.stats not in ("device", "host"):
             raise ValueError(f"stats must be 'device' or 'host': {self.stats}")
+        if self.reorder not in ("device", "host"):
+            raise ValueError(f"reorder must be 'device' or 'host': "
+                             f"{self.reorder}")
         if self.mesh is not None:
             raise NotImplementedError(
                 "sharded campaigns (mesh) are not ported yet: ROADMAP "
-                "queue A item 10")
+                "queue A item 10b")
+
+    def reorder_streams(self, spec: SimSpec, where: str = "SimEngine"):
+        """The campaign's [T, P, N] request tensors in each policy's
+        issue order on the engine's device, the [T, N] valid mask (host
+        numpy) and the [P] closed-page flags.  The streams are checked
+        once (bank range, prefix mask; rows for a region map) before the
+        scheduler runs."""
+        from repro_torch.kernels.replay import ops as replay_ops
+        dev = self.device
+        rows = spec.region_map is not None
+        if self.reorder == "host":
+            arrival, bank, row, is_write, valid, closed = spec.pack(dev)
+            replay_ops.check_data(where, bank, valid, spec.n_banks,
+                                  row if rows else None)
+            return arrival, bank, row, is_write, valid, closed
+        arrival, bank, row, is_write, valid = spec.pack_device(dev)
+        replay_ops.check_data(where, bank, valid, spec.n_banks,
+                              row if rows else None)
+        windows, slacks, caps = spec.policy_knobs()
+        plan = (_plan_entries(windows, spec.policies,
+                              arrival.cpu().numpy(), valid)
+                if (windows > 1).any() else ())
+        streams = _reorder_prepass(
+            arrival, bank, row, is_write, torch.as_tensor(valid, device=dev),
+            slacks, caps, plan, spec.n_banks, len(spec.policies))
+        return streams + (valid, spec.closed_flags)
 
     def run(self, spec: SimSpec, fault_uniforms=None) -> SimResult:
         """One replay launch over the whole campaign grid.  The streams
-        are checked once, before the launch (the region map was checked
-        by `SimSpec`).  With a fault axis the error uniforms are a [T, N]
-        float32 draw from a generator on the engine's device seeded with
-        `FaultSpec.seed`; `fault_uniforms` ([T, N] at the padded stream
-        length) replaces that draw."""
+        are checked once, before the reorder and the launch (the region
+        map was checked by `SimSpec`).  With a fault axis the error
+        uniforms are a [T, N] float32 draw from a generator on the
+        engine's device seeded with `FaultSpec.seed`, consumed by issue
+        position; `fault_uniforms` ([T, N] at the padded stream length)
+        replaces that draw."""
         from repro_torch.kernels.replay import ops as replay_ops
-        arrival, bank, row, is_write, valid, closed = spec.pack(self.device)
+        from repro_torch.kernels.replay import ref as replay_ref
+        arrival, bank, row, is_write, valid, closed = self.reorder_streams(
+            spec, "SimEngine.run")
         dev = self.device
         regioned = spec.region_map is not None
-        replay_ops.check_data("SimEngine.run", bank, valid, spec.n_banks,
-                              row if regioned else None)
         valid_d = torch.as_tensor(valid, device=dev)
+        codes = torch.as_tensor(spec.ileave_codes, device=dev)
         closed_d = torch.as_tensor(closed, device=dev)
         timings = torch.as_tensor(spec.timings, device=dev)
         rmap = (torch.as_tensor(spec.region_map, device=dev) if regioned
@@ -430,17 +606,25 @@ class SimEngine:
             out = replay_ops.replay_grid(
                 arrival, bank, row, is_write, valid_d, timings, closed_d,
                 spec.n_banks, spec.mlp_window, validated=True,
-                region_map=rmap, fault=fault)
+                region_map=rmap, fault=fault, chan=spec.chan, ileave=codes)
             lat, total = out[:2]
             lead = (s_rows, nf) if fault is not None else None
         else:
             scns, bins, tcfg = spec.thermal.pack()
             raw = self.stats == "host" or "temps" in spec.collect \
                 or "bins" in spec.collect
-            out = replay_ops.replay_grid_adaptive(
-                arrival, bank, row, is_write, valid_d, timings, bins, scns,
-                tcfg, closed_d, spec.n_banks, spec.mlp_window,
-                emit_raw=raw, validated=True, region_map=rmap, fault=fault)
+            if spec.multi:        # the adaptive kernel is single-channel
+                out = replay_ref.replay_grid_adaptive(
+                    arrival, bank, row, is_write, valid_d, timings, bins,
+                    scns, tcfg, closed_d, spec.n_banks, spec.mlp_window,
+                    region_map=rmap, fault=fault, chan=spec.chan,
+                    ileave=codes)
+            else:
+                out = replay_ops.replay_grid_adaptive(
+                    arrival, bank, row, is_write, valid_d, timings, bins,
+                    scns, tcfg, closed_d, spec.n_banks, spec.mlp_window,
+                    emit_raw=raw, validated=True, region_map=rmap,
+                    fault=fault)
             lat, total, temps, bin_sel, heat, diag = out[:6]
             lead = None
             if self.stats == "host":
@@ -500,6 +684,7 @@ class SimEngine:
         [1 + n_real] rows, "worst_bin" [n_real], "temp_peak" [n_real],
         "valid"}."""
         from repro_torch.kernels.replay import ops as replay_ops
+        from repro_torch.kernels.replay import ref as replay_ref
         if spec.thermal is None or spec.timings.shape[0] != 1:
             raise ValueError("run_bracket needs an adaptive spec with one "
                              "table stack")
@@ -510,9 +695,10 @@ class SimEngine:
             raise ValueError("run_bracket replays per-module or per-bank "
                              "stacks, not a region map")
         dev = self.device
-        arrival, bank, row, is_write, valid, closed = spec.pack(dev)
-        replay_ops.check_data("run_bracket", bank, valid, spec.n_banks)
+        arrival, bank, row, is_write, valid, closed = self.reorder_streams(
+            spec, "run_bracket")
         valid_d = torch.as_tensor(valid, device=dev)
+        codes = torch.as_tensor(spec.ileave_codes, device=dev)
         closed_d = torch.as_tensor(closed, device=dev)
         tables = torch.as_tensor(spec.timings, device=dev)
         # every host-to-device copy before the first launch: a copy from
@@ -525,18 +711,25 @@ class SimEngine:
                                device=dev).expand(tab0.shape[1:])
         k = _p99_k(valid)
         self.dispatch_count += 1
-        lat, total, _, _, heat, (tmax, tmean, sw) = \
-            replay_ops.replay_grid_adaptive(
+        if spec.multi:            # the adaptive kernel is single-channel
+            out = replay_ref.replay_grid_adaptive(
+                arrival, bank, row, is_write, valid_d, tables, bins, scns,
+                tcfg, closed_d, spec.n_banks, spec.mlp_window,
+                chan=spec.chan, ileave=codes)
+        else:
+            out = replay_ops.replay_grid_adaptive(
                 arrival, bank, row, is_write, valid_d, tables, bins, scns,
                 tcfg, closed_d, spec.n_banks, spec.mlp_window,
                 validated=True)
+        lat, total, _, _, heat, (tmax, tmean, sw) = out
         mean_a, p99_a = _device_stats(lat, valid_d, k)
         peak = tmax[:, :, 0, :n_real].amax(dim=(0, 1))
         worst = torch.searchsorted(bins, peak + tcfg[2], side="left")
         rows = torch.cat([base[None], tab0[worst]], dim=0)
         lat_s, total_s = replay_ops.replay_grid(
             arrival, bank, row, is_write, valid_d, rows, closed_d,
-            spec.n_banks, spec.mlp_window, validated=True)
+            spec.n_banks, spec.mlp_window, validated=True, chan=spec.chan,
+            ileave=codes)
         mean_s, p99_s = _device_stats(lat_s, valid_d, k)
 
         def host(**d):

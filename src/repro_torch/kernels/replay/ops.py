@@ -24,6 +24,10 @@ axis (`repro_torch.core.faults`): `fault=` takes lane-tiled fault rows
 [F_COLS, lanes], the issue-order uniforms [G, N] and, static, the
 JEDEC column [6], and adds the [N_COUNTERS, G, lanes] int32 counters
 (static faults take module rows only, as the reference's campaigns).
+`replay_blocks` also takes a multi-channel geometry, `chan` =
+(n_channels, n_ranks, t_burst) with a per-cell interleave code column
+[G] (variant d, with any timing layout and with faults); the adaptive
+kernel is single-channel, as the reference's.
 
 The region map's range is a property of the campaign: `SimSpec` checks
 it once on the host and `SimEngine` launches with `validated=True`.  A
@@ -46,12 +50,16 @@ from repro_torch.kernels.replay import ref
 
 # heat registers per lane in adaptive.cu (`kMaxBanks`)
 MAX_BANKS = 16
+# the shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232448
 
 
 def _replay_lib() -> ctypes.CDLL:
     lib = build.load("replay_blocks")
-    lib.replay_launch.argtypes = [ctypes.c_void_p] * 14 \
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.replay_launch.argtypes = [ctypes.c_void_p] * 15 \
+        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    lib.replay_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.replay_smem_bytes.restype = ctypes.c_int
     lib.replay_launch.restype = ctypes.c_int
     return lib
 
@@ -152,7 +160,8 @@ def _check_map(where: str, region_map, n_banks: int, lanes: int) -> int:
 
 def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
                   n_banks: int = 8, mlp_window: int = 8,
-                  validated: bool = False, region_map=None, fault=None):
+                  validated: bool = False, region_map=None, fault=None,
+                  chan=(1, 1, 5.0), ileave=None):
     """closed [G] float32 (1 = closed page); arrival [G, N] float32;
     bank/row/is_write/valid [G, N] int32; timings_t [6, S] float32, the
     per-bank tile [n_banks, 6, S], or with `region_map` (int32 [banks *
@@ -160,22 +169,36 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
     [U, 6, S] -> (lat [G, N, S], total [G, S]).  `fault` = (fault tile
     [F_COLS, S], JEDEC column [6], uniforms [G, N], all float32) with
     module rows adds the [N_COUNTERS, G, S] int32 counters (variant e).
-    CUDA tensors launch the kernel (counted in `replay_blocks.launches`,
-    an unfaulted per-bank tile also in `launches_banked`, an unfaulted
-    region store in `launches_regioned`, a faulted launch in
-    `launches_faulted`); CPU tensors run `dram_sim.replay_cells`.
+    `chan` = (n_channels, n_ranks, t_burst) with C*R > 1 replays each
+    cell on C*R*n_banks bank slots behind C buses, cell g under
+    interleave code `ileave[g]` (int32 [G]; None: all 0) — variant (d),
+    with any of the timing layouts and with faults; C*R == 1 ignores
+    `ileave` and launches (a)-(c), (e) unchanged.
+    CUDA tensors launch the kernel (counted in `replay_blocks.launches`;
+    a multi-channel launch also in `launches_multi`, and otherwise an
+    unfaulted per-bank tile in `launches_banked`, an unfaulted region
+    store in `launches_regioned`, a faulted launch in
+    `launches_faulted`); CPU tensors run `dram_sim.replay_cells`.  A
+    geometry whose block state exceeds the card's shared memory
+    (replay.cu `replay_smem_bytes` > 227 KB) is refused.
     `validated=True` skips the data checks, which wait for the device
     (bank range, prefix mask and, regioned, row sign and map range):
     only for a caller that has checked these same inputs already."""
     regioned = region_map is not None
     faulted = fault is not None
     banked = timings_t.dim() == 3
+    n_ch, n_rk, t_burst = int(chan[0]), int(chan[1]), float(chan[2])
+    multi = n_ch * n_rk > 1
     if faulted and banked:
         raise ValueError("replay_blocks: a fault axis takes module rows "
                          "[6, S] (the JEDEC fallback is one row)")
+    if n_ch < 1 or n_rk < 1:
+        raise ValueError(f"replay_blocks: chan needs n_channels, n_ranks "
+                         f">= 1, got {chan}")
     ins = (closed, arrival, bank, row, is_write, valid, timings_t) \
         + ((region_map,) if regioned else ()) \
-        + (tuple(fault) if faulted else ())
+        + (tuple(fault) if faulted else ()) \
+        + ((ileave,) if multi and ileave is not None else ())
     dev = _on_cuda("replay_blocks", ins)
     if dev is None:
         tim = (timings_t.permute(2, 0, 1) if banked else timings_t.T)
@@ -184,9 +207,13 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
                             mlp_window,
                             ref.lane_map(region_map) if regioned else None,
                             (fault[0].T, fault[1], fault[2]) if faulted
-                            else None)
+                            else None, n_ch, n_rk, ileave, t_burst)
     g, n = _check_streams("replay_blocks", closed, arrival, bank, row,
                           is_write, valid)
+    if multi:
+        if ileave is None:
+            ileave = torch.zeros(g, dtype=torch.int32, device=dev)
+        _check("replay_blocks: ileave", ileave, torch.int32, (g,))
     if timings_t.dtype != torch.float32 or not timings_t.is_contiguous() \
             or timings_t.dim() not in (2, 3) or timings_t.shape[-2] != 6 \
             or (banked and not regioned and timings_t.shape[0] != n_banks) \
@@ -200,6 +227,13 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
                  if regioned else 0)
     if faulted:
         _check_fault("replay_blocks", fault, s, g, n, static=True)
+    smem = _replay_lib().replay_smem_bytes(s, n_banks, mlp_window,
+                                           int(faulted), n_ch, n_rk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"replay_blocks: {n_ch} channels x {n_rk} ranks x {n_banks} "
+            f"banks at {s} timing rows need {smem} bytes of shared memory "
+            f"per block, over the card's {SMEM_LIMIT}")
     lat = torch.empty((g, n, s), dtype=torch.float32, device=dev)
     total = torch.empty((g, s), dtype=torch.float32, device=dev)
     cnt = (torch.zeros((faults.N_COUNTERS, g, s), dtype=torch.int32,
@@ -219,18 +253,23 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
             region_map.data_ptr() if regioned else None,
             *((fault[0].data_ptr(), fault[1].data_ptr(),
                fault[2].data_ptr()) if faulted else (None,) * 3),
+            ileave.data_ptr() if multi else None,
             lat.data_ptr(), total.data_ptr(),
             cnt.data_ptr() if faulted else None, g, n, s, n_banks,
             mlp_window, int(banked), n_regions,
-            int(regioned and region_map.dim() == 2), stream)
+            int(regioned and region_map.dim() == 2), n_ch, n_rk, t_burst,
+            stream)
     if rc != 0:
         raise RuntimeError(f"replay_blocks launch failed: cudaError {rc} "
                            f"(G={g}, N={n}, S={s}, banked={banked}, "
-                           f"regions={n_regions}, faulted={faulted})")
+                           f"regions={n_regions}, faulted={faulted}, "
+                           f"channels={n_ch}x{n_rk})")
     replay_blocks.launches += 1
-    replay_blocks.launches_banked += int(banked and not regioned)
-    replay_blocks.launches_regioned += int(regioned)
-    replay_blocks.launches_faulted += int(faulted)
+    replay_blocks.launches_multi += int(multi)
+    replay_blocks.launches_banked += int(banked and not regioned
+                                         and not multi)
+    replay_blocks.launches_regioned += int(regioned and not multi)
+    replay_blocks.launches_faulted += int(faulted and not multi)
     return (lat, total) + ((cnt,) if faulted else ())
 
 
@@ -238,6 +277,7 @@ replay_blocks.launches = 0
 replay_blocks.launches_banked = 0
 replay_blocks.launches_regioned = 0
 replay_blocks.launches_faulted = 0
+replay_blocks.launches_multi = 0
 
 
 def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
@@ -369,14 +409,17 @@ adaptive_blocks.launches_faulted = 0
 
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
                 n_banks: int = 8, mlp_window: int = 8,
-                validated: bool = False, region_map=None, fault=None):
+                validated: bool = False, region_map=None, fault=None,
+                chan=(1, 1, 5.0), ileave=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N] (prefix-true);
     timings [S, 6] or per-bank [S, n_banks, 6]; closed [P] bool ->
     (latency [T, P, S, N], total [T, P, S]), on the device of
     `arrival`.  With `region_map` ([banks * R] shared or [S, banks * R]
     per lane) `timings` is the [S, U, 6] unique-row store.  `fault` =
     (fault rows [S, F_COLS], JEDEC row [6], uniforms [T, N]) with
-    module rows adds the [T, P, S, NC] int32 counters."""
+    module rows adds the [T, P, S, NC] int32 counters.  `chan` =
+    (n_channels, n_ranks, t_burst) with the [P] interleave codes
+    `ileave` (None: all 0) is the channel geometry (variant d)."""
     if timings.dim() not in (2, 3):
         raise ValueError(f"timings must be [S, 6] or [S, banks, 6], got "
                          f"{tuple(timings.shape)}")
@@ -396,7 +439,8 @@ def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
     out = replay_blocks(
         *cells, tile, n_banks, mlp_window, validated=validated,
         region_map=(None if region_map is None
-                    else ref.map_tile(region_map, dev)), fault=fault)
+                    else ref.map_tile(region_map, dev)), fault=fault,
+        chan=chan, ileave=ref.cell_codes(ileave, t, p, dev))
     return ref.from_cells(*out[:2], t, p, *out[2:])
 
 

@@ -43,6 +43,14 @@ def from_cells(lat, total, t: int, p: int, cnt=None):
     return out + (cnt.reshape(-1, t, p, s).permute(1, 2, 3, 0),)
 
 
+def cell_codes(ileave, t: int, p: int, device) -> torch.Tensor:
+    """[P] per-policy interleave codes (or None: all 0) -> one per
+    kernel cell g = t*P + p: [T*P] int32 (contiguous)."""
+    il = (torch.zeros(p, dtype=torch.int32, device=device) if ileave is None
+          else torch.as_tensor(ileave, device=device).to(torch.int32))
+    return il[None, :].expand(t, p).reshape(t * p).contiguous()
+
+
 def cell_uniforms(u, p: int) -> torch.Tensor:
     """[T, N] error uniforms -> one stream per kernel cell g = t*P + p:
     [T*P, N] float32 (contiguous; shared by a trace's policies)."""
@@ -152,14 +160,15 @@ def from_lanes(out, t: int, p: int, k: int, c: int, nf: int | None = None):
 
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
                 n_banks: int = 8, mlp_window: int = 8, region_map=None,
-                fault=None):
+                fault=None, chan=(1, 1, 5.0), ileave=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N]; timings
     [S, 6] or per-bank [S, banks, 6]; closed [P] bool -> (latency
     [T, P, S, N], total [T, P, S]).  With `region_map` ([banks * R]
     shared or [S, banks * R] per lane) `timings` is the [S, U, 6]
     unique-row store (`dram_sim.replay_cells`).  `fault` = (fault rows
     [S, F_COLS], JEDEC row [6], uniforms [T, N]) adds the [T, P, S, NC]
-    counters."""
+    counters.  `chan` = (n_channels, n_ranks, t_burst) with the [P]
+    interleave codes `ileave` is the channel geometry."""
     t, p, _ = arrival.shape
     closed_c, arr, bk, rw, wr, val = to_cells(arrival, bank, row, is_write,
                                               valid, closed)
@@ -169,13 +178,15 @@ def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
     out = replay_cells(arr, bk, rw, wr, val,
                        torch.as_tensor(timings, device=arr.device),
                        closed_c > 0.5, n_banks, mlp_window, region_map,
-                       fault)
+                       fault, chan[0], chan[1],
+                       cell_codes(ileave, t, p, arr.device), chan[2])
     return from_cells(*out[:2], t, p, *out[2:])
 
 
 def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
                          bins, scns, tcfg, closed, n_banks: int = 8,
-                         mlp_window: int = 8, region_map=None, fault=None):
+                         mlp_window: int = 8, region_map=None, fault=None,
+                         chan=(1, 1, 5.0), ileave=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N]; tables
     [K, S+1, 6] or per-bank [K, S+1, banks, 6] (JEDEC row last); bins
     [S]; scns [C, SCN_COLS]; tcfg [6]; closed [P] -> (lat [T, P, K, C,
@@ -185,7 +196,11 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
     shared by every stack or [K, banks * R] per stack) `tables` is the
     [K, S+1, U, 6] unique-column stack.  `fault` = (fault rows [F,
     F_COLS], uniforms [T, N]) rides the lanes innermost: every grid
-    gains F after C and the return the [T, P, K, C, F, NC] counters."""
+    gains F after C and the return the [T, P, K, C, F, NC] counters.
+    `chan` and `ileave` as in `replay_grid`: with C*R > 1 the heat is
+    [T, P, K, C, C*R*banks].  The engine runs this plain version, on
+    its device, for a multi-channel adaptive campaign (the adaptive
+    kernel is single-channel, as the reference's)."""
     t, p, _ = arrival.shape
     dev = arrival.device
     tables = torch.as_tensor(tables, device=dev)
@@ -203,7 +218,9 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
     out = replay_adaptive_cells(
         arr, bk, rw, wr, val, lane_tables(tables, reps), bins,
         lane_scenarios(scns, k, nf or 1), tcfg, closed_c > 0.5, n_banks,
-        mlp_window, lane_stack_map(region_map, reps, dev), lane_fault)
+        mlp_window, lane_stack_map(region_map, reps, dev), lane_fault,
+        n_channels=chan[0], n_ranks=chan[1],
+        ileave=cell_codes(ileave, t, p, dev), t_burst=chan[2])
     lat, total, temps, sel, heat, (tmax, tmean, sw) = out[:6]
     return from_lanes((lat, total, tmax, tmean, sw, heat, temps, sel)
                       + out[6:], t, p, k, c, nf)

@@ -1,15 +1,16 @@
 // Batched DRAM trace replay for Hopper: every (cell g, timing row s) lane
 // replays cell g's request stream under timing row s.
 //
-// Replaces variants (a), (b), (c) and (e) of the Pallas TPU kernel
-// `replay_blocks` of src/repro/kernels/replay/replay.py (`_kernel`):
-// module-level timing rows [6, S] (a), the per-bank tile [n_banks, 6, S]
-// (b, the banked branch at replay.py:99/:172), the mask-compressed
-// subarray-region store [U, 6, S] gathered through an index map (c, the
-// regioned branch at replay.py:162) and module rows under a fault axis
+// Replaces variants (a)-(e) of the Pallas TPU kernel `replay_blocks` of
+// src/repro/kernels/replay/replay.py (`_kernel`): module-level timing rows
+// [6, S] (a), the per-bank tile [n_banks, 6, S] (b, the banked branch at
+// replay.py:99/:172), the mask-compressed subarray-region store [U, 6, S]
+// gathered through an index map (c, the regioned branch at replay.py:162),
+// the multi-channel, multi-rank module (d, the `multi` branches at
+// replay.py:95-120, :143-160, :216-219) and module rows under a fault axis
 // (e, the faulted branch at replay.py:82-90, :125-134, :181-193,
-// :201-237), one channel.  Plain version: repro_torch/core/dram_sim.py
-// (`replay_cells`, `service_math`).
+// :201-237).  Plain version: repro_torch/core/dram_sim.py (`replay_cells`,
+// `service_math`).
 //
 // Inputs (row-major): closed [G] float32 (1 = closed page); arrival [G, N]
 // float32; bank, row, is_write, valid [G, N] int32 (flags 0/1); timings
@@ -17,7 +18,9 @@
 // trp, trefi, tcl); for (c) region_map int32 [n_banks * R] shared by every
 // lane, or [n_banks * R, S] per lane, with values in [0, U); for (e) the
 // lane-tiled fault rows [F_COLS, S], the JEDEC column [6] and the
-// issue-order error uniforms [G, N], all float32.
+// issue-order error uniforms [G, N], all float32; for (d) the per-cell
+// interleave codes [G] int32 (dram_sim.ILEAVE_CODES), n_channels, n_ranks
+// and t_burst.
 // Outputs: lat [G, N, S] float32 (0 at padding), total [G, S] float32;
 // for (e) the counters [5, G, S] int32 (detected, silent, trips, degraded,
 // probes).
@@ -54,6 +57,19 @@
 // completion, the latency, a write's recovery and the bank's readiness,
 // as `dram_sim._service(surcharge=...)` does.
 //
+// Variant (d), its own instantiation (kMulti) composable with the other
+// three: the bank state grows to C*R*n_banks slots, still [slot][lane] in
+// shared memory, plus a [C][lane] bus-free row.  The staging threads map
+// each request of the chunk to its channel and global slot (ch*R + rank) *
+// n_banks + bank once, from the cell's interleave code read once per block
+// (int32 floored modulo and division, as dram_sim.chan_rank), so the
+// integer work stays off the lanes' dependent chain.  The gate is
+// fmaxf(ring, bus[ch]); after `service_math` (and a retry surcharge) a
+// valid request leaves the bus busy until (done - tCL) + t_burst.  The
+// timing gather of (b) and (c) stays on the rank-level bank.  At 128
+// lanes, C = 4, R = 1 the block state is ~72 KB; the wrapper refuses a
+// geometry over the card's 227 KB.
+//
 // Each request runs `service_math` (src/repro/core/dram_sim.py:652)
 // operation for operation.  It is float32 add, max and select only (no
 // multiply, so nothing can contract into an FMA), which makes `lat` and
@@ -79,8 +95,18 @@ namespace {
 constexpr int kChunk = 1024;   // requests staged per shared-memory chunk
 constexpr int kMaxLanes = 128; // timing rows per block
 constexpr int kSubarrayRows = 512;  // dram_sim.SUBARRAY_ROWS
+constexpr int kSmemLimit = 232448;  // shared memory of one Hopper block
 
-template <bool kRegioned, bool kFaulted>
+// int32 floored modulo and division by a positive m (Python's % and //)
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+__device__ __forceinline__ int floor_div(int a, int m) {
+  return (a - floor_mod(a, m)) / m;
+}
+
+template <bool kRegioned, bool kFaulted, bool kMulti>
 __global__ void replay_kernel(const float* __restrict__ closed,
                               const float* __restrict__ arrival,
                               const int* __restrict__ bank,
@@ -92,11 +118,13 @@ __global__ void replay_kernel(const float* __restrict__ closed,
                               const float* __restrict__ fault,
                               const float* __restrict__ jedec,
                               const float* __restrict__ uniforms,
+                              const int* __restrict__ ileave,
                               float* __restrict__ lat,
                               float* __restrict__ total,
                               int* __restrict__ counters, int n, int s_rows,
                               int n_banks, int mlp_window, int banked,
-                              int n_regions, int map_per_lane) {
+                              int n_regions, int map_per_lane,
+                              int n_channels, int n_ranks, float t_burst) {
   extern __shared__ float smem[];
   const int bs = blockDim.x;
   const int lane = threadIdx.x;
@@ -105,26 +133,33 @@ __global__ void replay_kernel(const float* __restrict__ closed,
   const bool live = s < s_rows;
 
   // shared layout: [chunk arrival][chunk bank][chunk row][chunk flags]
-  //                [open][act][wrd][rdy] (each n_banks x bs) [ring W x bs]
-  //                [chunk uniforms] (faulted)
+  //                [open][act][wrd][rdy] (each n_slots x bs) [ring W x bs]
+  //                [bus free C x bs] (multi) [chunk uniforms] (faulted)
+  //                [chunk slot | channel << 16] (multi)
+  const int n_slots = kMulti ? n_channels * n_ranks * n_banks : n_banks;
   float* s_arr = smem;
   int* s_bank = reinterpret_cast<int*>(s_arr + kChunk);
   int* s_row = s_bank + kChunk;
   int* s_flag = s_row + kChunk;
   float* st_open = reinterpret_cast<float*>(s_flag + kChunk);
-  float* st_act = st_open + n_banks * bs;
-  float* st_wrd = st_act + n_banks * bs;
-  float* st_rdy = st_wrd + n_banks * bs;
-  float* st_ring = st_rdy + n_banks * bs;
-  float* s_u = st_ring + mlp_window * bs;
+  float* st_act = st_open + n_slots * bs;
+  float* st_wrd = st_act + n_slots * bs;
+  float* st_rdy = st_wrd + n_slots * bs;
+  float* st_ring = st_rdy + n_slots * bs;
+  float* st_bus = st_ring + mlp_window * bs;
+  float* s_u = st_bus + (kMulti ? n_channels * bs : 0);
+  int* s_slot = reinterpret_cast<int*>(s_u + (kFaulted ? kChunk : 0));
 
-  for (int b = 0; b < n_banks; ++b) {
+  for (int b = 0; b < n_slots; ++b) {
     st_open[b * bs + lane] = -1.0f;
     st_act[b * bs + lane] = 0.0f;
     st_wrd[b * bs + lane] = 0.0f;
     st_rdy[b * bs + lane] = 0.0f;
   }
   for (int w = 0; w < mlp_window; ++w) st_ring[w * bs + lane] = 0.0f;
+  if constexpr (kMulti)
+    for (int c = 0; c < n_channels; ++c) st_bus[c * bs + lane] = 0.0f;
+  const int il = kMulti ? ileave[g] : 0;
 
   const bool is_closed = closed[g] > 0.5f;
   float trcd = 0.f, tras = 0.f, twr = 0.f, trp = 0.f, tcl = 0.f;
@@ -161,6 +196,14 @@ __global__ void replay_kernel(const float* __restrict__ closed,
       s_row[k] = row[q];
       s_flag[k] = (is_write[q] != 0 ? 1 : 0) | (valid[q] != 0 ? 2 : 0);
       if constexpr (kFaulted) s_u[k] = uniforms[q];
+      if constexpr (kMulti) {       // dram_sim.chan_rank
+        const int b = bank[q], r = row[q];
+        const int c = il == 0   ? floor_mod(r, n_channels)
+                      : il == 1 ? floor_mod(r * n_banks + b, n_channels)
+                                : floor_mod(b ^ r, n_channels);
+        const int rank = floor_mod(floor_div(r, n_channels), n_ranks);
+        s_slot[k] = ((c * n_ranks + rank) * n_banks + b) | (c << 16);
+      }
     }
     __syncthreads();
     if (!live) continue;
@@ -168,7 +211,12 @@ __global__ void replay_kernel(const float* __restrict__ closed,
       const int k = base + kk;
       const float t = s_arr[kk];
       const int bk = s_bank[kk];
-      const int bi = bk * bs + lane;
+      int slot = bk, ch = 0;
+      if constexpr (kMulti) {
+        slot = s_slot[kk] & 0xffff;
+        ch = s_slot[kk] >> 16;
+      }
+      const int bi = slot * bs + lane;
       const float rf = (float)s_row[kk];
       const bool w = (s_flag[kk] & 1) != 0;
       const bool v = (s_flag[kk] & 2) != 0;
@@ -209,8 +257,10 @@ __global__ void replay_kernel(const float* __restrict__ closed,
         sur = det ? j_tcl + fr.retry_ns : 0.0f;
       }
 
-      // service_math (dram_sim.py:652), operation for operation
-      const float gate = st_ring[ri];
+      // service_math (dram_sim.py:652), operation for operation; the
+      // channel's bus joins the ring gate (d)
+      float gate = st_ring[ri];
+      if constexpr (kMulti) gate = fmaxf(gate, st_bus[ch * bs + lane]);
       const float open_b = st_open[bi], act_b = st_act[bi];
       const float wrd_b = st_wrd[bi], rdy_b = st_rdy[bi];
       const float start = fmaxf(fmaxf(t, rdy_b), gate);
@@ -243,6 +293,8 @@ __global__ void replay_kernel(const float* __restrict__ closed,
         st_wrd[bi] = wrd_new;
         st_rdy[bi] = ready_new;
         st_ring[ri] = done;
+        // the bus stays busy for t_burst from the burst start (done - tCL)
+        if constexpr (kMulti) st_bus[ch * bs + lane] = (done - c_cl) + t_burst;
         if constexpr (kFaulted) {
           const bool degraded = wd.tripped > 0;
           const bool new_trip =
@@ -256,7 +308,7 @@ __global__ void replay_kernel(const float* __restrict__ closed,
 
   if (live) {
     float rdy_max = st_rdy[lane], wrd_max = st_wrd[lane];
-    for (int b = 1; b < n_banks; ++b) {
+    for (int b = 1; b < n_slots; ++b) {
       rdy_max = fmaxf(rdy_max, st_rdy[b * bs + lane]);
       wrd_max = fmaxf(wrd_max, st_wrd[b * bs + lane]);
     }
@@ -274,40 +326,54 @@ int block_lanes(int s_rows) {
 }  // namespace
 
 extern "C" int replay_smem_bytes(int s_rows, int n_banks, int mlp_window,
-                                 int faulted) {
+                                 int faulted, int n_channels, int n_ranks) {
+  const bool multi = n_channels * n_ranks > 1;
+  const int slots = multi ? n_channels * n_ranks * n_banks : n_banks;
   return (4 * kChunk) * 4 +
-         (4 * n_banks + mlp_window) * block_lanes(s_rows) * 4 +
-         (faulted ? kChunk * 4 : 0);
+         (4 * slots + mlp_window + (multi ? n_channels : 0)) *
+             block_lanes(s_rows) * 4 +
+         (faulted ? kChunk * 4 : 0) + (multi ? kChunk * 4 : 0);
 }
 
 // C interface (ctypes).  Returns the cudaError_t of the launch (0 =
 // success); the kernel runs asynchronously on `stream` (a cudaStream_t).
 // region_map may be NULL when n_regions is 0 (variants a, b and e); fault,
-// jedec, uniforms and counters are all NULL (variants a-c) or all given
-// (variant e, module rows only).
+// jedec, uniforms and counters are all NULL or all given (module rows
+// only); ileave is read only when n_channels * n_ranks > 1 (variant d).
 extern "C" int replay_launch(const float* closed, const float* arrival,
                              const int* bank, const int* row,
                              const int* is_write, const int* valid,
                              const float* timings, const int* region_map,
                              const float* fault, const float* jedec,
-                             const float* uniforms, float* lat,
-                             float* total, int* counters, int g, int n,
-                             int s_rows, int n_banks, int mlp_window,
+                             const float* uniforms, const int* ileave,
+                             float* lat, float* total, int* counters, int g,
+                             int n, int s_rows, int n_banks, int mlp_window,
                              int banked, int n_regions, int map_per_lane,
+                             int n_channels, int n_ranks, float t_burst,
                              void* stream) {
   const bool faulted = fault != nullptr;
+  const bool multi = n_channels * n_ranks > 1;
   if (g <= 0 || n <= 0 || s_rows <= 0 || n_banks <= 0 || mlp_window <= 0 ||
       n_regions < 0 || (n_regions > 0 && (!banked || region_map == nullptr)) ||
       (faulted && (banked || jedec == nullptr || uniforms == nullptr ||
-                   counters == nullptr)))
+                   counters == nullptr)) ||
+      n_channels <= 0 || n_ranks <= 0 || (multi && ileave == nullptr) ||
+      (multi && n_channels * n_ranks * n_banks > 0xffff) ||
+      (multi && n_channels > 0x7fff))
     return (int)cudaErrorInvalidValue;
   const int bs = block_lanes(s_rows);
-  const int smem = replay_smem_bytes(s_rows, n_banks, mlp_window, faulted);
-  // the region gather and the fault loop are compiled into their own
-  // instantiations (c and e), so (a) and (b) pay nothing for them
-  auto kern = faulted ? replay_kernel<false, true>
-              : n_regions > 0 ? replay_kernel<true, false>
-                              : replay_kernel<false, false>;
+  const int smem = replay_smem_bytes(s_rows, n_banks, mlp_window, faulted,
+                                     n_channels, n_ranks);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  // the region gather, the fault loop and the channel state are compiled
+  // into their own instantiations (c, e, d), so (a) and (b) pay nothing
+  // for them and C*R == 1 launches (a)-(c), (e) unchanged
+  auto kern = multi ? (faulted ? replay_kernel<false, true, true>
+                       : n_regions > 0 ? replay_kernel<true, false, true>
+                                       : replay_kernel<false, false, true>)
+              : faulted     ? replay_kernel<false, true, false>
+              : n_regions > 0 ? replay_kernel<true, false, false>
+                              : replay_kernel<false, false, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -318,7 +384,8 @@ extern "C" int replay_launch(const float* closed, const float* arrival,
   dim3 grid((unsigned)g, (unsigned)gy);
   kern<<<grid, bs, smem, (cudaStream_t)stream>>>(
       closed, arrival, bank, row, is_write, valid, timings, region_map, fault,
-      jedec, uniforms, lat, total, counters, n, s_rows, n_banks, mlp_window,
-      banked, n_regions, map_per_lane);
+      jedec, uniforms, ileave, lat, total, counters, n, s_rows, n_banks,
+      mlp_window, banked, n_regions, map_per_lane, n_channels, n_ranks,
+      t_burst);
   return (int)cudaGetLastError();
 }

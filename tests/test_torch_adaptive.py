@@ -338,12 +338,17 @@ def test_sim_spec_thermal_validation():
 @pytest.mark.parametrize("kw,item", [({"n_channels": 2}, "10"),
                                      ({"n_ranks": 2}, "10")])
 def test_unported_adaptive_axes_raise(kw, item):
+    """The multi-channel closed loop is ported (its parity is in
+    tests/test_torch_traffic.py): it runs on C*R*8 bank slots; only a
+    sharded campaign still raises (ROADMAP item 10b)."""
     z = torch.zeros(4)
     zi = torch.zeros(4, dtype=torch.int32)
+    out = tdram.replay_adaptive(z, zi, zi, z.bool(), z.bool(),
+                                torch.tensor(_tables(k=1, s=2)[0]),
+                                torch.tensor([45.0, 55.0]),
+                                torch.tensor(TTH.steady(50.0).as_row()),
+                                torch.tensor(TTH.ThermalConfig().as_row()),
+                                False, **kw)
+    assert out[4].shape == (16,)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tdram.replay_adaptive(z, zi, zi, z.bool(), z.bool(),
-                              torch.tensor(_tables(k=1, s=2)[0]),
-                              torch.tensor([45.0, 55.0]),
-                              torch.tensor(TTH.steady(50.0).as_row()),
-                              torch.tensor(TTH.ThermalConfig().as_row()),
-                              False, **kw)
+        tsim.SimEngine(device="cpu", mesh=object())

@@ -518,7 +518,7 @@ def test_own_uniform_draw():
     other = _static_spec_t(dataclasses.replace(RF.ACTIVE, seed=4))
     assert not np.array_equal(eng.run(other).fault_counters,
                               a.fault_counters)
-    u = TF.fault_uniforms(3, 2, N)
+    u = TF.fault_uniforms(3, 2, N, device="cpu")
     assert u.dtype == torch.float32 and tuple(u.shape) == (2, N)
     assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
     with pytest.raises(ValueError, match="fault_uniforms"):

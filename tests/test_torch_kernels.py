@@ -9,9 +9,9 @@ PyTorch:
 Tests marked `gpu` need an NVIDIA Hopper card and skip without one
 (decided inside the `cuda` fixture, never at import).  The margin grid
 is held to rtol = atol = 2e-4 (the reference's bound for its own kernel);
-the static replay, module, per-bank and regioned, to bitwise equality
-(its arithmetic is add, max and select, and the region gather is a
-selection); the adaptive replay to equal bins on
+the static replay, module, per-bank, regioned, faulted and
+multi-channel, to bitwise equality (its arithmetic is add, max and
+select, and the region and channel maps are selections); the adaptive replay to equal bins on
 every request, latencies within rtol 1e-5 and temperatures / heat within
 rtol 1e-5, atol 1e-4 (the reference's bound for its own adaptive kernel;
 the kernel aims at bitwise and the tests print how far it is)."""
@@ -540,6 +540,112 @@ def test_fault_wrappers_reject_bad_inputs(cuda):
                                        fault=bad)
 
 
+def _multi_inputs(layout: str, s_rows: int, cuda, g: int = 5,
+                  n: int = 900):
+    """Streams, a timing tile of `layout` (module rows, the per-bank
+    tile, a per-lane region store, or module rows under every fault
+    mode with the JEDEC column), its map and fault tuple, and [G]
+    interleave codes cycling 0, 1, 2."""
+    ins = [x.to(cuda) for x in _streams(g, n, seed=13)]
+    rows = np.tile(ROWS, (-(-s_rows // 3), 1))[:s_rows]
+    rmap = fault = None
+    if layout == "bank":
+        tile = torch.tensor(rows[:, None, :] * np.linspace(1.0, 1.2, 8)[
+            None, :, None], dtype=torch.float32).permute(1, 2, 0)
+    elif layout == "region":
+        tile, rmap = _region_inputs(s_rows, 9, 4, True)
+    else:
+        tile = torch.tensor(rows).T
+    if layout == "faulted":
+        ftile, u = _fault_inputs(s_rows, g, n)
+        fault = (ftile.to(cuda), torch.tensor(ROWS[0], device=cuda),
+                 u.to(cuda))
+    codes = torch.tensor([i % 3 for i in range(g)], dtype=torch.int32,
+                         device=cuda)
+    return (ins, tile.contiguous().to(cuda),
+            None if rmap is None else rmap.to(cuda), fault, codes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,s_rows", [("module", 3), ("bank", 40),
+                                           ("region", 26), ("faulted", 54),
+                                           ("module", 130)])
+@pytest.mark.parametrize("chan", [(2, 1), (2, 2), (4, 1), (4, 2)],
+                         ids=lambda c: f"{c[0]}x{c[1]}")
+def test_multi_channel_replay_kernel_bitwise_equals_plain(cuda, layout,
+                                                          s_rows, chan):
+    """Variant (d) on module rows, the per-bank tile, the region store
+    and faulted module rows, lane counts that do not fill a block (and
+    two blocks at 130): latencies, totals and counters bitwise equal to
+    the plain version."""
+    ins, tile, rmap, fault, codes = _multi_inputs(layout, s_rows, cuda)
+    ch = (chan[0], chan[1], 5.0)
+    before = (replay_ops.replay_blocks.launches,
+              replay_ops.replay_blocks.launches_multi)
+    out = replay_ops.replay_blocks(*ins, tile, region_map=rmap, fault=fault,
+                                   chan=ch, ileave=codes)
+    torch.cuda.synchronize()
+    assert (replay_ops.replay_blocks.launches,
+            replay_ops.replay_blocks.launches_multi) == \
+        (before[0] + 1, before[1] + 1)
+    closed, arr, bank, row, wr, valid = ins
+    tim = tile.permute(2, 0, 1) if tile.dim() == 3 else tile.T
+    p = dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(), tim, closed > 0.5,
+        region_map=None if rmap is None else rmap.T,
+        fault=None if fault is None else (fault[0].T, fault[1], fault[2]),
+        n_channels=chan[0], n_ranks=chan[1], ileave=codes, t_burst=5.0)
+    assert len(out) == len(p)
+    assert _bitwise(out[0], p[0]) and _bitwise(out[1], p[1])
+    if fault is not None:
+        assert torch.equal(out[2], p[2]) and int(out[2][0].sum()) > 0
+    # the channels matter: one channel replays other latencies
+    one = replay_ops.replay_blocks(*ins, tile, region_map=rmap, fault=fault)
+    assert not _bitwise(out[0], one[0])
+
+
+@pytest.mark.gpu
+def test_single_channel_chan_launches_the_old_variants(cuda):
+    """chan = (1, 1, t) with interleave codes launches (a)/(e) as
+    without them, bit for bit, and counts no multi-channel launch."""
+    for layout in ("module", "faulted"):
+        ins, tile, _, fault, codes = _multi_inputs(layout, 6, cuda)
+        before = (replay_ops.replay_blocks.launches,
+                  replay_ops.replay_blocks.launches_multi,
+                  replay_ops.replay_blocks.launches_faulted)
+        a = replay_ops.replay_blocks(*ins, tile, fault=fault,
+                                     chan=(1, 1, 9.0), ileave=codes)
+        b = replay_ops.replay_blocks(*ins, tile, fault=fault)
+        torch.cuda.synchronize()
+        f = int(fault is not None)
+        assert (replay_ops.replay_blocks.launches,
+                replay_ops.replay_blocks.launches_multi,
+                replay_ops.replay_blocks.launches_faulted) == \
+            (before[0] + 2, before[1], before[2] + 2 * f)
+        assert all(_bitwise(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_multi_channel_wrapper_refuses_oversized_and_bad_inputs(cuda):
+    """A geometry whose block state exceeds 227 KB is refused with a
+    message (at 128 lanes, C = 4 x R = 1 the state takes ~72 KB beside
+    the 20 KB request chunk); a misshapen code column is refused."""
+    lib = replay_ops._replay_lib()
+    assert lib.replay_smem_bytes(128, 8, 8, 0, 4, 1) == \
+        4 * 1024 * 4 + (4 * 32 + 8 + 4) * 128 * 4 + 1024 * 4
+    assert lib.replay_smem_bytes(128, 8, 8, 0, 16, 4) > replay_ops.SMEM_LIMIT
+    ins, tile, _, _, codes = _multi_inputs("module", 128, cuda, n=50)
+    with pytest.raises(ValueError, match="shared memory"):
+        replay_ops.replay_blocks(*ins, tile, chan=(16, 4, 5.0),
+                                 ileave=codes)
+    for bad in (codes[:-1].contiguous(), codes.long(), codes.cpu()):
+        with pytest.raises(ValueError):
+            replay_ops.replay_blocks(*ins, tile, chan=(2, 1, 5.0),
+                                     ileave=bad)
+    with pytest.raises(ValueError, match="n_channels"):
+        replay_ops.replay_blocks(*ins, tile, chan=(0, 1, 5.0), ileave=codes)
+
+
 # ---------------------------------------------------------------- the CPU
 
 def test_margin_grid_cpu_runs_plain_version():
@@ -676,8 +782,9 @@ def test_port_never_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "benchmarks" /
-              "port_fault_bench.py"]
+    files += [ROOT / "chip_smoke.py"] + [
+        ROOT / "benchmarks" / f"port_{b}_bench.py" for b in ("fault",
+                                                             "traffic")]
     assert len(files) > 15
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in pat.finditer(f.read_text())]
@@ -696,7 +803,9 @@ def test_default_device_is_cuda_and_never_falls_back():
              lambda: perf_model.evaluate_adaptive(
                  np.zeros((2, 6), np.float32), (45.0,), (TH.steady(40.0),),
                  n=8),
-             lambda: sample_population(torch.Generator())]
+             lambda: sample_population(torch.Generator()),
+             lambda: F.fault_uniforms(0, 1, 4),
+             lambda: perf_model.tenant_spec(n=4, n_streams=1).materialize()]
     if torch.cuda.is_available():
         assert MarginEngine().device.type == "cuda"
         assert SimEngine().device.type == "cuda"

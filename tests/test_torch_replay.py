@@ -213,18 +213,32 @@ class TestSynthesis:
 
 class TestNotPorted:
     def test_frfcfs_policy_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdram.Policy(reorder_window=16)
+        """FR-FCFS policies are ported (tests/test_torch_traffic.py); a
+        policy with an unknown interleave still raises."""
+        p = tdram.Policy(reorder_window=16)
+        assert (p.reorder_window, p.reorder_slack_ns, p.ileave_code) == \
+            (16, 30.0, 0)
+        with pytest.raises(ValueError, match="interleave"):
+            tdram.Policy(reorder_window=16, interleave="page")
 
     @pytest.mark.parametrize("kw", [{"n_ranks": 2},
                                     {"traces": object()},
                                     {"n_channels": 2}])
     def test_unported_sim_axes_raise(self, kw):
+        """Declarative trace axes raise (ROADMAP item 7); multi-channel
+        campaigns are ported, and only their sharding raises (item
+        10b)."""
         tr = tdram.Trace(torch.zeros(4), torch.zeros(4, dtype=torch.int32),
                          torch.zeros(4, dtype=torch.int32),
                          torch.zeros(4, dtype=torch.bool))
+        if "traces" in kw:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tsim.SimSpec(**{"timings": ROWS[:1], **kw})
+            return
+        spec = tsim.SimSpec(**{"traces": (tr,), "timings": ROWS[:1], **kw})
+        assert spec.multi
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsim.SimSpec(**{"traces": (tr,), "timings": ROWS[:1], **kw})
+            tsim.SimEngine(device="cpu", mesh=object())
 
     def test_banked_timings_raise(self):
         """Per-bank rows are ported; a bank axis that does not match

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region,
-fault-injection and multi-channel traffic paths on one NVIDIA card.
+fault-injection and multi-channel traffic paths, and its LLM serving
+path, on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -75,8 +76,8 @@ Phases (any failure exits non-zero and prints no result line):
      streams x n = 2048), which runs the plain step loop on the card
      (the adaptive kernel is single-channel, as the reference's); then
      one 4-channel run under `torch.profiler` for the busy share, after
-     phase 7 (its ~262k kernel records once left the next profiler
-     session of a kernel timing with no record);
+     phases 7 and 9-11 (its ~262k kernel records once left the next
+     profiler session of a kernel timing with no record);
   7. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
      (b) and adaptive_blocks (module and per-bank tables, raw temps and
      bins emitted) against their plain versions on the card at the
@@ -115,6 +116,40 @@ Phases (any failure exits non-zero and prints no result line):
      both: per channel count the mean, p99 and gap equal, and the
      4-channel latency grid bitwise equal.
 
+  9. the serve path at full width, after the AL-DRAM phases' memory is
+     freed: glm4-9b unreduced (9.40 B parameters, float32, 37.6 GB of
+     seeded random weights drawn on the card, TF32 off) served through
+     `ServeEngine(batch_slots=2, max_len=8192)`, whose prefill goes
+     through the flash kernel, four
+     requests of 4096, 2000, 1300 and 700 prompt tokens (numpy, seeded)
+     with 16 new tokens each, launch counts reset just before and read
+     just after: exactly 40 layers x 4 prefills = 160 flash launches, none
+     in decode and no other kernel; then the same requests with the
+     engine's prefill sent through `prefill(use_flash=False)` (the plain
+     path, as the reference's engine prefills): every served token equal,
+     except
+     after a step where the plain path's top-2 logit gap is below 1e-3
+     (those requests are not compared further and are counted), and each
+     prefill's last-token logits within 1e-3; wall seconds per prefill
+     and decode tick, tokens per second; one short request under
+     `torch.profiler` for the busy share;
+  10. `python -m repro_torch.launch.serve --arch glm4-9b --device cuda`
+     as a subprocess: exit 0 and its 4 requests printed;
+  11. flash_attention against its plain version in float32 and bfloat16
+     (the reference's rtol = atol = 2e-3 / 2e-2, and within them max abs
+     1e-5 in float32 and, against the plain version's float32 math on the
+     same inputs, atol 1e-3 + rtol 1.6e-2, about 2 bfloat16 ulps, in
+     bfloat16) at glm4-9b's prefill shape (1, 4096,
+     32/2, 128), an unaligned 2000, gemma3-12b's local (16/8, 256, window
+     1024) and global layers at 4096, musicgen's MHA (2048, 32/32, 64)
+     and a batched (2, 1024, 8/2, 128); its time at the glm4 4096 shape
+     in both dtypes (CUDA events, median of 10 calls) beside its bound,
+     the plain version's and `scaled_dot_product_attention`'s under each
+     backend that takes it;
+  12. (with phase 8) reduced glm4-9b and gemma3-12b served on the card
+     (flash prefill) and on the CPU from the same seeded weights, the 6
+     requests of `examples/port_serve_batch.py`: tokens equal.
+
 Before them a `phase seconds:` line gives each phase's host seconds.
 The last lines are the card (`nvidia-smi` name and power limit), one
 JSON object of per-kernel numbers, and the result object.
@@ -138,6 +173,7 @@ TOL = 2e-4
 # tensor cores (both at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12     # dense, on the tensor cores
 REPLAY_OPS_PER_STEP = 25     # service_math: adds, maxes, compares, selects
 # thermal step on top of service_math: decay and sum of 8 bank heats,
 # ambient (sin, fmod, compares), 2 x 5 bin compares, energy and deposit
@@ -208,9 +244,10 @@ def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
     return hits[0].self_device_time_total / hits[0].count / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -234,7 +271,9 @@ def _replay_fns():
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.charge_sim import ops as charge_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     charge_ops.margin_grid.launches = 0
+    flash_ops.flash_attention.launches = 0
     for name, fn in _replay_fns().items():
         fn.launches = 0
         for attr in VARIANTS[name].values():
@@ -244,7 +283,9 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Launches per kernel variant since `reset_counts`."""
     from repro_torch.kernels.charge_sim import ops as charge_ops
-    out = {"margin_grid": charge_ops.margin_grid.launches}
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    out = {"margin_grid": charge_ops.margin_grid.launches,
+           "flash_attention": flash_ops.flash_attention.launches}
     for name, fn in _replay_fns().items():
         var = {v: getattr(fn, attr) for v, attr in VARIANTS[name].items()}
         out[f"{name} (a)"] = fn.launches - sum(var.values())
@@ -1763,9 +1804,9 @@ def traffic_path(env) -> None:
 
 
 def traffic_breakdown(env) -> None:
-    """Phase 6c, its profile (run after phase 7): one 4-channel traffic
-    run (FR-FCFS prepass, one launch of (d), device statistics) under
-    `torch.profiler`."""
+    """Phase 6c, its profile (run after phases 7 and 9-11): one 4-channel
+    traffic run (FR-FCFS prepass, one launch of (d), device statistics)
+    under `torch.profiler`."""
     from benchmarks import port_traffic_bench as B
     from repro_torch.core.sim_engine import SimEngine, SimSpec
 
@@ -1910,6 +1951,385 @@ def cross_device_traffic() -> None:
     check(same and worst <= 1e-6, "card and CPU traffic campaigns differ")
 
 
+# ------------------------------------------------------------ serve path
+
+SERVE_ARCH = "glm4-9b"
+SERVE_PROMPTS = (4096, 2000, 1300, 700)   # tokens; two slots admit mid-run
+SERVE_NEW_TOKENS = 16
+SERVE_MAX_LEN = 8192
+TIE_GAP = 1e-3        # a top-2 logit gap below this may flip a token
+LOGIT_TOL = 1e-3      # flash vs plain last-token logits, max abs
+# (b, s, hq, hkv, d, window): glm4-9b's prefill, an unaligned prompt,
+# gemma3-12b's local and global layers, musicgen's MHA, a batched GQA
+FLASH_SHAPES = {"glm4 4096": (1, 4096, 32, 2, 128, None),
+                "glm4 2000": (1, 2000, 32, 2, 128, None),
+                "gemma3 local 4096": (1, 4096, 16, 8, 256, 1024),
+                "gemma3 global 4096": (1, 4096, 16, 8, 256, None),
+                "musicgen 2048": (1, 2048, 32, 32, 64, None),
+                "batched 2x1024": (2, 1024, 8, 2, 128, None)}
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py
+# (atol, rtol) held within the reference's bounds, against the plain
+# version in the kernel's own math (float32 on the same inputs, the
+# result rounded to the input dtype): the float32 bound of
+# tests/test_torch_serve.py against the oracle, and about 2 bfloat16 ulps
+# (the bf16 plain version rounds scores and probabilities to bf16, so it
+# sits up to ~1e-2 off the float32 math: only the reference's bound holds
+# against it)
+FLASH_TIGHT = {"float32": (1e-5, 0.0), "bfloat16": (1e-3, 1.6e-2)}
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _serve(params, cfg, prompts, use_flash: bool) -> dict:
+    """Serve `prompts` through `ServeEngine` (2 slots): per request its
+    tokens and each token's top-2 logit gap, each prefill's last-token
+    logits, wall seconds and flash launches, and each decode tick's.
+    `use_flash=False` sends the engine's prefill through the plain path
+    (`sdpa_ref`), as the reference's engine prefills."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rec = {"prefill": [], "decode": [], "logits": {}, "gaps": {}}
+
+    class Timed(ServeEngine):
+        def _prefill_into(self, slot, req):
+            self.current = req
+            n0 = flash_ops.flash_attention.launches
+            _, t = wall(lambda: ServeEngine._prefill_into(self, slot, req))
+            rec["prefill"].append((req.rid, len(req.prompt), t,
+                                   flash_ops.flash_attention.launches - n0))
+
+        def _prefill(self, tokens):
+            return TF.prefill(self.params, tokens, self.cfg,
+                              max_len=self.max_len, use_flash=use_flash,
+                              dtype=self.dtype)
+
+        def _decode(self, tokens, pos):
+            n0 = flash_ops.flash_attention.launches
+            out, t = wall(lambda: ServeEngine._decode(self, tokens, pos))
+            rec["decode"].append((t, flash_ops.flash_attention.launches - n0))
+            return out
+
+    eng = Timed(params, cfg, batch_slots=2, max_len=SERVE_MAX_LEN,
+                dtype=torch.float32, device="cuda")
+
+    def sampler(logits, _k):
+        top = logits.topk(2, dim=-1).values
+        gaps = (top[:, 0] - top[:, 1]).cpu().numpy()
+        if logits.shape[0] == 1:                      # a prefill
+            rid = eng.current.rid
+            rec["logits"][rid] = logits[0].cpu()
+            rec["gaps"][rid] = [float(gaps[0])]
+        else:
+            for s, req in enumerate(eng.active):
+                if req is not None:
+                    rec["gaps"][req.rid].append(float(gaps[s]))
+        return logits.argmax(-1)
+
+    eng.sampler = sampler
+    for i, pr in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=pr, max_new_tokens=SERVE_NEW_TOKENS))
+    done, secs = wall(eng.run_until_drained)
+    rec["out"] = {r.rid: list(r.out) for r in done}
+    rec["seconds"] = secs
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_path() -> dict:
+    """Phase 9: glm4-9b at full width (float32, random seeded weights)
+    served through `ServeEngine` (flash prefill), launch counts reset
+    just before and read just after; then the same requests through the
+    plain path, and one short run under `torch.profiler`."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matrix products are on: float32 would not mean float32")
+    cfg = get_config(SERVE_ARCH)
+    params, init_s = wall(lambda: TF.init_params(
+        torch.Generator("cuda").manual_seed(SEED), cfg, device="cuda"))
+    n_params = sum(t.numel() for t in _tree_leaves(params))
+    print(f"serve {SERVE_ARCH}: {n_params / 1e9:.3f} B parameters "
+          f"(config {cfg.param_count() / 1e9:.3f} B), float32 "
+          f"{n_params * 4 / 1e9:.1f} GB, drawn on the card in {init_s:.2f} s")
+    check(n_params == cfg.param_count(), f"{n_params} parameters")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    _serve_short(params, cfg, prompts[-1])      # warm-up: cuBLAS, caches
+    reset_counts()
+    flash = _serve(params, cfg, prompts, use_flash=True)
+    launches = read_counts()
+    plain = _serve(params, cfg, prompts, use_flash=False)
+    after_plain = read_counts()
+
+    for name, r in (("flash", flash), ("plain", plain)):
+        n_tok = sum(len(o) for o in r["out"].values())
+        n_prompt = sum(x[1] for x in r["prefill"])
+        pre_s = sum(x[2] for x in r["prefill"])
+        dec = [x[0] for x in r["decode"]]
+        print(f"serve {name}: {len(r['out'])} requests, {r['seconds']:.3f} s "
+              f"wall, {n_tok} tokens out = {n_tok / r['seconds']:.2f} tok/s; "
+              f"prefill {pre_s:.3f} s for {n_prompt} prompt tokens = "
+              f"{n_prompt / pre_s:.1f} tok/s; {len(dec)} decode ticks, "
+              f"{statistics.mean(dec) * 1e3:.2f} ms mean "
+              f"({min(dec) * 1e3:.2f}-{max(dec) * 1e3:.2f})")
+        print(f"  prefill seconds: " + json.dumps(
+            {f"req {rid} ({n})": round(t, 4)
+             for rid, n, t, _ in r["prefill"]}))
+    # served tokens equal, unless the plain path's top-2 gap is a near tie
+    near_ties, worst_logit = 0, 0.0
+    for rid in range(len(prompts)):
+        a, b = flash["out"][rid], plain["out"][rid]
+        gaps = plain["gaps"][rid]
+        check(len(a) == len(b) == SERVE_NEW_TOKENS == len(gaps),
+              f"req {rid}: {len(a)} / {len(b)} tokens, {len(gaps)} gaps")
+        for t in range(len(b)):
+            if gaps[t] < TIE_GAP:
+                near_ties += 1
+                break
+            check(a[t] == b[t], f"req {rid} token {t}: flash {a[t]} != "
+                  f"plain {b[t]} (plain top-2 gap {gaps[t]:.3e})")
+        worst_logit = max(worst_logit, float(
+            (flash["logits"][rid] - plain["logits"][rid]).abs().max()))
+    min_gap = min(min(g) for g in plain["gaps"].values())
+    print(f"serve flash vs plain: tokens equal on {len(prompts) - near_ties} "
+          f"of {len(prompts)} requests ({near_ties} not compared past a "
+          f"plain top-2 gap < {TIE_GAP:g}; smallest gap {min_gap:.3e}); "
+          f"last-token logits of each prefill within {worst_logit:.3e} "
+          "(max abs)")
+    check(worst_logit <= LOGIT_TOL, f"prefill logits differ by {worst_logit}")
+    n_flash = launches["flash_attention"]
+    pre_l = sum(x[3] for x in flash["prefill"])
+    dec_l = sum(x[1] for x in flash["decode"])
+    print(f"serve path kernels: flash_attention {n_flash} launches "
+          f"({pre_l} in {len(flash['prefill'])} prefills, {dec_l} in "
+          f"decode); plain run {after_plain['flash_attention'] - n_flash}")
+    check(n_flash == pre_l == cfg.n_layers * len(prompts) and dec_l == 0,
+          f"flash launches {n_flash} (prefill {pre_l}, decode {dec_l})")
+    check(after_plain["flash_attention"] == n_flash,
+          "the plain path launched the flash kernel")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"the serve path launched another kernel: {launches}")
+
+    busy_share("serve path (one 700-token request, 5 tokens out)",
+               lambda: _serve_short(params, cfg, prompts[-1]))
+    del params
+    torch.cuda.empty_cache()
+    return {"launches_serve": launches}
+
+
+def _serve_short(params, cfg, prompt) -> None:
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(params, cfg, batch_slots=2, max_len=SERVE_MAX_LEN,
+                      dtype=torch.float32, device="cuda")
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=5))
+    eng.run_until_drained()
+
+
+def serve_launcher() -> None:
+    """Phase 10: the port's serving launcher on the card, as a user runs
+    it (reduced glm4-9b, float32, flash prefill)."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           SERVE_ARCH, "--device", "cuda"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    print(f"launcher `{' '.join(cmd[1:])}`: rc {proc.returncode}")
+    for line in lines:
+        print(f"  {line}")
+    check(proc.returncode == 0, f"the launcher failed:\n{proc.stderr[-3000:]}")
+    check(sum(line.startswith("req ") for line in lines) == 4,
+          "the launcher did not print its 4 requests")
+
+
+def _flash_inputs(shape, dtype, seed):
+    import torch
+    b, s, hq, hkv, d, _ = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn(shp, generator=g, device="cuda").to(dtype)
+                 for shp in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+
+
+def _library_attention(q, k, v, window) -> dict:
+    """One PyTorch call for the same function, where there is one:
+    `scaled_dot_product_attention(is_causal=True)` on [B, H, S, D] under
+    each SDPA backend that takes the inputs, with `enable_gqa=True` where
+    the backend takes it, else with K/V repeated to Hq heads outside the
+    timed call.  Returns {backend: (ms, "enable_gqa" | "repeat_kv")};
+    the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if window is not None:
+        return {}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    g = q.shape[2] // k.shape[2]
+    kr, vr = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+    calls = {"enable_gqa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True),
+             "repeat_kv": lambda: F.scaled_dot_product_attention(
+                 qt, kr, vr, is_causal=True)}
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for how, fn in calls.items():
+            try:
+                with sdpa_kernel(backend):
+                    fn()
+                    out[backend.name] = (cuda_ms(fn), how)
+                break
+            except (RuntimeError, TypeError):
+                continue
+    return out
+
+
+def kernel_flash(serve) -> dict:
+    """Phase 11: flash_attention against its plain version on the card at
+    every listed shape, in float32 and bfloat16 (the reference's bounds),
+    and its times at glm4-9b's 4096-token prefill shape beside its bound,
+    the plain version's and the library call's."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    times = {}
+    for dt_name, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        tol = FLASH_TOL[dt_name]
+        t_abs, t_rel = FLASH_TIGHT[dt_name]
+        for i, (name, shape) in enumerate(FLASH_SHAPES.items()):
+            b, s, hq, hkv, d, window = shape
+            q, k, v = _flash_inputs(shape, dt, SEED + i)
+            out = ops.flash_attention(q, k, v, window=window)
+            ref.flash_attention(q, k, v, window=window)   # warm-up: memory
+            plain, plain_s = wall(lambda: ref.flash_attention(
+                q, k, v, window=window))
+            diff = (out.float() - plain.float()).abs()
+            err = diff.max().item()
+            ok = bool((diff <= tol + tol * plain.float().abs()).all())
+            if dt != torch.float32:
+                del plain, diff
+                plain = ref.flash_attention(q.float(), k.float(), v.float(),
+                                            window=window).to(dt)
+                diff = (out.float() - plain.float()).abs()
+            err_f32_math = diff.max().item()
+            tight = bool((diff <= t_abs + t_rel * plain.float().abs()).all())
+            del plain, diff
+            call = cuda_ms(lambda: ops.flash_attention(q, k, v,
+                                                       window=window))
+            n_flop = ops.attention_flops(b, s, s, hq, d)
+            if window is not None:     # keys a query sees: min(q+1, window)
+                n_flop = 4 * b * hq * d * sum(
+                    min(p + 1, window) for p in range(s))
+            print(f"flash_attention {name} {dt_name} (b {b}, s {s}, heads "
+                  f"{hq}/{hkv}, d {d}, window {window}): max abs {err:.3e} "
+                  f"(bound {tol:g}); vs float32 math {err_f32_math:.3e} "
+                  f"(bound atol {t_abs:g} + rtol {t_rel:g}), "
+                  f"wrapper call {call:.3f} ms = "
+                  f"{n_flop / call / 1e9:.2f} TFLOP/s, plain "
+                  f"{plain_s * 1e3:.1f} ms")
+            check(ok, f"flash_attention {name} {dt_name}: beyond rtol = atol "
+                  f"= {tol:g} (max abs {err:.3e})")
+            check(tight, f"flash_attention {name} {dt_name}: beyond atol "
+                  f"{t_abs:g} + rtol {t_rel:g} of the float32 math (max abs "
+                  f"{err_f32_math:.3e})")
+            errs[dt_name] = max(errs[dt_name], err)
+            if name == "glm4 4096":
+                # CUDA events around each call: the wrapper waits on
+                # nothing, and after the AL-DRAM phases' profiler sessions
+                # the profiler has kept no record of this kernel
+                ms = cuda_ms(lambda: ops.flash_attention(q, k, v), reps=10)
+                peak = PEAK_FP32_PER_S if dt == torch.float32 \
+                    else PEAK_BF16_PER_S
+                # q, k, v read once and the output written once
+                n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
+                    * q.element_size()
+                b_ms, b_by = bound_ms(n_bytes, n_flop, peak)
+                lib = _library_attention(q, k, v, window)
+                lib_ms = min((x[0] for x in lib.values()), default=None)
+                check(lib_ms is not None, "no SDPA backend took the inputs")
+                print(f"  kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                      f"{n_flop:.4e} flop at {peak / 1e12:g} TFLOP/s, "
+                      f"{n_bytes / 1e6:.1f} MB), {ms / b_ms:.2f}x the bound; "
+                      f"plain {plain_s * 1e3:.1f} ms; library "
+                      + json.dumps({k2: {"ms": round(x[0], 4), "call": x[1]}
+                                    for k2, x in lib.items()}))
+                times[dt_name] = {"ms": ms, "plain_ms": plain_s * 1e3,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "library_ms": lib_ms,
+                                  "library": {k2: list(x)
+                                              for k2, x in lib.items()}}
+            del q, k, v, out
+            torch.cuda.empty_cache()
+    f32, bf16 = times["float32"], times["bfloat16"]
+    n = serve["launches_serve"]["flash_attention"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:98",
+            "launches": n, "launches_by_path": {"serve": n},
+            "max_abs_err": errs["float32"],
+            "max_abs_err_bf16": errs["bfloat16"],
+            "shape": "b 1, s 4096, heads 32/2, d 128, causal",
+            **{k2: f32[k2] for k2 in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+            "library": f32["library"],
+            "bf16": bf16}
+
+
+def cross_device_serve() -> None:
+    """Phase 12: reduced glm4-9b and gemma3-12b served on the card (flash
+    prefill) and on the CPU (plain versions) from the same seeded
+    weights: `examples/port_serve_batch.py`'s 6 requests, float32,
+    max_len 128; the served tokens must be equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    for arch in ("glm4-9b", "gemma3-12b"):
+        cfg = reduced(get_config(arch))
+        cpu = TF.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            params = cpu if dev == "cpu" else _tree_to(cpu, dev)
+            eng = ServeEngine(params, cfg, batch_slots=4, max_len=128,
+                              dtype=torch.float32, device=dev)
+            rng = np.random.default_rng(0)
+            for i in range(6):
+                eng.submit(Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, 8 + 4 * i).astype(np.int32),
+                    max_new_tokens=12))
+            outs[dev] = {r.rid: r.out for r in eng.run_until_drained()}
+        same = sum(outs["cuda"][i] == outs["cpu"][i] for i in range(6))
+        print(f"cross-device serve {cfg.name}: {same} of 6 requests served "
+              "the same tokens on the card (flash prefill) and the CPU")
+        check(same == 6, f"{arch}: card and CPU tokens differ")
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -1947,12 +2367,21 @@ def main() -> int:
             kernel_replay_regioned, kernel_adaptive_regioned,
             kernel_replay_faulted, kernel_adaptive_faulted,
             kernel_replay_multi))
-        phase(traffic_breakdown, env)
+        # the serve path needs the AL-DRAM phases' memory back; the
+        # traffic profile (~262k kernel records) runs after every kernel
+        # timing, since a trace that size has left the next profiler
+        # session with no record
+        traffic = {"traffic_traces": env["traffic_traces"]}
         del env
         torch.cuda.empty_cache()
+        serve = phase(serve_path)
+        phase(serve_launcher)
+        k10 = phase(kernel_flash, serve)
+        phase(traffic_breakdown, traffic)
+        del traffic
         phase(cross_device_thermal, phase(cross_device))
         for fn in (cross_device_region, cross_device_fault,
-                   cross_device_traffic):
+                   cross_device_traffic, cross_device_serve):
             phase(fn)
         print("phase seconds: " + json.dumps(PHASE_SECONDS))
         print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
@@ -1961,7 +2390,8 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6, k7, k8, k9]}))
+    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6, k7, k8, k9,
+                                  k10]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

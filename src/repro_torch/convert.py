@@ -20,6 +20,7 @@ from repro_torch.core.faults import FaultScenario, FaultSpec
 from repro_torch.core.thermal import SCN_COLS, ThermalScenario
 from repro_torch.core.variation import Population
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as TF
 
 
 def population(cells: np.ndarray,
@@ -88,3 +89,31 @@ def fault_spec(spec) -> FaultSpec:
         scenarios=tuple(FaultScenario(**dataclasses.asdict(s))
                         for s in spec.scenarios),
         seed=int(spec.seed))
+
+
+def model_params(tree: Mapping, cfg, dtype=torch.float32,
+                 device: str | torch.device = "cuda") -> dict:
+    """The port's params from the reference's param tree (nested dicts of
+    numpy arrays, `jax.tree.map(np.asarray, params)`) for config `cfg`:
+    the same tree, leaf for leaf, each leaf checked against the shape
+    `transformer.init_params` gives it.  Weights become `dtype`; norm
+    scales stay float32."""
+    dev = resolve_device(device)
+    want = TF.init_params(torch.Generator(), cfg, device="meta")
+
+    def conv(ref, shape_tree, path):
+        if isinstance(shape_tree, dict):
+            keys = sorted(ref) if isinstance(ref, Mapping) else type(ref)
+            if keys != sorted(shape_tree):
+                raise ValueError(f"params{path}: keys {keys}, expected "
+                                 f"{sorted(shape_tree)}")
+            return {k: conv(ref[k], shape_tree[k], f"{path}.{k}")
+                    for k in shape_tree}
+        arr = np.asarray(ref, np.float32)
+        if arr.shape != tuple(shape_tree.shape):
+            raise ValueError(f"params{path}: shape {arr.shape}, expected "
+                             f"{tuple(shape_tree.shape)}")
+        dt = torch.float32 if path.endswith(".scale") else dtype
+        return torch.tensor(arr, dtype=dt, device=dev)
+
+    return conv(tree, want, "")

@@ -33,6 +33,7 @@ SOURCES = {
     "margin_grid": Path("charge_sim") / "margin_grid.cu",
     "replay_blocks": Path("replay") / "replay.cu",
     "adaptive_blocks": Path("replay") / "adaptive.cu",
+    "flash_attention": Path("flash_attention") / "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -14,7 +14,9 @@ multi-channel, to bitwise equality (its arithmetic is add, max and
 select, and the region and channel maps are selections); the adaptive replay to equal bins on
 every request, latencies within rtol 1e-5 and temperatures / heat within
 rtol 1e-5, atol 1e-4 (the reference's bound for its own adaptive kernel;
-the kernel aims at bitwise and the tests print how far it is)."""
+the kernel aims at bitwise and the tests print how far it is); flash
+attention to rtol = atol = 2e-3 in float32 and 2e-2 in bfloat16 (the
+reference's bound for its own flash kernel, tests/test_kernels.py)."""
 
 import re
 from pathlib import Path
@@ -32,6 +34,8 @@ from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
 from repro_torch.kernels import build
 from repro_torch.kernels.charge_sim import ops as charge_ops
 from repro_torch.kernels.charge_sim import ref as charge_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.replay import ops as replay_ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -778,11 +782,117 @@ def test_faulted_wrappers_cpu_run_plain_versions(layout):
             replay_ops.adaptive_blocks.launches) == before
 
 
+# ------------------------------------------------------------ flash attention
+def _flash_inputs(b, sq, sk, hq, hkv, d, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(device)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    return q, k, v
+
+
+FLASH_CASES = [
+    # b, sq, sk, hq, hkv, d, causal, window
+    (1, 256, 256, 8, 2, 128, True, None),       # GQA 4:1
+    (1, 200, 200, 4, 1, 64, True, None),        # MQA, ragged tiles
+    (2, 130, 130, 4, 2, 256, True, None),       # D = 256, B > 1
+    (1, 300, 300, 4, 2, 256, True, 64),         # windowed D = 256
+    (1, 257, 257, 32, 2, 128, True, 100),       # GQA 16 (glm4), window
+    (1, 64, 64, 4, 4, 64, True, 1),             # window 1: the diagonal
+    (1, 100, 150, 4, 2, 64, False, None),       # non-causal, ragged Sk
+    (2, 150, 100, 8, 2, 128, True, None),       # causal, Sq > Sk
+    (1, 33, 70, 2, 1, 256, False, 40),          # non-causal window
+    (2, 45, 45, 4, 2, 32, True, None),          # D = 32 (reduced configs)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    b, sq, sk, hq, hkv, d, causal, window = case
+    q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, dtype, cuda)
+    before = flash_ops.flash_attention.launches
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    want = flash_ref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    err = (out.float() - want.float()).abs().max().item()
+    print(f"flash {case} {dtype}: max abs {err:.3e}")
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_reads_strided_views(cuda):
+    """[B, H, S, D] storage read as [B, S, H, D] through its strides (no
+    copy), and a sliced batch; both equal the contiguous launch."""
+    q, k, v = _flash_inputs(3, 96, 96, 4, 2, 64, torch.float32, cuda, seed=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    assert not qt.is_contiguous()
+    want = flash_ops.flash_attention(q, k, v)
+    torch.testing.assert_close(flash_ops.flash_attention(qt, kt, vt), want,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        flash_ops.flash_attention(q[1:], k[1:], v[1:]), want[1:], rtol=0,
+        atol=0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs(1, 64, 64, 4, 2, 64, torch.float32, cuda)
+    before = flash_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_ops.flash_attention(q, k.bfloat16(), v)
+    q96, k96, v96 = _flash_inputs(1, 64, 64, 4, 2, 96, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention(q96, k96, v96)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_ops.flash_attention(q[:, :, :3], k, v)
+    assert flash_ops.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_serve_engine_prefills_through_the_kernel(cuda):
+    """On the card every prefill layer launches the kernel once and no
+    decode step launches it: the engine has no plain path there."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = reduced(get_config("glm4-9b"))
+    params = TF.init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                            cuda)
+    eng = ServeEngine(params, cfg, batch_slots=2, max_len=64, device=cuda)
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt=np.arange(5 + 4 * i,
+                                                   dtype=np.int32),
+                           max_new_tokens=3))
+    before = flash_ops.flash_attention.launches
+    done = eng.run_until_drained()
+    assert sorted(len(r.out) for r in done) == [3, 3, 3]
+    assert flash_ops.flash_attention.launches == before + 3 * cfg.n_layers
+
+
+def test_flash_attention_cpu_runs_the_plain_version():
+    q, k, v = _flash_inputs(1, 40, 40, 4, 2, 96, torch.float32, "cpu")
+    before = flash_ops.flash_attention.launches
+    out = flash_ops.flash_attention(q, k, v, window=16)
+    assert flash_ops.flash_attention.launches == before
+    assert torch.equal(out, flash_ref.flash_attention(q, k, v, window=16))
+
+
 def test_port_never_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py"] + [
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "examples" / "port_serve_batch.py"] + [
         ROOT / "benchmarks" / f"port_{b}_bench.py" for b in ("fault",
                                                              "traffic")]
     assert len(files) > 15
@@ -798,7 +908,18 @@ def test_default_device_is_cuda_and_never_falls_back():
     from repro_torch.core.sim_engine import SimEngine
     from repro_torch.core.sweep import MarginEngine
     from repro_torch.core.variation import sample_population
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import ServeEngine
+    cfg = reduced(get_config("glm4-9b"), n_layers=1, d_model=64, n_heads=2,
+                  d_ff=64, vocab=32)
+    cpu_params = TF.init_params(torch.Generator(), cfg, device="cpu")
     entry = [MarginEngine, Profiler, ALDRAMController, SimEngine,
+             lambda: TF.init_params(torch.Generator(), cfg),
+             lambda: TF.init_cache(cfg, 1, 8),
+             lambda: ServeEngine(cpu_params, cfg),
+             lambda: launch_serve.main(["--arch", "glm4-9b"]),
              lambda: perf_model.evaluate(n=8),
              lambda: perf_model.evaluate_adaptive(
                  np.zeros((2, 6), np.float32), (45.0,), (TH.steady(40.0),),
@@ -809,6 +930,13 @@ def test_default_device_is_cuda_and_never_falls_back():
     if torch.cuda.is_available():
         assert MarginEngine().device.type == "cuda"
         assert SimEngine().device.type == "cuda"
+        params = TF.init_params(torch.Generator("cuda"), cfg)
+        assert params["embed"].device.type == "cuda"
+        assert ServeEngine(params, cfg).device.type == "cuda"
+        q = torch.zeros((1, 8, 2, 64), device="cuda")
+        before = flash_ops.flash_attention.launches
+        flash_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+        assert flash_ops.flash_attention.launches == before + 1
         return
     for fn in entry:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region,
 fault-injection and multi-channel traffic paths, and its LLM serving
-path, on one NVIDIA card.
+path (dense attention, RWKV6 and the Mamba hybrid), on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -134,7 +134,8 @@ Phases (any failure exits non-zero and prints no result line):
      and decode tick, tokens per second; one short request under
      `torch.profiler` for the busy share;
   10. `python -m repro_torch.launch.serve --arch glm4-9b --device cuda`
-     as a subprocess: exit 0 and its 4 requests printed;
+     and `--arch rwkv6-3b` as subprocesses: exit 0 and 4 requests
+     printed by each;
   11. flash_attention against its plain version in float32 and bfloat16
      (the reference's rtol = atol = 2e-3 / 2e-2, and within them max abs
      1e-5 in float32 and, against the plain version's float32 math on the
@@ -146,9 +147,36 @@ Phases (any failure exits non-zero and prints no result line):
      in both dtypes (CUDA events, median of 10 calls) beside its bound,
      the plain version's and `scaled_dot_product_attention`'s under each
      backend that takes it;
-  12. (with phase 8) reduced glm4-9b and gemma3-12b served on the card
-     (flash prefill) and on the CPU from the same seeded weights, the 6
-     requests of `examples/port_serve_batch.py`: tokens equal.
+  12. (with phase 8) reduced glm4-9b, gemma3-12b, rwkv6-3b and
+     expert-free jamba served on the card (kernels) and on the CPU from
+     the same seeded weights, the 6 requests of
+     `examples/port_serve_batch.py`: tokens equal;
+  13. rwkv6-3b at full width and depth (32 RWKV6 layers, 3.60 B
+     parameters, 14.4 GB float32), served as in phase 9: exactly 32 x 4
+     = 128 wkv launches, all in prefill, and no flash or mamba_scan
+     launch; the same requests with the WKV wrapper swapped for its
+     plain version (chunk 16) in this script only: tokens equal up to
+     near ties, last-token logits within 1e-3; the parameter count held
+     to the `init_params` tree on the meta device (the config's
+     `param_count()` printed beside it: its RWKV6 and Mamba formulas are
+     approximations); its busy share;
+  14. jamba-1.5-large at full width without its experts, cut to one
+     8-layer period (7 Mamba + 1 attention, 9.00 B parameters, 36.0 GB),
+     the same requests and checks: 4 flash launches and 7 x (4 prefills
+     + the decode ticks) mamba_scan launches; the plain path swaps the
+     selective-scan wrapper for its step loop;
+  15. wkv against its plain version at rwkv6-3b's prefill shape (1,
+     4096, 40, 64), a ragged T = 1300, a reduced D = 32 with B = 2 and
+     from a nonzero initial state, outputs and final states within rtol
+     = atol = 3e-4 (the reference's Pallas-vs-oracle bound); its time at
+     the full shape (CUDA events, median of 10) beside its bound
+     (`wkv_flops` at 67 TFLOP/s) and the plain version's;
+  16. mamba_scan the same way at jamba's prefill shape (1, 4096, 16384,
+     16), a ragged T = 1300 with B = 2, ds = 8 and a T = 1 step from a
+     nonzero state; bound `mamba_scan_hbm_bytes` at 3.35 TB/s.
+
+Phases 13-16 run after phase 11; glm4-9b's weights are freed before
+rwkv6-3b's are drawn, and those before jamba's.
 
 Before them a `phase seconds:` line gives each phase's host seconds.
 The last lines are the card (`nvidia-smi` name and power limit), one
@@ -157,6 +185,7 @@ JSON object of per-kernel numbers, and the result object.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -268,12 +297,21 @@ def _replay_fns():
             "adaptive_blocks": replay_ops.adaptive_blocks}
 
 
+def _serve_fns():
+    """The serve path's kernel wrappers by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    return {"flash_attention": flash_ops.flash_attention,
+            "wkv": wkv_ops.wkv, "mamba_scan": scan_ops.mamba_scan}
+
+
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.charge_sim import ops as charge_ops
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     charge_ops.margin_grid.launches = 0
-    flash_ops.flash_attention.launches = 0
+    for fn in _serve_fns().values():
+        fn.launches = 0
     for name, fn in _replay_fns().items():
         fn.launches = 0
         for attr in VARIANTS[name].values():
@@ -283,9 +321,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Launches per kernel variant since `reset_counts`."""
     from repro_torch.kernels.charge_sim import ops as charge_ops
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    out = {"margin_grid": charge_ops.margin_grid.launches,
-           "flash_attention": flash_ops.flash_attention.launches}
+    out = {"margin_grid": charge_ops.margin_grid.launches}
+    out.update({name: fn.launches for name, fn in _serve_fns().items()})
     for name, fn in _replay_fns().items():
         var = {v: getattr(fn, attr) for v, attr in VARIANTS[name].items()}
         out[f"{name} (a)"] = fn.launches - sum(var.values())
@@ -1958,7 +1995,10 @@ SERVE_PROMPTS = (4096, 2000, 1300, 700)   # tokens; two slots admit mid-run
 SERVE_NEW_TOKENS = 16
 SERVE_MAX_LEN = 8192
 TIE_GAP = 1e-3        # a top-2 logit gap below this may flip a token
-LOGIT_TOL = 1e-3      # flash vs plain last-token logits, max abs
+LOGIT_TOL = 1e-3      # kernels vs plain last-token logits, max abs
+# jamba-1.5-large at full width without its experts (models/moe.py is
+# not ported), cut to one period of its 7 : 1 Mamba : attention pattern
+JAMBA_CUT = {"n_layers": 8, "n_experts": 0, "top_k": 0}
 # (b, s, hq, hkv, d, window): glm4-9b's prefill, an unaligned prompt,
 # gemma3-12b's local and global layers, musicgen's MHA, a batched GQA
 FLASH_SHAPES = {"glm4 4096": (1, 4096, 32, 2, 128, None),
@@ -1984,36 +2024,61 @@ def _tree_leaves(tree):
     return [tree]
 
 
-def _serve(params, cfg, prompts, use_flash: bool) -> dict:
+@contextlib.contextmanager
+def plain_ssm():
+    """The WKV and selective-scan wrappers swapped for their plain
+    versions while the block runs (here only: the port has no such
+    switch), as the plain path's engine sends its prefill through
+    `prefill(use_flash=False)`."""
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+
+    saved = wkv_ops.wkv, scan_ops.mamba_scan
+    wkv_ops.wkv, scan_ops.mamba_scan = wkv_ref.wkv, scan_ref.mamba_scan
+    try:
+        yield
+    finally:
+        wkv_ops.wkv, scan_ops.mamba_scan = saved
+
+
+def _serve(params, cfg, prompts, plain: bool) -> dict:
     """Serve `prompts` through `ServeEngine` (2 slots): per request its
     tokens and each token's top-2 logit gap, each prefill's last-token
-    logits, wall seconds and flash launches, and each decode tick's.
-    `use_flash=False` sends the engine's prefill through the plain path
-    (`sdpa_ref`), as the reference's engine prefills."""
+    logits, wall seconds and launches per serve kernel, and each decode
+    tick's.  `plain=True` sends the engine's prefill through the plain
+    attention path (`sdpa_ref`, as the reference's engine prefills) and
+    the WKV and selective-scan wrappers to their plain versions."""
     import torch
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import Request, ServeEngine
 
     rec = {"prefill": [], "decode": [], "logits": {}, "gaps": {}}
+    fns = _serve_fns()
+
+    def counts():
+        return {name: fn.launches for name, fn in fns.items()}
+
+    def delta(c0):
+        return {name: n - c0[name] for name, n in counts().items()}
 
     class Timed(ServeEngine):
         def _prefill_into(self, slot, req):
             self.current = req
-            n0 = flash_ops.flash_attention.launches
+            c0 = counts()
             _, t = wall(lambda: ServeEngine._prefill_into(self, slot, req))
-            rec["prefill"].append((req.rid, len(req.prompt), t,
-                                   flash_ops.flash_attention.launches - n0))
+            rec["prefill"].append((req.rid, len(req.prompt), t, delta(c0)))
 
         def _prefill(self, tokens):
             return TF.prefill(self.params, tokens, self.cfg,
-                              max_len=self.max_len, use_flash=use_flash,
+                              max_len=self.max_len, use_flash=not plain,
                               dtype=self.dtype)
 
         def _decode(self, tokens, pos):
-            n0 = flash_ops.flash_attention.launches
+            c0 = counts()
             out, t = wall(lambda: ServeEngine._decode(self, tokens, pos))
-            rec["decode"].append((t, flash_ops.flash_attention.launches - n0))
+            rec["decode"].append((t, delta(c0)))
             return out
 
     eng = Timed(params, cfg, batch_slots=2, max_len=SERVE_MAX_LEN,
@@ -2035,7 +2100,8 @@ def _serve(params, cfg, prompts, use_flash: bool) -> dict:
     eng.sampler = sampler
     for i, pr in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=pr, max_new_tokens=SERVE_NEW_TOKENS))
-    done, secs = wall(eng.run_until_drained)
+    with plain_ssm() if plain else contextlib.nullcontext():
+        done, secs = wall(eng.run_until_drained)
     rec["out"] = {r.rid: list(r.out) for r in done}
     rec["seconds"] = secs
     del eng
@@ -2043,55 +2109,69 @@ def _serve(params, cfg, prompts, use_flash: bool) -> dict:
     return rec
 
 
-def serve_path() -> dict:
-    """Phase 9: glm4-9b at full width (float32, random seeded weights)
-    served through `ServeEngine` (flash prefill), launch counts reset
-    just before and read just after; then the same requests through the
-    plain path, and one short run under `torch.profiler`."""
+def _mixer_layers(cfg) -> dict:
+    """Layers per mixer kind: attention (local or global), rwkv6, mamba."""
+    group = cfg.group_spec()
+    reps = cfg.n_layers // len(group)
+    kinds = [{"attn_local": "attn"}.get(s.mixer, s.mixer) for s in group]
+    return {k: reps * kinds.count(k) for k in ("attn", "rwkv6", "mamba")}
+
+
+def _serve_model(cfg) -> dict:
+    """One serve phase at full width (float32, random seeded weights,
+    TF32 off): `cfg` served through `ServeEngine` (its prefill through
+    the kernels), launch counts reset just before and read just after;
+    then the same requests through the plain path, compared token for
+    token, and one short run under `torch.profiler`.  Every serve kernel
+    must have been launched exactly as the config's layers say: flash
+    once per attention layer and prefill, wkv once per RWKV6 layer and
+    prefill, mamba_scan once per Mamba layer and prefill or decode tick,
+    and nothing else."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as TF
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matrix products are on: float32 would not mean float32")
-    cfg = get_config(SERVE_ARCH)
     params, init_s = wall(lambda: TF.init_params(
         torch.Generator("cuda").manual_seed(SEED), cfg, device="cuda"))
     n_params = sum(t.numel() for t in _tree_leaves(params))
-    print(f"serve {SERVE_ARCH}: {n_params / 1e9:.3f} B parameters "
-          f"(config {cfg.param_count() / 1e9:.3f} B), float32 "
+    n_tree = sum(t.numel() for t in _tree_leaves(TF.init_params(
+        torch.Generator(), cfg, device="meta")))
+    print(f"serve {cfg.name}: {n_params / 1e9:.3f} B parameters (the "
+          f"init_params tree {n_tree / 1e9:.3f} B; the config's "
+          f"param_count() {cfg.param_count() / 1e9:.3f} B), float32 "
           f"{n_params * 4 / 1e9:.1f} GB, drawn on the card in {init_s:.2f} s")
-    check(n_params == cfg.param_count(), f"{n_params} parameters")
+    check(n_params == n_tree, f"{n_params} parameters, the tree {n_tree}")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in SERVE_PROMPTS]
 
     _serve_short(params, cfg, prompts[-1])      # warm-up: cuBLAS, caches
     reset_counts()
-    flash = _serve(params, cfg, prompts, use_flash=True)
+    fast = _serve(params, cfg, prompts, plain=False)
     launches = read_counts()
-    plain = _serve(params, cfg, prompts, use_flash=False)
+    plain = _serve(params, cfg, prompts, plain=True)
     after_plain = read_counts()
 
-    for name, r in (("flash", flash), ("plain", plain)):
+    for name, r in (("kernels", fast), ("plain", plain)):
         n_tok = sum(len(o) for o in r["out"].values())
         n_prompt = sum(x[1] for x in r["prefill"])
         pre_s = sum(x[2] for x in r["prefill"])
         dec = [x[0] for x in r["decode"]]
-        print(f"serve {name}: {len(r['out'])} requests, {r['seconds']:.3f} s "
-              f"wall, {n_tok} tokens out = {n_tok / r['seconds']:.2f} tok/s; "
-              f"prefill {pre_s:.3f} s for {n_prompt} prompt tokens = "
-              f"{n_prompt / pre_s:.1f} tok/s; {len(dec)} decode ticks, "
-              f"{statistics.mean(dec) * 1e3:.2f} ms mean "
-              f"({min(dec) * 1e3:.2f}-{max(dec) * 1e3:.2f})")
+        print(f"serve {cfg.name} {name}: {len(r['out'])} requests, "
+              f"{r['seconds']:.3f} s wall, {n_tok} tokens out = "
+              f"{n_tok / r['seconds']:.2f} tok/s; prefill {pre_s:.3f} s for "
+              f"{n_prompt} prompt tokens = {n_prompt / pre_s:.1f} tok/s; "
+              f"{len(dec)} decode ticks, {statistics.mean(dec) * 1e3:.2f} ms "
+              f"mean ({min(dec) * 1e3:.2f}-{max(dec) * 1e3:.2f})")
         print(f"  prefill seconds: " + json.dumps(
             {f"req {rid} ({n})": round(t, 4)
              for rid, n, t, _ in r["prefill"]}))
     # served tokens equal, unless the plain path's top-2 gap is a near tie
     near_ties, worst_logit = 0, 0.0
     for rid in range(len(prompts)):
-        a, b = flash["out"][rid], plain["out"][rid]
+        a, b = fast["out"][rid], plain["out"][rid]
         gaps = plain["gaps"][rid]
         check(len(a) == len(b) == SERVE_NEW_TOKENS == len(gaps),
               f"req {rid}: {len(a)} / {len(b)} tokens, {len(gaps)} gaps")
@@ -2099,35 +2179,67 @@ def serve_path() -> dict:
             if gaps[t] < TIE_GAP:
                 near_ties += 1
                 break
-            check(a[t] == b[t], f"req {rid} token {t}: flash {a[t]} != "
-                  f"plain {b[t]} (plain top-2 gap {gaps[t]:.3e})")
+            check(a[t] == b[t], f"{cfg.name} req {rid} token {t}: kernels "
+                  f"{a[t]} != plain {b[t]} (plain top-2 gap {gaps[t]:.3e})")
         worst_logit = max(worst_logit, float(
-            (flash["logits"][rid] - plain["logits"][rid]).abs().max()))
+            (fast["logits"][rid] - plain["logits"][rid]).abs().max()))
     min_gap = min(min(g) for g in plain["gaps"].values())
-    print(f"serve flash vs plain: tokens equal on {len(prompts) - near_ties} "
-          f"of {len(prompts)} requests ({near_ties} not compared past a "
-          f"plain top-2 gap < {TIE_GAP:g}; smallest gap {min_gap:.3e}); "
-          f"last-token logits of each prefill within {worst_logit:.3e} "
-          "(max abs)")
+    print(f"serve {cfg.name} kernels vs plain: tokens equal on "
+          f"{len(prompts) - near_ties} of {len(prompts)} requests "
+          f"({near_ties} not compared past a plain top-2 gap < {TIE_GAP:g}; "
+          f"smallest gap {min_gap:.3e}); last-token logits of each prefill "
+          f"within {worst_logit:.3e} (max abs)")
     check(worst_logit <= LOGIT_TOL, f"prefill logits differ by {worst_logit}")
-    n_flash = launches["flash_attention"]
-    pre_l = sum(x[3] for x in flash["prefill"])
-    dec_l = sum(x[1] for x in flash["decode"])
-    print(f"serve path kernels: flash_attention {n_flash} launches "
-          f"({pre_l} in {len(flash['prefill'])} prefills, {dec_l} in "
-          f"decode); plain run {after_plain['flash_attention'] - n_flash}")
-    check(n_flash == pre_l == cfg.n_layers * len(prompts) and dec_l == 0,
-          f"flash launches {n_flash} (prefill {pre_l}, decode {dec_l})")
-    check(after_plain["flash_attention"] == n_flash,
-          "the plain path launched the flash kernel")
-    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+
+    layers = _mixer_layers(cfg)
+    n_pre, n_dec = len(fast["prefill"]), len(fast["decode"])
+    want = {"flash_attention": (layers["attn"] * n_pre, 0),
+            "wkv": (layers["rwkv6"] * n_pre, 0),
+            "mamba_scan": (layers["mamba"] * n_pre, layers["mamba"] * n_dec)}
+    for kernel, (w_pre, w_dec) in want.items():
+        pre_l = sum(x[3][kernel] for x in fast["prefill"])
+        dec_l = sum(x[1][kernel] for x in fast["decode"])
+        print(f"serve {cfg.name} kernels: {kernel} {launches[kernel]} "
+              f"launches ({pre_l} in {n_pre} prefills, {dec_l} in {n_dec} "
+              f"decode ticks; expected {w_pre} + {w_dec}); plain run "
+              f"{after_plain[kernel] - launches[kernel]}")
+        check(launches[kernel] == pre_l + dec_l and (pre_l, dec_l)
+              == (w_pre, w_dec), f"{kernel} launches {launches[kernel]} "
+              f"(prefill {pre_l}, decode {dec_l}), expected {w_pre} + "
+              f"{w_dec}")
+        check(after_plain[kernel] == launches[kernel],
+              f"the plain path launched {kernel}")
+    check(all(v == 0 for k, v in launches.items() if k not in want),
           f"the serve path launched another kernel: {launches}")
 
-    busy_share("serve path (one 700-token request, 5 tokens out)",
-               lambda: _serve_short(params, cfg, prompts[-1]))
+    busy_share(f"serve path {cfg.name} (one 700-token request, 5 tokens "
+               "out)", lambda: _serve_short(params, cfg, prompts[-1]))
     del params
     torch.cuda.empty_cache()
-    return {"launches_serve": launches}
+    return launches
+
+
+def serve_path() -> dict:
+    """Phase 9: glm4-9b at full width through the flash prefill."""
+    from repro_torch.configs import get_config
+    return {"launches_serve": _serve_model(get_config(SERVE_ARCH))}
+
+
+def serve_rwkv6() -> dict:
+    """Phase 13: rwkv6-3b at full width (32 RWKV6 layers: the WKV kernel
+    in every prefill layer, the one-step recurrence in decode)."""
+    from repro_torch.configs import get_config
+    return {"launches_serve": _serve_model(get_config("rwkv6-3b"))}
+
+
+def serve_jamba() -> dict:
+    """Phase 14: jamba-1.5-large at full width, without its experts and
+    cut to one period of 8 layers (7 Mamba: the selective-scan kernel in
+    prefill and decode; 1 attention: the flash kernel in prefill)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                              **JAMBA_CUT)
+    return {"launches_serve": _serve_model(cfg)}
 
 
 def _serve_short(params, cfg, prompt) -> None:
@@ -2141,20 +2253,22 @@ def _serve_short(params, cfg, prompt) -> None:
 
 def serve_launcher() -> None:
     """Phase 10: the port's serving launcher on the card, as a user runs
-    it (reduced glm4-9b, float32, flash prefill)."""
+    it (reduced glm4-9b and rwkv6-3b, float32, kernel prefill)."""
     import os
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           SERVE_ARCH, "--device", "cuda"]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    lines = proc.stdout.splitlines()
-    print(f"launcher `{' '.join(cmd[1:])}`: rc {proc.returncode}")
-    for line in lines:
-        print(f"  {line}")
-    check(proc.returncode == 0, f"the launcher failed:\n{proc.stderr[-3000:]}")
-    check(sum(line.startswith("req ") for line in lines) == 4,
-          "the launcher did not print its 4 requests")
+    for arch in (SERVE_ARCH, "rwkv6-3b"):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               arch, "--device", "cuda"]
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        print(f"launcher `{' '.join(cmd[1:])}`: rc {proc.returncode}")
+        for line in lines:
+            print(f"  {line}")
+        check(proc.returncode == 0,
+              f"the launcher failed:\n{proc.stderr[-3000:]}")
+        check(sum(line.startswith("req ") for line in lines) == 4,
+              "the launcher did not print its 4 requests")
 
 
 def _flash_inputs(shape, dtype, seed):
@@ -2293,9 +2407,126 @@ def kernel_flash(serve) -> dict:
             "bf16": bf16}
 
 
+SSM_TOL = 3e-4        # rtol = atol, the reference's Pallas-vs-oracle bound
+# (b, t, h, d, initial state): rwkv6-3b's prefill, the ragged 1300-token
+# prompt, a reduced D = 32 with B = 2, a nonzero initial state
+WKV_SHAPES = {"rwkv6-3b 4096": (1, 4096, 40, 64, False),
+              "ragged 1300": (1, 1300, 40, 64, False),
+              "reduced d32 b2": (2, 700, 4, 32, False),
+              "from a state": (2, 1300, 40, 64, True)}
+# (b, t, di, ds, initial state): jamba's prefill, a ragged 1300 with
+# B = 2, ds = 8 (ragged di), a decode step from a nonzero state
+SCAN_SHAPES = {"jamba 4096": (1, 4096, 16384, 16, False),
+               "ragged 1300 b2": (2, 1300, 16384, 16, False),
+               "ds 8": (2, 700, 1000, 8, False),
+               "decode t1": (2, 1, 16384, 16, True)}
+
+
+def _within(got, want) -> tuple[bool, float]:
+    diff = (got - want).abs()
+    return (bool((diff <= SSM_TOL + SSM_TOL * want.abs()).all()),
+            diff.max().item())
+
+
+def _ssm_kernel(name, shapes, make, kernel, plain, n_bytes, n_ops, serve,
+                extra) -> dict:
+    """`kernel` against `plain` on the card at every listed shape, outputs
+    and final states within rtol = atol = 3e-4; the kernel's time at the
+    first (full) shape (CUDA events, median of 10 calls) beside its bound,
+    the plain version's time (one run, warmed) and no library call (no
+    single PyTorch call computes it)."""
+    import torch
+    worst = 0.0
+    for i, (label, shape) in enumerate(shapes.items()):
+        ins = make(shape, SEED + i)
+        out, state = kernel(*ins)
+        plain(*ins)                               # warm-up: memory
+        (p_out, p_state), plain_s = wall(lambda: plain(*ins))
+        ok_o, err_o = _within(out, p_out)
+        ok_s, err_s = _within(state, p_state)
+        print(f"{name} {label} {shape}: max abs {err_o:.3e} (output), "
+              f"{err_s:.3e} (final state), bound rtol = atol = {SSM_TOL:g}; "
+              f"plain {plain_s * 1e3:.1f} ms")
+        check(ok_o and ok_s, f"{name} {label}: beyond rtol = atol = "
+              f"{SSM_TOL:g} (output {err_o:.3e}, state {err_s:.3e})")
+        worst = max(worst, err_o, err_s)
+        if i == 0:
+            ms = cuda_ms(lambda: kernel(*ins), reps=10)
+            b_ms, b_by = bound_ms(n_bytes(shape), n_ops(shape))
+            print(f"  kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                  f"{n_ops(shape):.4e} operations at 67 TFLOP/s, "
+                  f"{n_bytes(shape) / 1e6:.1f} MB at 3.35 TB/s), "
+                  f"{ms / b_ms:.2f}x the bound; plain {plain_s * 1e3:.1f} ms;"
+                  " library none")
+            times = {"ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+        del ins, out, state, p_out, p_state
+        torch.cuda.empty_cache()
+    n = serve["launches_serve"][name]
+    return {"name": name, "route": "cuda", **extra, "launches": n,
+            "launches_by_path": {"serve": n}, "max_abs_err": worst, **times}
+
+
+def kernel_wkv(serve) -> dict:
+    """Phase 15: wkv against its plain version (chunk 16) on the card."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops, ref
+
+    def make(shape, seed):
+        b, t, h, d, with_state = shape
+        g = torch.Generator("cuda").manual_seed(seed)
+
+        def n(*shp):
+            return torch.randn(shp, generator=g, device="cuda")
+        r, k, v = (0.5 * n(b, t, h, d) for _ in range(3))
+        w = -torch.exp(n(b, t, h, d) - 2.0)
+        return (r, k, v, w, 0.3 * n(h, d),
+                0.5 * n(b, h, d, d) if with_state else None)
+
+    return _ssm_kernel(
+        "wkv", WKV_SHAPES, make,
+        lambda r, k, v, w, u, s: ops.wkv(r, k, v, w, u, state=s),
+        lambda r, k, v, w, u, s: ref.wkv(r, k, v, w, u, state=s),
+        lambda sh: ops.wkv_hbm_bytes(*sh[:4]),
+        lambda sh: ops.wkv_flops(*sh[:4]), serve,
+        {"source": "src/repro_torch/kernels/rwkv6/wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:79",
+         "shape": "b 1, t 4096, h 40, d 64"})
+
+
+def kernel_mamba(serve) -> dict:
+    """Phase 16: mamba_scan against its plain step loop on the card."""
+    import torch
+    from repro_torch.kernels.mamba_scan import ops, ref
+
+    def make(shape, seed):
+        b, t, di, ds, with_state = shape
+        g = torch.Generator("cuda").manual_seed(seed)
+
+        def n(*shp):
+            return torch.randn(shp, generator=g, device="cuda")
+        return (0.5 * n(b, t, di),
+                torch.nn.functional.softplus(n(b, t, di) - 1.0),
+                0.5 * n(b, t, ds), 0.5 * n(b, t, ds),
+                -torch.exp(0.3 * n(di, ds)),
+                0.5 * n(b, di, ds) if with_state else None)
+
+    return _ssm_kernel(
+        "mamba_scan", SCAN_SHAPES, make,
+        lambda x, dt, bm, cm, a, h0: ops.mamba_scan(x, dt, bm, cm, a,
+                                                    h0=h0),
+        lambda x, dt, bm, cm, a, h0: ref.mamba_scan(x, dt, bm, cm, a, h0=h0),
+        lambda sh: ops.mamba_scan_hbm_bytes(*sh[:4]),
+        lambda sh: ops.mamba_scan_flops(*sh[:4]), serve,
+        {"source": "src/repro_torch/kernels/mamba_scan/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:57",
+         "shape": "b 1, t 4096, di 16384, ds 16"})
+
+
 def cross_device_serve() -> None:
-    """Phase 12: reduced glm4-9b and gemma3-12b served on the card (flash
-    prefill) and on the CPU (plain versions) from the same seeded
+    """Phase 12: reduced glm4-9b, gemma3-12b, rwkv6-3b and expert-free
+    jamba served on the card (kernel prefill, the selective scan in
+    decode) and on the CPU (plain versions) from the same seeded
     weights: `examples/port_serve_batch.py`'s 6 requests, float32,
     max_len 128; the served tokens must be equal."""
     import numpy as np
@@ -2304,8 +2535,12 @@ def cross_device_serve() -> None:
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import Request, ServeEngine
 
-    for arch in ("glm4-9b", "gemma3-12b"):
+    no_experts = {"n_experts": 0, "top_k": 0}
+    for arch in ("glm4-9b", "gemma3-12b", "rwkv6-3b",
+                 "jamba-1.5-large-398b"):
         cfg = reduced(get_config(arch))
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, **no_experts)
         cpu = TF.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
         outs = {}
         for dev in ("cuda", "cpu"):
@@ -2320,7 +2555,7 @@ def cross_device_serve() -> None:
             outs[dev] = {r.rid: r.out for r in eng.run_until_drained()}
         same = sum(outs["cuda"][i] == outs["cpu"][i] for i in range(6))
         print(f"cross-device serve {cfg.name}: {same} of 6 requests served "
-              "the same tokens on the card (flash prefill) and the CPU")
+              "the same tokens on the card (kernels) and the CPU")
         check(same == 6, f"{arch}: card and CPU tokens differ")
 
 
@@ -2377,6 +2612,12 @@ def main() -> int:
         serve = phase(serve_path)
         phase(serve_launcher)
         k10 = phase(kernel_flash, serve)
+        k11 = phase(kernel_wkv, phase(serve_rwkv6))
+        serve_h = phase(serve_jamba)
+        k12 = phase(kernel_mamba, serve_h)
+        k10["launches_by_path"]["serve jamba"] = \
+            serve_h["launches_serve"]["flash_attention"]
+        k10["launches"] += k10["launches_by_path"]["serve jamba"]
         phase(traffic_breakdown, traffic)
         del traffic
         phase(cross_device_thermal, phase(cross_device))
@@ -2391,7 +2632,7 @@ def main() -> int:
         return 1
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6, k7, k8, k9,
-                                  k10]}))
+                                  k10, k11, k12]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

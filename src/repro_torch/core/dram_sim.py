@@ -705,7 +705,7 @@ def replay_cells(arrival, bank, row, is_write, valid, timings, closed,
         jed = torch.as_tensor(j_row, dtype=torch.float32, device=dev)
         j5 = _timing_cols(jed)
         u_all = torch.as_tensor(u_all, dtype=torch.float32, device=dev)
-        wd = faults.wd_state0((g, s_rows), dev)
+        wd = faults.wd_state0((g, s_rows), device=dev)
         cnt = _counters0((g, s_rows), dev)
     for k in range(n):
         b = b_all[:, k]
@@ -847,7 +847,7 @@ def replay_rows_frfcfs(arrival, bank, row, is_write, valid, timings,
         jed = torch.as_tensor(j_row, dtype=f32, device=dev)
         j5 = _timing_cols(jed)
         u_all = torch.as_tensor(u_all, dtype=f32, device=dev)
-        wd = faults.wd_state0((1, s_rows), dev)
+        wd = faults.wd_state0((1, s_rows), device=dev)
         cnt = _counters0((1, s_rows), dev)
     for k in range(n):
         # scheduler: pick the issue slot (mirrors frfcfs_perm)
@@ -1033,7 +1033,7 @@ def replay_adaptive_cells(arrival, bank, row, is_write, valid, tables,
                                                 device=dev)])
         no_r = torch.full((g, lanes), faults.NO_READING, device=dev)
         lag, held, psen = no_r, no_r, no_r
-        wd = faults.wd_state0((g, lanes), dev)
+        wd = faults.wd_state0((g, lanes), device=dev)
         cnt = _counters0((g, lanes), dev)
         pbin = torch.zeros((g, lanes), dtype=torch.int64, device=dev)
         p_out = torch.zeros_like(lat) if probs else None

@@ -253,7 +253,7 @@ def error_draw(fp, u, p):
     return err, det, err & ~det
 
 
-def wd_state0(shape=(), device="cpu"):
+def wd_state0(shape=(), *, device):
     """(wd_err, wd_bad, wd_clean, probe_cnt, tripped) int32 zeros."""
     return tuple(torch.zeros(shape, dtype=torch.int32, device=device)
                  for _ in range(5))

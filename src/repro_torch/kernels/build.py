@@ -34,6 +34,8 @@ SOURCES = {
     "replay_blocks": Path("replay") / "replay.cu",
     "adaptive_blocks": Path("replay") / "adaptive.cu",
     "flash_attention": Path("flash_attention") / "flash_attention.cu",
+    "wkv": Path("rwkv6") / "wkv.cu",
+    "mamba_scan": Path("mamba_scan") / "mamba_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",

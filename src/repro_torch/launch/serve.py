@@ -7,8 +7,11 @@ engine on a reduced config in float32, as the reference's launcher
         [--device cuda|cpu]
 
 `--device` defaults to cuda (no card: it raises; pass `--device cpu`
-for the plain PyTorch versions).  Every prefill goes through the flash
-attention kernel on the card.
+for the plain PyTorch versions).  On the card every prefill goes through
+the flash attention kernel (attention layers), the WKV kernel (RWKV6,
+e.g. `--arch rwkv6-3b`) and the selective-scan kernel (Mamba).  Configs
+with MoE FFNs (granite, arctic, jamba) raise: `models/moe.py` is not
+ported.
 """
 
 from __future__ import annotations

@@ -6,11 +6,12 @@ a Python loop over the R stacked layers of each stage.
     prefill(params, tokens, cfg, max_len)      -> logits, cache
     decode_step(params, cache, tok, pos, cfg)  -> logits, cache (1 token)
 
-Params keep the reference's tree: `stage` leaves are stacked [R, ...]
-and cache leaves are [R, B, S, Hkv, Dh], so `repro_torch.convert.
-model_params` carries the reference's params across one to one.  Only
-attention mixers and dense FFNs are ported: mamba / rwkv6 mixers and
-MoE FFNs raise NotImplementedError (ROADMAP queue A, item 8).
+Params keep the reference's tree: `stage` leaves are stacked [R, ...],
+as are the cache leaves (K/V [R, B, S, Hkv, Dh]; Mamba {conv, h}; RWKV6
+{x_prev, wkv}), so `repro_torch.convert.model_params` carries the
+reference's params across one to one.  Attention, Mamba and RWKV6
+mixers with dense FFNs are ported; MoE FFNs raise NotImplementedError
+(ROADMAP queue A, item 8).
 """
 
 from __future__ import annotations
@@ -23,16 +24,16 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "attn_local") or spec.ffn != "dense":
+    if spec.ffn != "dense":
         raise NotImplementedError(
-            f"layer {spec}: only attention mixers with dense FFNs are "
-            "ported; mamba / rwkv6 mixers and MoE FFNs are ROADMAP queue "
-            "A, item 8")
+            f"layer {spec}: only dense FFNs are ported; MoE FFNs "
+            "(models/moe.py) are ROADMAP queue A, item 8")
 
 
 def _tree_map(fn, tree):
@@ -45,9 +46,11 @@ def _tree_map(fn, tree):
 def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, lead=(), *,
                device) -> Params:
     _check_spec(spec)
+    init = {"mamba": SSM.mamba_init,
+            "rwkv6": SSM.rwkv6_init}.get(spec.mixer, L.attention_init)
     return {"norm1": L.rmsnorm_init(cfg.d_model, lead, device=device),
             "norm2": L.rmsnorm_init(cfg.d_model, lead, device=device),
-            "mixer": L.attention_init(gen, cfg, lead, device=device),
+            "mixer": init(gen, cfg, lead, device=device),
             "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, lead,
                               device=device)}
 
@@ -91,12 +94,29 @@ def _attn_prefill_cache(k, v, cfg: ModelConfig, local: bool) -> Params:
             "v": torch.nn.functional.pad(v, pad)}
 
 
+def _ssm_apply(p, x, cfg, spec: LayerSpec, cache, mode):
+    """Mamba / RWKV6 mixer.  Prefill returns the final states as the new
+    cache; decode writes them into `cache` in place, as attention writes
+    its K/V."""
+    apply_fn = SSM.mamba_apply if spec.mixer == "mamba" else SSM.rwkv6_apply
+    out, state = apply_fn(p, x, cfg, state=cache)
+    if mode == "train":
+        return out, None
+    if mode == "decode":
+        for leaf, new in state.items():
+            cache[leaf].copy_(new)
+        return out, cache
+    return out, state
+
+
 def _mixer_apply(p, x, cfg, spec: LayerSpec, positions, cache, mode,
                  use_flash):
-    """Attention mixer; in prefill mode Q/K/V are projected once and K/V
-    also fill the decode cache (the reference projects them twice, with
-    the same result)."""
+    """The layer's mixer.  Attention in prefill mode projects Q/K/V once
+    and K/V also fill the decode cache (the reference projects them
+    twice, with the same result)."""
     _check_spec(spec)
+    if spec.mixer in ("mamba", "rwkv6"):
+        return _ssm_apply(p, x, cfg, spec, cache, mode)
     local = spec.mixer == "attn_local"
     if mode == "decode":
         return L.attention_apply(p, x, cfg, positions, local=local,
@@ -175,13 +195,27 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
                device: str | torch.device = "cuda") -> Params:
-    """Zeroed decode caches matching the stage structure ([R, ...])."""
+    """Zeroed decode caches matching the stage structure ([R, ...]): K/V
+    in `dtype`, Mamba's conv and scan states and RWKV6's WKV state in
+    float32, RWKV6's shifted token in `dtype` (the reference's types)."""
     dev = resolve_device(device)
     group = cfg.group_spec()
     repeats = cfg.n_layers // len(group)
 
     def one(spec: LayerSpec):
         _check_spec(spec)
+        if spec.mixer == "mamba":
+            di = cfg.expand * cfg.d_model
+            return {"conv": torch.zeros((repeats, batch, cfg.d_conv - 1, di),
+                                        device=dev),
+                    "h": torch.zeros((repeats, batch, di, cfg.d_state),
+                                     device=dev)}
+        if spec.mixer == "rwkv6":
+            dh = cfg.head_dim
+            return {"x_prev": torch.zeros((repeats, batch, 1, cfg.d_model),
+                                          dtype=dtype, device=dev),
+                    "wkv": torch.zeros((repeats, batch, cfg.n_heads, dh,
+                                        dh), device=dev)}
         size = (min(cfg.sliding_window, max_len)
                 if spec.mixer == "attn_local" else max_len)
         shp = (repeats, batch, size, cfg.n_kv_heads, cfg.head_dim)
@@ -196,7 +230,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             dtype=torch.bfloat16):
     """Prompt pass: returns (last-token logits [B,V], decode cache).
     max_len overrides cfg.max_seq_len for the cache size.  With
-    `use_flash` every attention layer goes through the flash kernel."""
+    `use_flash` every attention layer goes through the flash kernel; Mamba
+    and RWKV6 layers always go through their kernel wrappers."""
     b, s = tokens.shape
     if max_len is not None and max_len != cfg.max_seq_len:
         cfg = dataclasses.replace(cfg, max_seq_len=max_len)

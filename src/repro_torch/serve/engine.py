@@ -13,7 +13,9 @@ attention wrapper (the reference's `prefill(use_flash=True)`, which its
 engine leaves at the default): a CUDA tensor launches the kernel, a CPU
 tensor runs its plain version.  It is the path that serves every prompt
 length, since `sdpa_ref` refuses a prompt longer than 2048 tokens that
-is not a multiple of 2048.
+is not a multiple of 2048.  Mamba and RWKV6 layers keep their states in
+the same shared cache; their prefill runs the selective-scan and WKV
+kernels on the card, and decode the selective scan at T = 1.
 """
 
 from __future__ import annotations
@@ -93,7 +95,9 @@ class ServeEngine:
         req.out.append(int(self.sampler(logits, 1)[0]))
         for name, leaves in self.cache.items():
             for leaf, shared in leaves.items():
-                # shared: [R, slots, S, ...]; single: [R, 1, S' <= S, ...]
+                # K/V: shared [R, slots, S, ...], single [R, 1, S' <= S,
+                # ...]; SSM states ([R, 1, d_conv-1, di], [R, 1, di, ds],
+                # [R, 1, 1, d], [R, 1, H, D, D]) match dim 2: no pad
                 single = cache1[name][leaf]
                 pad = shared.shape[2] - single.shape[2]
                 if pad:

@@ -16,7 +16,9 @@ every request, latencies within rtol 1e-5 and temperatures / heat within
 rtol 1e-5, atol 1e-4 (the reference's bound for its own adaptive kernel;
 the kernel aims at bitwise and the tests print how far it is); flash
 attention to rtol = atol = 2e-3 in float32 and 2e-2 in bfloat16 (the
-reference's bound for its own flash kernel, tests/test_kernels.py)."""
+reference's bound for its own flash kernel, tests/test_kernels.py); the
+WKV and selective-scan kernels, outputs and final states, to rtol = atol
+= 3e-4 (the reference's bound for its own two kernels, same file)."""
 
 import re
 from pathlib import Path
@@ -36,7 +38,11 @@ from repro_torch.kernels.charge_sim import ops as charge_ops
 from repro_torch.kernels.charge_sim import ref as charge_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.replay import ops as replay_ops
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6 import ref as wkv_ref
 
 ROOT = Path(__file__).resolve().parents[1]
 C = CALIBRATED_CONSTANTS
@@ -887,6 +893,238 @@ def test_flash_attention_cpu_runs_the_plain_version():
     assert torch.equal(out, flash_ref.flash_attention(q, k, v, window=16))
 
 
+# ----------------------------------------------------- wkv and mamba_scan
+SSM_TOL = 3e-4     # the reference's Pallas-vs-oracle bound for both
+
+
+def _wkv_inputs(b, t, h, d, device, seed=0, state=False):
+    """The reference test's distribution (tests/test_kernels.py): r, k, v
+    0.5 N(0, 1), log decay -exp(N(0, 1) - 2), u 0.3 N(0, 1); a state
+    0.5 N(0, 1) where asked."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((b, t, h, d), generator=g)
+               for _ in range(3))
+    w = -torch.exp(torch.randn((b, t, h, d), generator=g) - 2.0)
+    u = 0.3 * torch.randn((h, d), generator=g)
+    s = 0.5 * torch.randn((b, h, d, d), generator=g) if state else None
+    return tuple(None if x is None else x.to(device)
+                 for x in (r, k, v, w, u, s))
+
+
+def _scan_inputs(b, t, di, ds, device, seed=0, state=False):
+    """The reference test's distribution: x 0.5 N, dt softplus(N - 1),
+    B and C 0.5 N, A -exp(0.3 N); an initial state 0.5 N where asked."""
+    g = torch.Generator().manual_seed(seed)
+    x = 0.5 * torch.randn((b, t, di), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, t, di), generator=g)
+                                      - 1.0)
+    bm, cm = (0.5 * torch.randn((b, t, ds), generator=g) for _ in range(2))
+    a = -torch.exp(0.3 * torch.randn((di, ds), generator=g))
+    h0 = 0.5 * torch.randn((b, di, ds), generator=g) if state else None
+    return tuple(None if z is None else z.to(device)
+                 for z in (x, dt, bm, cm, a, h0))
+
+
+WKV_CASES = [
+    # b, t, h, d, initial state
+    (1, 64, 2, 64, False),       # one whole chunk
+    (2, 128, 3, 64, False),      # two chunks, B > 1
+    (1, 100, 2, 64, False),      # ragged T
+    (1, 1, 4, 64, True),         # one step from a state
+    (2, 1300, 4, 64, True),      # the serve path's ragged prompt
+    (2, 45, 4, 32, True),        # D = 32 (the reduced configs)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv_kernel_matches_plain(cuda, case):
+    b, t, h, d, with_state = case
+    r, k, v, w, u, s0 = _wkv_inputs(b, t, h, d, cuda, state=with_state)
+    before = wkv_ops.wkv.launches
+    o, s = wkv_ops.wkv(r, k, v, w, u, state=s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv.launches == before + 1
+    assert o.shape == r.shape and s.shape == (b, h, d, d)
+    o_ref, s_ref = wkv_ref.wkv(r, k, v, w, u, state=s0)
+    print(f"wkv {case}: max abs {(o - o_ref).abs().max().item():.3e}, "
+          f"state {(s - s_ref).abs().max().item():.3e}")
+    torch.testing.assert_close(o, o_ref, rtol=SSM_TOL, atol=SSM_TOL)
+    torch.testing.assert_close(s, s_ref, rtol=SSM_TOL, atol=SSM_TOL)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_strong_decay_is_finite(cuda):
+    """The reference's strong-decay case: log decay -7 per step (1e-3)
+    must not overflow, and matches the plain version."""
+    r, k, v, _, u, _ = _wkv_inputs(1, 128, 2, 64, cuda, seed=1)
+    w = torch.full_like(r, -7.0)
+    o, s = wkv_ops.wkv(r, k, v, w, u)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    torch.testing.assert_close(o, wkv_ref.wkv(r, k, v, w, u)[0],
+                               rtol=SSM_TOL, atol=SSM_TOL)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_reads_strided_views(cuda):
+    """[B, H, T, D] storage read as [B, T, H, D] through its strides, and
+    a sliced batch: both equal the contiguous launch."""
+    r, k, v, w, u, _ = _wkv_inputs(3, 80, 2, 64, cuda, seed=2)
+    o, s = wkv_ops.wkv(r, k, v, w, u)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (r, k, v, w)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(wkv_ops.wkv(*views, u), (o, s), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(wkv_ops.wkv(r[1:], k[1:], v[1:], w[1:], u),
+                               (o[1:], s[1:]), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_wkv_refuses_what_the_kernel_does_not_take(cuda):
+    r, k, v, w, u, _ = _wkv_inputs(1, 16, 2, 64, cuda)
+    before = wkv_ops.wkv.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wkv_ops.wkv(r, k.cpu(), v, w, u)
+    with pytest.raises(ValueError, match="float32"):
+        wkv_ops.wkv(r.double(), k, v, w, u)
+    r2, k2, v2, w2, u2, _ = _wkv_inputs(1, 16, 2, 48, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv_ops.wkv(r2, k2, v2, w2, u2)
+    with pytest.raises(ValueError, match="state"):
+        wkv_ops.wkv(r, k, v, w, u, state=torch.zeros((1, 2, 64, 32),
+                                                     device=cuda))
+    with pytest.raises(ValueError, match="u"):
+        wkv_ops.wkv(r, k, v, w, u[:1])
+    assert wkv_ops.wkv.launches == before
+
+
+SCAN_CASES = [
+    # b, t, di, ds, initial state
+    (1, 32, 64, 8, False),        # the reference's shapes
+    (2, 48, 128, 16, False),
+    (1, 30, 96, 8, False),        # ragged T and di
+    (2, 1, 16384, 16, True),      # a decode step of jamba's width
+    (2, 1300, 1000, 16, True),    # ragged T and di from a state
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_mamba_scan_kernel_matches_plain(cuda, case):
+    b, t, di, ds, with_state = case
+    x, dt, bm, cm, a, h0 = _scan_inputs(b, t, di, ds, cuda, state=with_state)
+    before = scan_ops.mamba_scan.launches
+    y, h = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0)
+    torch.cuda.synchronize()
+    assert scan_ops.mamba_scan.launches == before + 1
+    assert y.shape == x.shape and h.shape == (b, di, ds)
+    y_ref, h_ref = scan_ref.mamba_scan(x, dt, bm, cm, a, h0=h0)
+    print(f"mamba_scan {case}: max abs {(y - y_ref).abs().max().item():.3e},"
+          f" state {(h - h_ref).abs().max().item():.3e}")
+    torch.testing.assert_close(y, y_ref, rtol=SSM_TOL, atol=SSM_TOL)
+    torch.testing.assert_close(h, h_ref, rtol=SSM_TOL, atol=SSM_TOL)
+
+
+@pytest.mark.gpu
+def test_mamba_scan_kernel_reads_strided_views(cuda):
+    """B and C as column slices of one projection (the model's x_proj
+    output), x and dt transposed storage and a sliced batch: each equals
+    the contiguous launch."""
+    x, dt, bm, cm, a, _ = _scan_inputs(3, 70, 200, 16, cuda, seed=3)
+    y, h = scan_ops.mamba_scan(x, dt, bm, cm, a)
+    proj = torch.cat([torch.zeros_like(bm[..., :5]), bm, cm], dim=-1)
+    bv, cv = proj[..., 5:21], proj[..., 21:]
+    assert not bv.is_contiguous()
+    xv, dv = (z.transpose(0, 1).contiguous().transpose(0, 1)
+              for z in (x, dt))
+    torch.testing.assert_close(scan_ops.mamba_scan(xv, dv, bv, cv, a), (y, h),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        scan_ops.mamba_scan(x[1:], dt[1:], bm[1:], cm[1:], a),
+        (y[1:], h[1:]), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_mamba_scan_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, bm, cm, a, _ = _scan_inputs(1, 8, 64, 16, cuda)
+    before = scan_ops.mamba_scan.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        scan_ops.mamba_scan(x, dt.cpu(), bm, cm, a)
+    with pytest.raises(ValueError, match="float32"):
+        scan_ops.mamba_scan(x.half(), dt, bm, cm, a)
+    x4, dt4, bm4, cm4, a4, _ = _scan_inputs(1, 8, 64, 4, cuda)
+    with pytest.raises(ValueError, match="state dim"):
+        scan_ops.mamba_scan(x4, dt4, bm4, cm4, a4)
+    with pytest.raises(ValueError, match="h0"):
+        scan_ops.mamba_scan(x, dt, bm, cm, a,
+                            h0=torch.zeros((1, 64, 8), device=cuda))
+    with pytest.raises(ValueError, match="A"):
+        scan_ops.mamba_scan(x, dt, bm, cm, a[:32])
+    assert scan_ops.mamba_scan.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_serve_engine_runs_the_ssm_kernels(cuda, arch):
+    """On the card every RWKV6 prefill layer launches wkv once and decode
+    none; every Mamba layer launches mamba_scan once per prefill and per
+    decode tick; the tokens equal the CPU's from the same weights."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(reduced(get_config(arch)), n_experts=0,
+                              top_k=0)
+    spec = cfg.group_spec()
+    per_rep = {m: sum(s.mixer == m for s in spec) for m in ("rwkv6",
+                                                             "mamba")}
+    reps = cfg.n_layers // len(spec)
+    cpu = TF.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    outs, ticks = {}, 0
+    for dev in ("cpu", cuda):
+        params = cpu if dev == "cpu" else _to(cpu, dev)
+        eng = ServeEngine(params, cfg, batch_slots=2, max_len=64,
+                          device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=np.arange(5 + 4 * i,
+                                                       dtype=np.int32),
+                               max_new_tokens=3))
+        before = (wkv_ops.wkv.launches, scan_ops.mamba_scan.launches)
+        while eng.step():
+            ticks += dev != "cpu"
+        outs[str(dev)] = {r.rid: r.out for r in eng.drain_retired()}
+        n_wkv = wkv_ops.wkv.launches - before[0]
+        n_scan = scan_ops.mamba_scan.launches - before[1]
+    assert outs["cpu"] == outs[str(cuda)]
+    assert n_wkv == 3 * reps * per_rep["rwkv6"]
+    assert n_scan == (3 + ticks) * reps * per_rep["mamba"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_wkv_cpu_runs_the_plain_version():
+    r, k, v, w, u, s0 = _wkv_inputs(2, 40, 3, 48, "cpu", state=True)
+    before = wkv_ops.wkv.launches
+    o, s = wkv_ops.wkv(r, k, v, w, u, state=s0)
+    assert wkv_ops.wkv.launches == before
+    o_ref, s_ref = wkv_ref.wkv(r, k, v, w, u, state=s0)
+    assert torch.equal(o, o_ref) and torch.equal(s, s_ref)
+
+
+def test_mamba_scan_cpu_runs_the_plain_version():
+    x, dt, bm, cm, a, h0 = _scan_inputs(2, 30, 96, 4, "cpu", state=True)
+    before = scan_ops.mamba_scan.launches
+    y, h = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0)
+    assert scan_ops.mamba_scan.launches == before
+    y_ref, h_ref = scan_ref.mamba_scan(x, dt, bm, cm, a, h0=h0)
+    assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+
+
 def test_port_never_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -914,12 +1152,17 @@ def test_default_device_is_cuda_and_never_falls_back():
     from repro_torch.serve.engine import ServeEngine
     cfg = reduced(get_config("glm4-9b"), n_layers=1, d_model=64, n_heads=2,
                   d_ff=64, vocab=32)
+    rwkv = reduced(get_config("rwkv6-3b"), n_layers=1, d_model=64,
+                   n_heads=2, d_ff=64, vocab=32)
     cpu_params = TF.init_params(torch.Generator(), cfg, device="cpu")
     entry = [MarginEngine, Profiler, ALDRAMController, SimEngine,
              lambda: TF.init_params(torch.Generator(), cfg),
              lambda: TF.init_cache(cfg, 1, 8),
              lambda: ServeEngine(cpu_params, cfg),
              lambda: launch_serve.main(["--arch", "glm4-9b"]),
+             lambda: TF.init_params(torch.Generator(), rwkv),
+             lambda: TF.init_cache(rwkv, 1, 8),
+             lambda: launch_serve.main(["--arch", "rwkv6-3b"]),
              lambda: perf_model.evaluate(n=8),
              lambda: perf_model.evaluate_adaptive(
                  np.zeros((2, 6), np.float32), (45.0,), (TH.steady(40.0),),
@@ -937,6 +1180,9 @@ def test_default_device_is_cuda_and_never_falls_back():
         before = flash_ops.flash_attention.launches
         flash_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
         assert flash_ops.flash_attention.launches == before + 1
+        assert TF.init_params(torch.Generator("cuda"), rwkv)[
+            "embed"].device.type == "cuda"
+        assert TF.init_cache(rwkv, 1, 8)["l0"]["wkv"].device.type == "cuda"
         return
     for fn in entry:
         with pytest.raises(RuntimeError, match="device='cpu'"):

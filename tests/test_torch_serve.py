@@ -1,8 +1,9 @@
 """Parity of the port's serving slice with the JAX reference on the CPU:
 the flash attention plain version (against the reference's oracle and
 its Pallas kernel in interpret mode), the attention layers, the
-transformer's prefill / decode_step / apply on reduced configs, the
-serving engine and example, and the port's copies of the ten configs.
+transformer's prefill / decode_step / apply on reduced configs (the
+RWKV6 and expert-free Jamba ones included), the serving engine and
+example, and the port's copies of the ten configs.
 
 Inputs are drawn with numpy from a seed; the reference's params are
 carried across with `repro_torch.convert.model_params`.  Bounds: the
@@ -240,8 +241,13 @@ class TestLayers:
 
 # ---------------------------------------------------------------- transformer
 def _models(arch, **kw):
-    ref_cfg = ref_reduced(ref_get_config(arch))
-    cfg = reduced(get_config(arch))
+    """The reference's and the port's reduced `arch` with the same weights;
+    `n_layers`, `d_model`, `n_heads`, `d_ff` and `vocab` go to `reduced`,
+    any other override replaces a config field."""
+    red = {n: kw.pop(n) for n in ("n_layers", "d_model", "n_heads", "d_ff",
+                                  "vocab") if n in kw}
+    ref_cfg = ref_reduced(ref_get_config(arch), **red)
+    cfg = reduced(get_config(arch), **red)
     if kw:
         ref_cfg = dataclasses.replace(ref_cfg, **kw)
         cfg = dataclasses.replace(cfg, **kw)
@@ -250,14 +256,21 @@ def _models(arch, **kw):
         _np(ref_params), cfg, device="cpu")
 
 
+# the hybrid without its experts (models/moe.py is not ported)
+NO_EXPERTS = {"jamba-1.5-large-398b": {"n_experts": 0, "top_k": 0}}
+
+
 @pytest.mark.parametrize("arch,s", [
     ("glm4-9b", 40), ("qwen2.5-14b", 40),        # qkv bias
     ("gemma3-12b", 80),                          # window 64, prompt > 64
     ("chameleon-34b", 40),                       # qk-norm
     ("musicgen-large", 40),                      # MHA
+    ("rwkv6-3b", 40),                            # WKV, S % 16 != 0
+    ("jamba-1.5-large-398b", 40),                # mamba 7 : 1 attention
 ])
 def test_prefill_decode_apply_match_the_reference(arch, s):
-    ref_cfg, cfg, ref_params, params = _models(arch)
+    ref_cfg, cfg, ref_params, params = _models(arch,
+                                               **NO_EXPERTS.get(arch, {}))
     toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, s + 1))
     jt, tt = jnp.asarray(toks, jnp.int32), torch.tensor(toks)
     f32 = {"dtype": jnp.float32}
@@ -289,7 +302,7 @@ def test_prefill_decode_apply_match_the_reference(arch, s):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "arctic-480b",
-                                  "jamba-1.5-large-398b", "rwkv6-3b"])
+                                  "jamba-1.5-large-398b"])
 def test_unported_mixers_and_ffns_raise(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -424,15 +437,27 @@ def test_serve_engine_rejects_oversized_prompt(tiny):
     assert len(ok.out) == 3
 
 
-def test_serve_engine_matches_the_reference_engine(tiny):
+@pytest.mark.parametrize("arch,kw,lengths,max_len", [
+    ("glm4-9b", {"n_layers": 2, "d_model": 64, "n_heads": 2, "d_ff": 128,
+                 "vocab": 128}, (5, 9, 13), 32),
+    # the attention-free and hybrid mixers (one jamba period of 8 layers):
+    # their states ride in the shared cache, spliced at admission and
+    # updated in place by decode
+    ("rwkv6-3b", {"n_layers": 8}, (5, 19, 13), 48),
+    ("jamba-1.5-large-398b", {"n_layers": 8, **NO_EXPERTS[
+        "jamba-1.5-large-398b"]}, (5, 19, 13), 48),
+])
+def test_serve_engine_matches_the_reference_engine(arch, kw, lengths,
+                                                   max_len):
     """Two slots, three requests of different lengths: admission mid-run
     and the uniform decode position, token for token."""
-    (ref_cfg, ref_params), (cfg, params) = tiny
+    ref_cfg, cfg, ref_params, params = _models(arch, **kw)
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, 128, n).astype(np.int32) for n in (5, 9, 13)]
-    ref_eng = RefEngine(ref_params, ref_cfg, batch_slots=2, max_len=32,
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    ref_eng = RefEngine(ref_params, ref_cfg, batch_slots=2, max_len=max_len,
                         dtype=jnp.float32)
-    eng = ServeEngine(params, cfg, batch_slots=2, max_len=32,
+    eng = ServeEngine(params, cfg, batch_slots=2, max_len=max_len,
                       dtype=torch.float32, device="cpu")
     for i, pr in enumerate(prompts):
         ref_eng.submit(RefRequest(rid=i, prompt=pr, max_new_tokens=4 + i))

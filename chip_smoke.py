@@ -125,9 +125,8 @@ Phases (any failure exits non-zero and prints no result line):
      with 16 new tokens each, launch counts reset just before and read
      just after: exactly 40 layers x 4 prefills = 160 flash launches, none
      in decode and no other kernel; then the same requests with the
-     engine's prefill sent through `prefill(use_flash=False)` (the plain
-     path, as the reference's engine prefills): every served token equal,
-     except
+     three serve kernel wrappers swapped for their plain versions (the
+     plain path, `plain_serve`): every served token equal, except
      after a step where the plain path's top-2 logit gap is below 1e-3
      (those requests are not compared further and are counted), and each
      prefill's last-token logits within 1e-3; wall seconds per prefill
@@ -136,7 +135,9 @@ Phases (any failure exits non-zero and prints no result line):
   10. `python -m repro_torch.launch.serve --arch glm4-9b --device cuda`
      and `--arch rwkv6-3b` as subprocesses: exit 0 and 4 requests
      printed by each;
-  11. flash_attention against its plain version in float32 and bfloat16
+  11. flash_attention's ptxas report per instantiation (registers,
+     spills, stack, dynamic shared memory) from the build log; the
+     kernel against its plain version in float32 and bfloat16
      (the reference's rtol = atol = 2e-3 / 2e-2, and within them max abs
      1e-5 in float32 and, against the plain version's float32 math on the
      same inputs, atol 1e-3 + rtol 1.6e-2, about 2 bfloat16 ulps, in
@@ -144,9 +145,10 @@ Phases (any failure exits non-zero and prints no result line):
      32/2, 128), an unaligned 2000, gemma3-12b's local (16/8, 256, window
      1024) and global layers at 4096, musicgen's MHA (2048, 32/32, 64)
      and a batched (2, 1024, 8/2, 128); its time at the glm4 4096 shape
-     in both dtypes (CUDA events, median of 10 calls) beside its bound,
-     the plain version's and `scaled_dot_product_attention`'s under each
-     backend that takes it;
+     in both dtypes (CUDA events, median of 10 calls) beside its bound
+     (and its share of it), the plain version's and
+     `scaled_dot_product_attention`'s under each backend that takes it
+     (and the kernel's ratio to the fastest);
   12. (with phase 8) reduced glm4-9b, gemma3-12b, rwkv6-3b and
      expert-free jamba served on the card (kernels) and on the CPU from
      the same seeded weights, the 6 requests of
@@ -2025,33 +2027,37 @@ def _tree_leaves(tree):
 
 
 @contextlib.contextmanager
-def plain_ssm():
-    """The WKV and selective-scan wrappers swapped for their plain
-    versions while the block runs (here only: the port has no such
-    switch), as the plain path's engine sends its prefill through
-    `prefill(use_flash=False)`."""
+def plain_serve():
+    """The three serve kernel wrappers (flash attention, WKV, selective
+    scan) swapped for their plain versions while the block runs.  Here
+    only: the port has no such switch."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
 
-    saved = wkv_ops.wkv, scan_ops.mamba_scan
-    wkv_ops.wkv, scan_ops.mamba_scan = wkv_ref.wkv, scan_ref.mamba_scan
+    swaps = ((flash_ops, "flash_attention", flash_ref.flash_attention),
+             (wkv_ops, "wkv", wkv_ref.wkv),
+             (scan_ops, "mamba_scan", scan_ref.mamba_scan))
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        wkv_ops.wkv, scan_ops.mamba_scan = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def _serve(params, cfg, prompts, plain: bool) -> dict:
     """Serve `prompts` through `ServeEngine` (2 slots): per request its
     tokens and each token's top-2 logit gap, each prefill's last-token
     logits, wall seconds and launches per serve kernel, and each decode
-    tick's.  `plain=True` sends the engine's prefill through the plain
-    attention path (`sdpa_ref`, as the reference's engine prefills) and
-    the WKV and selective-scan wrappers to their plain versions."""
+    tick's.  `plain=True` serves through the plain versions of the three
+    serve kernels (`plain_serve`)."""
     import torch
-    from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import Request, ServeEngine
 
     rec = {"prefill": [], "decode": [], "logits": {}, "gaps": {}}
@@ -2069,11 +2075,6 @@ def _serve(params, cfg, prompts, plain: bool) -> dict:
             c0 = counts()
             _, t = wall(lambda: ServeEngine._prefill_into(self, slot, req))
             rec["prefill"].append((req.rid, len(req.prompt), t, delta(c0)))
-
-        def _prefill(self, tokens):
-            return TF.prefill(self.params, tokens, self.cfg,
-                              max_len=self.max_len, use_flash=not plain,
-                              dtype=self.dtype)
 
         def _decode(self, tokens, pos):
             c0 = counts()
@@ -2100,7 +2101,7 @@ def _serve(params, cfg, prompts, plain: bool) -> dict:
     eng.sampler = sampler
     for i, pr in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=pr, max_new_tokens=SERVE_NEW_TOKENS))
-    with plain_ssm() if plain else contextlib.nullcontext():
+    with plain_serve() if plain else contextlib.nullcontext():
         done, secs = wall(eng.run_until_drained)
     rec["out"] = {r.rid: list(r.out) for r in done}
     rec["seconds"] = secs
@@ -2312,6 +2313,39 @@ def _library_attention(q, k, v, window) -> dict:
     return out
 
 
+def flash_ptxas() -> list:
+    """Registers, spills and stack of each flash_attention instantiation
+    from the build's ptxas report, with its dynamic shared memory."""
+    import re
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+    rows, serialized = {}, set()
+    name = None
+    for line in build.log_path("flash_attention").read_text().splitlines():
+        m = re.search(r"'(_Z\S*kernelILi(\d+)E\S*)'", line)
+        if m and "C7512" in line:           # wgmma serialized for want of
+            serialized.add(m.group(1))      # registers
+        elif m and "Compiling entry function" in line:
+            name = m.group(1)
+            dtype = "float32" if "3f32" in name else "bfloat16"
+            rows[name] = {"dtype": dtype, "d": int(m.group(2))}
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            rows[name].update(stack=nums[0], spill_stores=nums[1],
+                              spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            rows[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    out = []
+    for name, r in rows.items():
+        dt = torch.float32 if r["dtype"] == "float32" else torch.bfloat16
+        r["smem_bytes"] = ops.smem_bytes(dt, r["d"])
+        r["wgmma_serialized"] = name in serialized
+        out.append(r)
+    return sorted(out, key=lambda r: (r["dtype"], r["d"]))
+
+
 def kernel_flash(serve) -> dict:
     """Phase 11: flash_attention against its plain version on the card at
     every listed shape, in float32 and bfloat16 (the reference's bounds),
@@ -2320,6 +2354,14 @@ def kernel_flash(serve) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
 
+    ptxas = flash_ptxas()
+    for r in ptxas:
+        print(f"flash_attention ptxas {r['dtype']} D={r['d']}: "
+              f"{r['registers']} registers, {r['spill_stores']} B spill "
+              f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
+              f"stack; {r['smem_bytes']} B dynamic shared memory"
+              + ("; wgmma serialized for want of registers"
+                 if r["wgmma_serialized"] else ""))
     errs = {"float32": 0.0, "bfloat16": 0.0}
     times = {}
     for dt_name, dt in (("float32", torch.float32),
@@ -2379,8 +2421,10 @@ def kernel_flash(serve) -> dict:
                 check(lib_ms is not None, "no SDPA backend took the inputs")
                 print(f"  kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
                       f"{n_flop:.4e} flop at {peak / 1e12:g} TFLOP/s, "
-                      f"{n_bytes / 1e6:.1f} MB), {ms / b_ms:.2f}x the bound; "
-                      f"plain {plain_s * 1e3:.1f} ms; library "
+                      f"{n_bytes / 1e6:.1f} MB), {ms / b_ms:.2f}x the bound "
+                      f"= {100 * b_ms / ms:.1f} % of it; {ms / lib_ms:.2f}x "
+                      f"the fastest library call ({lib_ms:.4f} ms); plain "
+                      f"{plain_s * 1e3:.1f} ms; library "
                       + json.dumps({k2: {"ms": round(x[0], 4), "call": x[1]}
                                     for k2, x in lib.items()}))
                 times[dt_name] = {"ms": ms, "plain_ms": plain_s * 1e3,
@@ -2404,7 +2448,7 @@ def kernel_flash(serve) -> dict:
             **{k2: f32[k2] for k2 in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
             "library": f32["library"],
-            "bf16": bf16}
+            "bf16": bf16, "ptxas": ptxas}
 
 
 SSM_TOL = 3e-4        # rtol = atol, the reference's Pallas-vs-oracle bound

@@ -6,7 +6,9 @@ CUDA tensors launch `flash_attention.cu` (counted in
 CUDA tensor never falls back.  The kernel reads [B, S, H, D] through
 its strides (the last axis contiguous), handles ragged Sq and Sk itself
 (no padding copies: keys at kpos >= Sk are masked, as in the plain
-version) and takes head dims 32, 64, 128 and 256 in float32 or bfloat16.
+version) and takes head dims 32, 64, 128 and 256 in float32 (register
+tiles on the CUDA cores) or bfloat16 (wgmma fed by TMA; the library
+builds the TMA descriptors from the strides passed here).
 """
 
 from __future__ import annotations
@@ -28,7 +30,15 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12 \
         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory of one block of the kernel that takes
+    (dtype, head dim), in bytes (builds the library)."""
+    return _lib().flash_attention_smem_bytes(DTYPES[dtype], d)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, sq, sk, hq, hkv, d, DTYPES[q.dtype], *strides, int(causal),
             0 if window is None else int(window), d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
+    if rc < 0:
+        raise RuntimeError(f"flash_attention: the driver refused a TMA "
+                           f"descriptor (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed (CUDA "
                            f"error {rc})")

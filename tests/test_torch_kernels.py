@@ -16,7 +16,10 @@ every request, latencies within rtol 1e-5 and temperatures / heat within
 rtol 1e-5, atol 1e-4 (the reference's bound for its own adaptive kernel;
 the kernel aims at bitwise and the tests print how far it is); flash
 attention to rtol = atol = 2e-3 in float32 and 2e-2 in bfloat16 (the
-reference's bound for its own flash kernel, tests/test_kernels.py); the
+reference's bound for its own flash kernel, tests/test_kernels.py) and,
+inside that, to max abs 1e-5 of the float32 plain version (float32) and
+atol 1e-3 + rtol 1.6e-2 of the float32 math rounded to bfloat16
+(bfloat16), with two launches bitwise equal; the
 WKV and selective-scan kernels, outputs and final states, to rtol = atol
 = 3e-4 (the reference's bound for its own two kernels, same file)."""
 
@@ -808,6 +811,21 @@ FLASH_CASES = [
     (2, 150, 100, 8, 2, 128, True, None),       # causal, Sq > Sk
     (1, 33, 70, 2, 1, 256, False, 40),          # non-causal window
     (2, 45, 45, 4, 2, 32, True, None),          # D = 32 (reduced configs)
+    # the tile edges: 64 query rows / 64 keys (float32), 128 query rows
+    # in two warpgroups of 64 / 64-key TMA tiles (bfloat16)
+    (1, 63, 63, 4, 2, 64, True, None),
+    (1, 64, 64, 4, 2, 128, True, None),
+    (1, 65, 65, 4, 2, 256, True, None),
+    (1, 127, 127, 4, 2, 32, True, None),
+    (1, 128, 128, 4, 2, 64, True, None),
+    (2, 129, 129, 4, 2, 128, True, None),
+    (1, 40, 20, 4, 2, 128, False, None),        # Sk < one key tile
+    (2, 48, 30, 4, 1, 64, True, None),          # causal, Sk < one tile
+    (1, 200, 200, 4, 2, 128, True, 37),         # window edge inside a tile
+    (1, 300, 300, 4, 2, 64, True, 128),         # window spans two tiles
+    (2, 200, 200, 8, 2, 32, True, None),        # D = 32 (wgmma n32)
+    (1, 257, 257, 4, 1, 256, True, None),       # D = 256 (4 column blocks)
+    (1, 129, 65, 4, 2, 128, True, None),        # causal, Sq > Sk
 ]
 
 
@@ -828,6 +846,48 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     err = (out.float() - want.float()).abs().max().item()
     print(f"flash {case} {dtype}: max abs {err:.3e}")
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_float32_within_1e5_of_plain(cuda, case):
+    """The float32 kernel (register-tiled on the CUDA cores, no TF32)
+    against the float32 plain version: max abs 1e-5."""
+    b, sq, sk, hq, hkv, d, causal, window = case
+    q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, torch.float32, cuda)
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_ref.flash_attention(q, k, v, causal=causal, window=window)
+    err = (out - want).abs().max().item()
+    print(f"flash float32 {case}: max abs {err:.3e}")
+    assert err <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_bfloat16_within_2_ulps_of_float32_math(cuda, case):
+    """The bfloat16 kernel (wgmma) against the plain version run in
+    float32 on the same inputs and rounded to bfloat16: atol 1e-3 + rtol
+    1.6e-2 (about 2 bfloat16 ulps; the kernel feeds P to P V as two
+    bfloat16 terms)."""
+    b, sq, sk, hq, hkv, d, causal, window = case
+    q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, torch.bfloat16, cuda)
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+    want = want.to(torch.bfloat16).float()
+    diff = (out.float() - want).abs()
+    print(f"flash bfloat16 {case}: max abs {diff.max().item():.3e}")
+    assert bool((diff <= 1e-3 + 1.6e-2 * want.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_launches_are_bitwise_repeatable(cuda, dtype):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v = _flash_inputs(2, 300, 300, 8, 2, 128, dtype, cuda, seed=3)
+    a = flash_ops.flash_attention(q, k, v, window=100)
+    b = flash_ops.flash_attention(q, k, v, window=100)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -883,6 +943,35 @@ def test_serve_engine_prefills_through_the_kernel(cuda):
     done = eng.run_until_drained()
     assert sorted(len(r.out) for r in done) == [3, 3, 3]
     assert flash_ops.flash_attention.launches == before + 3 * cfg.n_layers
+
+
+def test_bfloat16_probabilities_need_two_terms_for_the_tight_bound():
+    """Why the bfloat16 kernel feeds P to P V as two bfloat16 terms: with
+    P rounded once (as flash kernels usually do) the output leaves the
+    tight bound of the float32 math (atol 1e-3 + rtol 1.6e-2) on rows
+    with few keys; with P = hi + lo it stays inside.  The kernel's
+    arithmetic on the CPU: bf16 inputs, float32 scores and
+    probabilities, the normaliser summed from float32 P."""
+    b, s, hq, hkv, d = 1, 200, 4, 2, 128
+    q, k, v = (x.float() for x in _flash_inputs(b, s, s, hq, hkv, d,
+                                                 torch.bfloat16, "cpu"))
+    kk, vv = (x.repeat_interleave(hq // hkv, 2) for x in (k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kk) * d ** -0.5
+    mask = torch.ones(s, s, dtype=torch.bool).tril()
+    scores = scores.masked_fill(~mask, -1e30)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    den = p.sum(-1, keepdim=True)
+    want = torch.einsum("bhqk,bkhd->bqhd", p / den, vv).bfloat16().float()
+
+    def violations(p_used):
+        out = torch.einsum("bhqk,bkhd->bqhd", p_used / den, vv)
+        diff = (out.bfloat16().float() - want).abs()
+        return int((diff > 1e-3 + 1.6e-2 * want.abs()).sum())
+
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    assert violations(hi) > 0
+    assert violations(hi + lo) == 0
 
 
 def test_flash_attention_cpu_runs_the_plain_version():

@@ -25,7 +25,11 @@ Phases (any failure exits non-zero and prints no result line):
      atol = 2e-4); its device time (mean of 5 launches after a warm-up,
      from torch.profiler's kernel records) and its wrapper call's time
      (median of 5, CUDA events) beside its bound and the plain
-     version's time (the same for every kernel below);
+     version's time (the same for every kernel below); the columns'
+     read and write key counts, and its bound from the work they need
+     (its 12 GB of stores) beside the reference's per-element count;
+     the per-element kernel (small grids) against the key kernel on the
+     whole 176,640 x 8,505 grid, bit for bit, and its time;
   4. the thermal path at full width on the table the main path
      profiled, launch counts reset just before and read just after:
      `evaluate_dynamic(n=4096)` with the default scenarios (70 traces,
@@ -78,13 +82,17 @@ Phases (any failure exits non-zero and prints no result line):
      one 4-channel run under `torch.profiler` for the busy share, after
      phases 7 and 9-11 (its ~262k kernel records once left the next
      profiler session of a kernel timing with no record);
-  7. replay_blocks (a) at both Fig. 4 shapes (bitwise), replay_blocks
-     (b) and adaptive_blocks (module and per-bank tables, raw temps and
-     bins emitted) against their plain versions on the card at the
-     thermal path's full shapes (bins
-     identical on every request, latencies within rtol 1e-5,
-     temperatures / heat / diagnostics within rtol 1e-5, atol 1e-4;
-     the per-bank replay bitwise), replay_blocks (c) at
+  7. margin_grid at every shape below the key search that the main and
+     region paths gave it, on the inputs of its first call there: the
+     wrapper (the per-element kernel) against the plain version (rtol =
+     atol = 2e-4), the key kernel against it bit for bit, and both
+     times; then replay_blocks (a) at both Fig. 4 shapes (bitwise),
+     replay_blocks (b) and adaptive_blocks (module and per-bank tables,
+     raw temps and bins emitted) against their plain versions on the
+     card at the thermal path's full shapes (bins identical on every
+     request, latencies within rtol 1e-5, temperatures / heat /
+     diagnostics within rtol 1e-5, atol 1e-4; the per-bank replay
+     bitwise), replay_blocks (c) at
      `evaluate_region_system`'s shape (bitwise on every lane; a
      bank-constant map and R = 1 with the identity map bitwise equal to
      variant (b)) and adaptive_blocks (c) at the regioned closed loop's
@@ -168,8 +176,9 @@ Phases (any failure exits non-zero and prints no result line):
      + the decode ticks) mamba_scan launches; the plain path swaps the
      selective-scan wrapper for its step loop;
   15. wkv against its plain version at rwkv6-3b's prefill shape (1,
-     4096, 40, 64), a ragged T = 1300, a reduced D = 32 with B = 2 and
-     from a nonzero initial state, outputs and final states within rtol
+     4096, 40, 64), a ragged T = 1300, a reduced D = 32 with B = 2,
+     from a nonzero initial state and a 64-chunk state scan with 2
+     heads from a nonzero state, outputs and final states within rtol
      = atol = 3e-4 (the reference's Pallas-vs-oracle bound); its time at
      the full shape (CUDA events, median of 10) beside its bound
      (`wkv_flops` at 67 TFLOP/s) and the plain version's;
@@ -189,6 +198,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import statistics
 import subprocess
@@ -375,7 +385,11 @@ def main_path(env) -> dict:
         device="cuda"))
     ctrl = ALDRAMController(Profiler(CALIBRATED_CONSTANTS, grid_step=1.25),
                             device="cuda")
-    table, t_prof = wall(lambda: ctrl.profile(pop))
+    mlog = []
+    with margin_log(mlog):
+        table, t_prof = wall(lambda: ctrl.profile(pop))
+        d_prof = ctrl.engine.dispatch_count
+        ok, t_ver = wall(lambda: ctrl.verify(pop))
     red = {t: ctrl.average_reductions(t) for t in (55.0, 85.0)}
     res = ctrl.sweep_result
     fig3 = {}
@@ -385,8 +399,6 @@ def main_path(env) -> dict:
         fig3[t] = {"read_sum": r["latency_sum"], "write_sum": w["latency_sum"],
                    "trcd": r["trcd"], "tras": r["tras"], "twr": w["twr"],
                    "trp": r["trp"]}
-    d_prof = ctrl.engine.dispatch_count
-    ok, t_ver = wall(lambda: ctrl.verify(pop))
     d_ver = ctrl.engine.dispatch_count - d_prof
     eng_sys, eng_ev = SimEngine(device="cuda"), SimEngine(device="cuda")
     sys_res, t_sys = wall(lambda: ctrl.evaluate_system(pop, n=4096,
@@ -397,8 +409,11 @@ def main_path(env) -> dict:
 
     print(f"population: {tuple(pop.cells.shape)} = "
           f"{pop.flat_cells().shape[0]} cells ({t_pop:.3f} s)")
+    shapes = margin_shapes(mlog)
     print(f"profile: table {table.params.shape}, {d_prof} launches "
           f"({t_prof:.3f} s); verify: {ok}, {d_ver} launches ({t_ver:.3f} s)")
+    print(f"margin_grid calls by shape (margin_sweep calls, CUDA events): "
+          f"{json.dumps(shapes)}")
     for t in (55.0, 85.0):
         f = fig3[t]
         print(f"fig3 @{t:.0f}C: read_sum {f['read_sum']:.2%} write_sum "
@@ -437,8 +452,12 @@ def main_path(env) -> dict:
     check(all(-1.0 < v < 1.0 for v in vals), f"speedups {vals}")
     check(s["multi_intensive_gmean"] > s["multi_nonintensive_gmean"] > 0,
           "intensive workloads must gain more than non-intensive ones")
+    check(shapes["campaign"]["launches"] == 1 and shapes["campaign"][
+        "launches"] + shapes["other"]["launches"] == launches["margin_grid"],
+          f"margin shapes {shapes}, launches {launches['margin_grid']}")
     env.update(pop=pop, ctrl=ctrl, sys_res=sys_res, launches=launches,
-               launches_main=launches)
+               launches_main=launches, margin_shapes_main=shapes,
+               margin_small_main=small_grid_inputs(mlog))
     return env
 
 
@@ -493,6 +512,88 @@ def path_launches(env, kernel: str) -> dict:
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
+CAMPAIGN_GRID = (176_640, 8505)     # cells x columns of one campaign
+
+
+@contextlib.contextmanager
+def margin_log(log: list):
+    """Record every `margin_sweep` call made inside (each makes one
+    `margin_grid` call; `MarginEngine` reaches the kernel through it): its
+    (n, m), a pair of CUDA events around it (no synchronize), for the
+    launches by shape, and its arguments by name.  The wrapper's own count
+    is untouched."""
+    import torch
+    from repro_torch.kernels.charge_sim import ops
+    orig = ops.margin_sweep
+    sig = inspect.signature(orig)
+
+    def logged(cells, combos, *args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(cells, combos, *args, **kw)
+        e1.record()
+        bound = sig.bind(cells, combos, *args, **kw)
+        bound.apply_defaults()
+        log.append((cells.shape[0], combos.shape[0], e0, e1,
+                    bound.arguments))
+        return out
+
+    ops.margin_sweep = logged
+    try:
+        yield log
+    finally:
+        ops.margin_sweep = orig
+
+
+def margin_shapes(log: list) -> dict:
+    """margin_grid calls split into the campaign grid and the rest: count
+    and summed call ms (CUDA events) of each."""
+    import torch
+    torch.cuda.synchronize()
+    out = {"campaign": [0, 0.0], "other": [0, 0.0]}
+    for n, m, e0, e1, _ in log:
+        k = "campaign" if (n, m) == CAMPAIGN_GRID else "other"
+        out[k][0] += 1
+        out[k][1] += e0.elapsed_time(e1)
+    return {k: {"launches": c, "ms": round(t, 3)}
+            for k, (c, t) in out.items()}
+
+
+def small_grid_inputs(log: list) -> dict:
+    """(n, m) -> [cells_t, combos_t, constants, calls]: the packed inputs
+    of the first `margin_sweep` call at each shape other than the
+    campaign grid, and the number of calls at that shape."""
+    from repro_torch.kernels.charge_sim import ops
+    out = {}
+    for n, m, _, _, a in log:
+        if (n, m) == CAMPAIGN_GRID:
+            continue
+        if (n, m) not in out:
+            out[(n, m)] = [*ops.pack_inputs(
+                a["cells"], a["combos"], a["temps_combo"],
+                a["trefi_read_cells"], a["trefi_write_cells"]),
+                a["constants"], 0]
+        out[(n, m)][3] += 1
+    return out
+
+
+def vs_plain(k_outs, p_outs) -> tuple[float, float, int, int]:
+    """(kernel, plain) output pairs -> max abs and max relative error,
+    elements beyond rtol = atol = TOL, and elements not bitwise equal."""
+    import torch
+    err_abs = err_rel = 0.0
+    viol = nonbit = 0
+    for k_out, p_out in zip(k_outs, p_outs):
+        d = (k_out - p_out).abs()
+        err_abs = max(err_abs, d.max().item())
+        err_rel = max(err_rel, (d / p_out.abs().clamp(min=1e-30)).max().item())
+        viol += int((d > TOL + TOL * p_out.abs()).sum())
+        nonbit += int((k_out.view(torch.int32)
+                       != p_out.view(torch.int32)).sum())
+    return err_abs, err_rel, viol, nonbit
+
+
 def kernel_margin_grid(env) -> dict:
     """Phase 3: margin_grid vs its plain version, and its times."""
     import torch
@@ -511,38 +612,116 @@ def kernel_margin_grid(env) -> dict:
     n, m = cells_t.shape[1], combos_t.shape[1]
     n_slice = 8 * 8 * 8 * 24
     sl = cells_t[:, :n_slice].contiguous()
-    err_abs = err_rel = 0.0
-    viol = nonbit = 0
-    for k_out, p_out in zip(ops.margin_grid(sl, combos_t, C),
-                            ref.margin_grid(sl, combos_t, C)):
-        d = (k_out - p_out).abs()
-        err_abs = max(err_abs, d.max().item())
-        err_rel = max(err_rel, (d / p_out.abs().clamp(min=1e-30)).max().item())
-        viol += int((d > TOL + TOL * p_out.abs()).sum())
-        nonbit += int((k_out.view(torch.int32)
-                       != p_out.view(torch.int32)).sum())
+    check(n_slice * m >= ops.SEARCH_MIN_ELEMS, "the slice skips the keys")
+    err_abs, err_rel, viol, nonbit = vs_plain(
+        ops.margin_grid(sl, combos_t, C), ref.margin_grid(sl, combos_t, C))
     print(f"margin_grid vs plain on {n_slice} x {m} (x2 outputs): max abs "
           f"{err_abs:.3e}, max rel {err_rel:.3e}, {viol} elements beyond "
           f"rtol=atol={TOL:g}, {nonbit} not bitwise equal")
     check(viol == 0, f"margin_grid disagrees with its plain version at "
                      f"{viol} elements")
 
+    kg = ops.key_groups(combos_t, ops._lib().margin_grid_group_bytes())
+    kr, kw, groups = kg.rkeys.shape[1], kg.wkeys.shape[1], kg.groups.shape[0]
     call = cuda_ms(lambda: ops.margin_grid(cells_t, combos_t, C))
     ms = kernel_ms(lambda: ops.margin_grid(cells_t, combos_t, C),
                    "margin_grid_kernel")
     plain = cuda_ms(lambda: ref.margin_grid(cells_t, combos_t, C), reps=2)
     n_bytes = 4 * (7 * n + 6 * m) + 2 * 4 * n * m
-    b_ms, b_by = bound_ms(n_bytes, ops.margin_grid_flops(n, m))
+    # the bound counts what these inputs need: one fixed point per (cell,
+    # read key), one write evaluation per (cell, write key); beside it
+    # the reference's per-element count
+    key_ops = ops.margin_grid_key_flops(n, kr, kw, m)
+    b_ms, b_by = bound_ms(n_bytes, key_ops)
+    elem_ms, elem_by = bound_ms(n_bytes, ops.margin_grid_flops(n, m))
+    print(f"margin_grid columns: {kr} read keys, {kw} write keys, {groups} "
+          f"group(s) of {m} columns ({m / kr:.1f} columns per read key)")
     print(f"margin_grid at {n} x {m}: kernel {ms:.3f} ms (wrapper call "
-          f"{call:.3f} ms), plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {n_bytes / 1e9:.2f} GB, "
+          f"{call:.3f} ms), plain {plain:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}: {n_bytes / 1e9:.2f} GB at 3.35 TB/s, {key_ops:.3e} "
+          f"operations by key at 67 TFLOP/s), {ms / b_ms:.2f}x the bound; "
+          f"the per-element count's bound {elem_ms:.3f} ms ({elem_by}: "
           f"{ops.margin_grid_flops(n, m):.3e} flop, "
           f"{ops.TRANSCENDENTALS_PER_ELEM * n * m:.3e} expf/logf)")
+
+    # the per-element kernel (small grids' path) against the key kernel
+    # on the whole campaign grid, in row blocks: bit for bit, and timed
+    full = [torch.empty((n, m), device=dev) for _ in range(2)]
+    ops.launch(cells_t, combos_t, C, *full, by_key=True)
+    rows = -(-n // 8)
+    part = [torch.empty((rows, m), device=dev) for _ in range(2)]
+    paths_differ = 0
+    for a in range(0, n, rows):
+        b = min(n, a + rows)
+        ops.launch(cells_t[:, a:b].contiguous(), combos_t, C,
+                   *(x[:b - a] for x in part), by_key=False)
+        paths_differ += sum(
+            int((x[:b - a].view(torch.int32)
+                 != y[a:b].view(torch.int32)).sum())
+            for x, y in zip(part, full))
+    del part
+    elem_ms_full = kernel_ms(
+        lambda: ops.launch(cells_t, combos_t, C, *full, by_key=False),
+        "margin_grid_elem_kernel")
+    del full
+    print(f"margin_grid per-element kernel vs key kernel on {n} x {m}: "
+          f"{paths_differ} of {2 * n * m} elements differ bit for bit; "
+          f"per-element {elem_ms_full:.3f} ms vs key {ms:.3f} ms")
+    check(paths_differ == 0, f"the per-element and key kernels differ at "
+                             f"{paths_differ} elements")
     return {"name": "margin_grid", "route": "cuda",
             "source": "src/repro_torch/kernels/charge_sim/margin_grid.cu",
             "replaces": "src/repro/kernels/charge_sim/charge_sim.py:119",
             **path_launches(env, "margin_grid"),
-            "max_abs_err": err_abs, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": err_abs, "not_bitwise": nonbit, "ms": ms,
+            "call_ms": call, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "keys": {"read": kr, "write": kw, "groups": groups},
+            "elem_ms": elem_ms_full, "elem_vs_key_differ": paths_differ}
+
+
+def kernel_margin_small(env) -> dict:
+    """Phase 7: margin_grid at every shape below the key search that the
+    main and region paths gave it, on the inputs of its first call there:
+    the wrapper (the per-element kernel) vs the plain version, the key
+    kernel vs the per-element kernel bit for bit, and both times (CUDA
+    events; the key kernel's with its host key search)."""
+    import torch
+    from repro_torch.kernels.charge_sim import ops, ref
+
+    grids, worst = [], 0.0
+    for path in ("main", "region"):
+        for (n, m), (ct, mt, consts, calls) in env[
+                f"margin_small_{path}"].items():
+            check(n * m < ops.SEARCH_MIN_ELEMS, f"{n} x {m} takes the keys")
+            k_out = ops.margin_grid(ct, mt, consts)
+            err_abs, err_rel, viol, nonbit = vs_plain(
+                k_out, ref.margin_grid(ct, mt, consts))
+            out = [torch.empty((n, m), device=ct.device) for _ in range(2)]
+            ops.launch(ct, mt, consts, *out, by_key=True)
+            differ = sum(int((x.view(torch.int32)
+                              != y.view(torch.int32)).sum())
+                         for x, y in zip(out, k_out))
+            ms = cuda_ms(lambda: ops.launch(ct, mt, consts, *out,
+                                            by_key=False))
+            key_ms = cuda_ms(lambda: ops.launch(ct, mt, consts, *out,
+                                                by_key=True))
+            print(f"margin_grid {path} {n} x {m} ({calls} calls): vs plain "
+                  f"max abs {err_abs:.3e}, max rel {err_rel:.3e}, {viol} "
+                  f"beyond rtol=atol={TOL:g}, {nonbit} not bitwise equal; "
+                  f"key kernel vs per-element: {differ} differ; per-element "
+                  f"{ms:.4f} ms, key kernel {key_ms:.4f} ms with its key "
+                  f"search")
+            check(viol == 0, f"margin_grid disagrees with its plain version "
+                             f"at {viol} elements of {n} x {m}")
+            check(differ == 0, f"the key and per-element kernels differ at "
+                               f"{differ} elements of {n} x {m}")
+            worst = max(worst, err_abs)
+            grids.append({"path": path, "shape": [n, m], "calls": calls,
+                          "ms": ms, "key_ms": key_ms, "max_abs_err": err_abs,
+                          "not_bitwise": nonbit})
+    check(grids, "no small margin grid on the paths")
+    return {"max_abs_err_small": worst, "small_grids": grids}
 
 
 def kernel_replay(env) -> dict:
@@ -1018,10 +1197,13 @@ def region_path(env) -> None:
     reset_counts()
     ctrl = ALDRAMController(Profiler(CALIBRATED_CONSTANTS, grid_step=1.25),
                             regions=REGIONS, device="cuda")
-    table, t_prof = wall(lambda: ctrl.profile(pop))
-    d_prof = ctrl.engine.dispatch_count
-    ok, t_ver = wall(lambda: ctrl.verify(pop))
+    mlog = []
+    with margin_log(mlog):
+        table, t_prof = wall(lambda: ctrl.profile(pop))
+        d_prof = ctrl.engine.dispatch_count
+        ok, t_ver = wall(lambda: ctrl.verify(pop))
     d_ver = ctrl.engine.dispatch_count - d_prof
+    shapes = margin_shapes(mlog)
     red, t_red = wall(lambda: ctrl.region_reductions(LEVELS))
     ratios = {lv: ctrl.region_table(lv).compression_ratio() for lv in LEVELS}
     eng_sys = SimEngine(device="cuda")
@@ -1040,6 +1222,8 @@ def region_path(env) -> None:
           f"{table.n_unique}), map {table.region_index.shape}, {d_prof} "
           f"launches ({t_prof:.3f} s); verify: {ok}, {d_ver} launches "
           f"({t_ver:.3f} s)")
+    print(f"region margin_grid calls by shape (margin_sweep calls, CUDA "
+          f"events): {json.dumps(shapes)}")
     for op, d in red.items():
         print(f"region_reductions {op}: " + " ".join(
             f"{k} {v:.2%}" for k, v in d.items()))
@@ -1091,7 +1275,11 @@ def region_path(env) -> None:
     check(all(launches[k] > 0 for k in ("margin_grid", "replay_blocks (c)",
                                         "adaptive_blocks (c)")),
           f"a kernel of the region path never launched: {launches}")
-    env.update(launches_region=launches, region_ctrl=ctrl,
+    check(shapes["campaign"]["launches"] == 1 and shapes["campaign"][
+        "launches"] + shapes["other"]["launches"] == launches["margin_grid"],
+          f"margin shapes {shapes}, launches {launches['margin_grid']}")
+    env.update(launches_region=launches, margin_shapes_region=shapes,
+               margin_small_region=small_grid_inputs(mlog), region_ctrl=ctrl,
                region_sys=sys_res, region_stack=(rows_u, edges, idx))
 
 
@@ -2453,11 +2641,13 @@ def kernel_flash(serve) -> dict:
 
 SSM_TOL = 3e-4        # rtol = atol, the reference's Pallas-vs-oracle bound
 # (b, t, h, d, initial state): rwkv6-3b's prefill, the ragged 1300-token
-# prompt, a reduced D = 32 with B = 2, a nonzero initial state
+# prompt, a reduced D = 32 with B = 2, a nonzero initial state, and a
+# state scan over 64 chunks from a nonzero state with few heads
 WKV_SHAPES = {"rwkv6-3b 4096": (1, 4096, 40, 64, False),
               "ragged 1300": (1, 1300, 40, 64, False),
               "reduced d32 b2": (2, 700, 4, 32, False),
-              "from a state": (2, 1300, 40, 64, True)}
+              "from a state": (2, 1300, 40, 64, True),
+              "64 chunks, 2 heads, from a state": (1, 4096, 2, 64, True)}
 # (b, t, di, ds, initial state): jamba's prefill, a ragged 1300 with
 # B = 2, ds = 8 (ragged di), a decode step from a nonzero state
 SCAN_SHAPES = {"jamba 4096": (1, 4096, 16384, 16, False),
@@ -2641,6 +2831,10 @@ def main() -> int:
                    traffic_path):
             phase(fn, env)
         k1.update(path_launches(env, "margin_grid"))
+        k1.update(phase(kernel_margin_small, env))
+        k1["max_abs_err"] = max(k1["max_abs_err"], k1["max_abs_err_small"])
+        k1["launches_by_shape"] = {p: env[f"margin_shapes_{p}"]
+                                   for p in ("main", "region")}
         k2, k3, k4, k5, k6, k7, k8, k9 = (phase(fn, env) for fn in (
             kernel_replay, kernel_replay_banked, kernel_adaptive,
             kernel_replay_regioned, kernel_adaptive_regioned,

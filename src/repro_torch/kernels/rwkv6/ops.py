@@ -1,12 +1,14 @@
 """Wrapper of the WKV kernel on the model layout [B, T, H, D].
 
-CUDA tensors launch `wkv.cu` (counted in `wkv.launches`); CPU tensors
-run the plain version (`ref.wkv`, the reference's chunk 16) — chosen by
-the tensors' device alone, and a CUDA tensor never falls back.  The
-kernel reads r, k, v and w_log through their strides (the D axis
-contiguous), masks a ragged T itself (no padding copy), takes an
-optional initial state and writes the final state (the decode cache's);
-head dims 32 and 64, float32.
+CUDA tensors launch `wkv.cu` (counted in `wkv.launches`, one per call;
+a call runs three CUDA kernels: chunk summaries, the state scan and the
+outputs, through scratch this wrapper allocates); CPU tensors run the
+plain version (`ref.wkv`, the reference's chunk 16) — chosen by the
+tensors' device alone, and a CUDA tensor never falls back.  The kernels
+read r, k, v and w_log through their strides (the D axis contiguous),
+mask a ragged T themselves (no padding copy), take an optional initial
+state and write the final state (the decode cache's); head dims 32 and
+64, float32.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ CHUNK = 64                # the kernel's chunk (the TPU kernel's)
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("wkv")
-    lib.wkv_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+    lib.wkv_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
         + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     lib.wkv_launch.restype = ctypes.c_int
     return lib
@@ -70,12 +72,17 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state = state.contiguous()
     o = torch.empty((b, t, h, d), dtype=torch.float32, device=r.device)
     s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    n_chunks = -(-t // CHUNK)
+    kv = torch.empty((n_chunks, b, h, d, d), dtype=torch.float32,
+                     device=r.device)
+    dec = torch.empty((n_chunks, b, h, d), dtype=torch.float32,
+                      device=r.device)
     strides = [s for x in (r, k, v, w_log) for s in x.stride()[:3]]
     with torch.cuda.device(r.device):
         rc = _lib().wkv_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             u.data_ptr(), None if state is None else state.data_ptr(),
-            o.data_ptr(), s_out.data_ptr(),
+            o.data_ptr(), s_out.data_ptr(), kv.data_ptr(), dec.data_ptr(),
             b, t, h, d, *strides,
             torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:

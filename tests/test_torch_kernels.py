@@ -424,6 +424,122 @@ def test_wrappers_reject_bad_inputs(cuda):
         replay_ops.replay_blocks(ins[0], ins[1], bad, *ins[3:], tim)
 
 
+def _campaign_inputs(n_modules: int = 2, seed: int = 0):
+    """The profiling campaign's columns as the main path builds them: a
+    small calibrated population, its refresh envelopes at 85C, the read
+    and write combo grids at the controller's five temperature bins and
+    the per-cell read and write tREFI overrides -> (cells_t, combos_t)
+    on the CPU."""
+    import dataclasses
+    from repro_torch.core.aldram import DEFAULT_TEMP_BINS
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.core.sweep import Op
+    from repro_torch.core.variation import sample_population
+    cfg = dataclasses.replace(CALIBRATED_VARIATION, n_modules=n_modules,
+                              n_cells=4)
+    pop = sample_population(torch.Generator().manual_seed(seed), cfg,
+                            device="cpu")
+    prof = Profiler(C, grid_step=1.25, device="cpu")
+    spec = prof.campaign_spec(DEFAULT_TEMP_BINS,
+                              *prof.refresh_campaign(pop, 85.0))
+    combos, temps, _, tc = prof.engine.campaign_columns(pop, spec)
+    return charge_ops.pack_inputs(pop.flat_cells(), torch.tensor(combos),
+                                  torch.tensor(temps),
+                                  torch.tensor(tc[Op.READ]),
+                                  torch.tensor(tc[Op.WRITE]))
+
+
+@pytest.mark.gpu
+def test_margin_grid_kernel_on_campaign_columns(cuda):
+    """The campaign's 8,505 structured columns (450 read and 495 write
+    keys) with per-cell read and write overrides, on 300 cells (the
+    per-element kernel) and on 4,096 (a grid large enough for the key
+    search): within 2e-4 of the plain version, one launch each."""
+    ct, mt = (x.to(cuda) for x in _campaign_inputs(n_modules=16))
+    assert bool((ct[5] > 0).all()) and bool((ct[6] > 0).all())
+    assert 300 * 8505 < charge_ops.SEARCH_MIN_ELEMS <= 4096 * 8505
+    for n in (300, 4096):
+        _margin_grid_matches_plain(ct[:, :n].contiguous(), mt)
+
+
+def _margin_grid_matches_plain(ct, mt):
+    before = charge_ops.margin_grid.launches
+    r1, w1 = charge_ops.margin_grid(ct, mt, C)
+    torch.cuda.synchronize()
+    assert charge_ops.margin_grid.launches == before + 1
+    r2, w2 = charge_ref.margin_grid(ct, mt, C)
+    torch.testing.assert_close(r1, r2, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(w1, w2, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_margin_grid_sharing_a_key_never_changes_a_value(cuda):
+    """The full campaign grid on 4,096 cells shares each key among ~18
+    columns; a random subset of 777 of its columns (the per-element
+    kernel: no search at that size) and a permutation of all of them
+    (the keys in another order) give bitwise the matching columns of the
+    full grid's output."""
+    ct, mt = (x.to(cuda) for x in _campaign_inputs(n_modules=16, seed=1))
+    assert 4096 * 777 < charge_ops.SEARCH_MIN_ELEMS <= 4096 * 8505
+    full = charge_ops.margin_grid(ct, mt, C)
+    g = torch.Generator().manual_seed(5)
+    for cols in (torch.randperm(mt.shape[1], generator=g)[:777],
+                 torch.randperm(mt.shape[1], generator=g)):
+        cols = cols.to(cuda)
+        part = charge_ops.margin_grid(ct, mt[:, cols].contiguous(), C)
+        for a, b in zip(part, full):
+            assert _bitwise(a, b[:, cols])
+
+
+def _random_combo_inputs(n: int, m: int):
+    """n calibrated cells (read overrides on half) and m random combos,
+    every key distinct."""
+    g = torch.Generator().manual_seed(9)
+    lo = torch.tensor([3.75, 12.5, 2.5, 3.75, 8.0])
+    span = torch.tensor([10.0, 25.0, 12.5, 10.0, 500.0])
+    combos = lo + span * torch.rand((m, 5), generator=g)
+    temps = 40.0 + 50.0 * torch.rand(m, generator=g)
+    ct, _ = _grid_inputs(n, 1)
+    return charge_ops.pack_inputs(ct[:5].T, combos, temps, ct[5], None)
+
+
+@pytest.mark.gpu
+def test_margin_grid_per_element_kernel_equals_key_kernel(cuda):
+    """The two kernels behind the wrapper on the same grids: the
+    campaign's columns on 300 cells with read and write overrides, and
+    9,000 random combos on 260 cells (the key kernel in column groups):
+    bitwise equal outputs, and no launch counted."""
+    ct, mt = (x.to(cuda) for x in _campaign_inputs(n_modules=16))
+    grids = [(ct[:, :300].contiguous(), mt),
+             tuple(x.to(cuda) for x in _random_combo_inputs(260, 9000))]
+    before = charge_ops.margin_grid.launches
+    for ct, mt in grids:
+        n, m = ct.shape[1], mt.shape[1]
+        outs = [[torch.empty((n, m), device=cuda) for _ in range(2)]
+                for _ in range(2)]
+        for by_key, out in zip((False, True), outs):
+            charge_ops.launch(ct, mt, C, *out, by_key=by_key)
+        for a, b in zip(*outs):
+            assert _bitwise(a, b)
+    assert charge_ops.margin_grid.launches == before
+
+
+@pytest.mark.gpu
+def test_margin_grid_kernel_with_more_keys_than_a_tile(cuda):
+    """9,000 random combos, every key distinct: one cell's key tables
+    exceed the kernel's buffer, so the key search cuts the columns into
+    groups (3,800 cells); with the per-element kernel too (260 cells);
+    within 2e-4 of the plain version and one launch each."""
+    ct, mt = (x.to(cuda) for x in _random_combo_inputs(3800, 9000))
+    assert 260 * 9000 < charge_ops.SEARCH_MIN_ELEMS <= 3800 * 9000
+    budget = charge_ops._lib().margin_grid_group_bytes()
+    kg = charge_ops.key_groups(mt, budget)
+    assert kg.rkeys.shape[1] == kg.wkeys.shape[1] == 9000
+    assert kg.n_groups > 1
+    for n in (260, 3800):
+        _margin_grid_matches_plain(ct[:, :n].contiguous(), mt)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("s_rows", [6, 54, 130])
 def test_faulted_replay_kernel_bitwise_equals_plain(cuda, s_rows):
@@ -673,6 +789,68 @@ def test_margin_grid_cpu_runs_plain_version():
     trefi = torch.where(ct[5][:, None] > 0, ct[5][:, None], mt[4][None, :])
     r3 = charge.read_margin(cells, mt[:5].T[None], mt[5][None], C, trefi)
     assert torch.equal(r1, r3)
+
+
+def test_combo_keys_factor_the_campaign_columns():
+    """The campaign's 8,505 columns hold 450 read keys and 495 write keys
+    (one group), and every column is rebuilt exactly from its keys and
+    its tRCD."""
+    _, mt = _campaign_inputs()
+    assert mt.shape == (6, 8505)
+    mt = mt.numpy()
+    rk, wk, ri, wi = charge_ops.combo_keys(mt)
+    assert (rk.shape[1], wk.shape[1]) == (450, 495)
+    assert ri.dtype == wi.dtype == np.int32
+    assert np.array_equal(rk[:, ri], mt[[1, 3, 4, 5]])
+    assert np.array_equal(wk[:, wi], mt[[2, 3, 4, 5]])
+    kg = charge_ops.key_groups(torch.from_numpy(mt), 48 * 1024)
+    assert kg.groups.tolist() == [[0, 8505, 0, 450, 0, 495]]
+    assert kg.max_keys == 2 * 450 + 3 * 495
+    assert np.array_equal(kg.col_keys.numpy() & 0xFFFF, ri)
+    assert np.array_equal(kg.col_keys.numpy() >> 16, wi)
+    assert torch.equal(kg.rkeys, torch.from_numpy(rk))
+    assert torch.equal(kg.wkeys, torch.from_numpy(wk))
+
+
+def test_combo_keys_follow_a_column_permutation():
+    """Permuted columns map to the same key values, permuted."""
+    mt = _campaign_inputs()[1].numpy()
+    perm = np.random.default_rng(3).permutation(mt.shape[1])
+    rk, wk, ri, wi = charge_ops.combo_keys(mt)
+    rk2, wk2, ri2, wi2 = charge_ops.combo_keys(mt[:, perm])
+    assert (rk2.shape, wk2.shape) == (rk.shape, wk.shape)
+    assert np.array_equal(rk2[:, ri2], rk[:, ri][:, perm])
+    assert np.array_equal(wk2[:, wi2], wk[:, wi][:, perm])
+
+
+@pytest.mark.parametrize("m,max_bytes", [(9000, 48 * 1024), (300, 1000),
+                                         (1, 20)])
+def test_key_groups_cut_columns_until_each_group_fits(m, max_bytes):
+    """Distinct keys everywhere: the columns are cut into contiguous
+    groups whose tables fit `max_bytes`, and each column's local keys
+    rebuild it."""
+    g = torch.Generator().manual_seed(m)
+    mt = (10.0 * torch.rand((6, m), generator=g)).contiguous()
+    kg = charge_ops.key_groups(mt, max_bytes)
+    assert kg.n_groups == kg.groups.shape[0]
+    rows = kg.groups.tolist()
+    assert rows[0][0] == 0 and rows[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    for c0, c1, r0, nr, w0, nw in rows:
+        assert 4 * (2 * nr + 3 * nw) <= max_bytes
+        ri = (kg.col_keys[c0:c1] & 0xFFFF).long() + r0
+        wi = (kg.col_keys[c0:c1] >> 16).long() + w0
+        assert int(ri.max()) < r0 + nr and int(wi.max()) < w0 + nw
+        assert torch.equal(kg.rkeys[:, ri], mt[[1, 3, 4, 5], c0:c1])
+        assert torch.equal(kg.wkeys[:, wi], mt[[2, 3, 4, 5], c0:c1])
+
+
+def test_margin_grid_key_flops_count_the_factored_work():
+    n, m = 176_640, 8505
+    per_elem = charge_ops.margin_grid_flops(n, m)
+    keyed = charge_ops.margin_grid_key_flops(n, 450, 495, m)
+    assert keyed == n * (240 * 450 + 54 * 495 + 5 * m)
+    assert 3.0e10 < keyed < 3.2e10 and per_elem / keyed > 15
 
 
 def test_replay_blocks_cpu_runs_plain_version():
@@ -1088,6 +1266,37 @@ def test_wkv_refuses_what_the_kernel_does_not_take(cuda):
     assert wkv_ops.wkv.launches == before
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (1, 4096, 2, 64, True),      # a 64-chunk state scan from a state
+    (2, 64 * 5 + 1, 3, 64, True),  # T = 64 k + 1
+    (1, 64 * 3 + 1, 2, 32, True),
+])
+def test_wkv_kernel_long_and_ragged_from_a_state(cuda, case):
+    b, t, h, d, with_state = case
+    r, k, v, w, u, s0 = _wkv_inputs(b, t, h, d, cuda, seed=4,
+                                    state=with_state)
+    o, s = wkv_ops.wkv(r, k, v, w, u, state=s0)
+    o_ref, s_ref = wkv_ref.wkv(r, k, v, w, u, state=s0)
+    torch.testing.assert_close(o, o_ref, rtol=SSM_TOL, atol=SSM_TOL)
+    torch.testing.assert_close(s, s_ref, rtol=SSM_TOL, atol=SSM_TOL)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_strong_decay_from_a_state_is_finite(cuda):
+    """Log decay -7 per step from a nonzero state over 3 chunks: every
+    sub-chunk factor underflows far from its block, nothing overflows,
+    outputs and final state match the plain version."""
+    r, k, v, _, u, s0 = _wkv_inputs(2, 64 * 3 - 5, 2, 64, cuda, seed=6,
+                                    state=True)
+    w = torch.full_like(r, -7.0)
+    o, s = wkv_ops.wkv(r, k, v, w, u, state=s0)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    o_ref, s_ref = wkv_ref.wkv(r, k, v, w, u, state=s0)
+    torch.testing.assert_close(o, o_ref, rtol=SSM_TOL, atol=SSM_TOL)
+    torch.testing.assert_close(s, s_ref, rtol=SSM_TOL, atol=SSM_TOL)
+
+
 SCAN_CASES = [
     # b, t, di, ds, initial state
     (1, 32, 64, 8, False),        # the reference's shapes
@@ -1203,6 +1412,101 @@ def test_wkv_cpu_runs_the_plain_version():
     assert wkv_ops.wkv.launches == before
     o_ref, s_ref = wkv_ref.wkv(r, k, v, w, u, state=s0)
     assert torch.equal(o, o_ref) and torch.equal(s, s_ref)
+
+
+# The kernel's factored A (wkv.cu, pass 3), modelled on the CPU: chunks of
+# 64 steps, sub-chunks of 16, lprev_i = lcum_{i-1}.
+WKV_L, WKV_SUB = 64, 16
+
+
+def _wkv_chunk_logs(w):
+    """w [..., L, D] log decays -> (lcum, lprev) with lprev_i = lcum_{i-1}
+    (0 at i = 0), as the kernel takes them."""
+    lcum = torch.cumsum(w, -2)
+    return lcum, torch.cat([torch.zeros_like(lcum[..., :1, :]),
+                            lcum[..., :-1, :]], -2)
+
+
+def _wkv_pairwise_a(r, k, w):
+    """The plain version's A[i, j] = sum_d r_id k_jd exp(lprev_id -
+    lcum_jd) for j < i, pairwise in log space (lprev = lcum - w)."""
+    lcum = torch.cumsum(w, -2)
+    lprev = lcum - w
+    tri = torch.ones(r.shape[-2], r.shape[-2], dtype=torch.bool).tril(-1)
+    ex = torch.where(tri[:, :, None], lprev[..., :, None, :]
+                     - lcum[..., None, :, :], -torch.inf)
+    return torch.einsum("...id,...jd,...ijd->...ij", r, k, torch.exp(ex))
+
+
+def _wkv_subchunk_a(r, k, w):
+    """The kernel's A: the diagonal 16 x 16 sub-blocks pairwise, each
+    off-diagonal one (I > J) a product of two scaled tiles split at
+    lam_J, the inclusive log at J's last step.  Also returns every
+    exponent of the off-diagonal factors and the (factor, pairwise)
+    pairs, for the safety argument."""
+    lcum, lprev = _wkv_chunk_logs(w)
+    a = torch.zeros(*r.shape[:-1], r.shape[-2])
+    exps, pairs = [], []
+    tri = torch.ones(WKV_SUB, WKV_SUB, dtype=torch.bool).tril(-1)
+    for bi in range(WKV_L // WKV_SUB):
+        ri = slice(bi * WKV_SUB, (bi + 1) * WKV_SUB)
+        ex = torch.where(tri[:, :, None], lprev[..., ri, None, :]
+                         - lcum[..., None, ri, :], -torch.inf)
+        a[..., ri, ri] = torch.einsum("...id,...jd,...ijd->...ij", r[..., ri, :],
+                                      k[..., ri, :], torch.exp(ex))
+        for bj in range(bi):
+            rj = slice(bj * WKV_SUB, (bj + 1) * WKV_SUB)
+            lam = lcum[..., (bj + 1) * WKV_SUB - 1:(bj + 1) * WKV_SUB, :]
+            e_r, e_k = lprev[..., ri, :] - lam, lam - lcum[..., rj, :]
+            exps += [e_r, e_k]
+            a[..., ri, rj] = (r[..., ri, :] * torch.exp(e_r)) \
+                @ (k[..., rj, :] * torch.exp(e_k)).transpose(-1, -2)
+            pairs.append((torch.exp(e_r)[..., :, None, :],
+                          torch.exp(e_k)[..., None, :, :],
+                          torch.exp(e_r[..., :, None, :]
+                                    + e_k[..., None, :, :])))
+    return a, exps, pairs
+
+
+def _wkv_chunks(x):
+    """[B, T, H, D] with T % 64 == 0 -> [B, H, T / 64, 64, D]."""
+    b, t, h, d = x.shape
+    return x.reshape(b, t // WKV_L, WKV_L, h, d).permute(0, 3, 1, 2, 4)
+
+
+def test_wkv_subchunk_factorisation_matches_pairwise_a():
+    """On the reference's input distribution the sub-chunk products give
+    the pairwise A within 3e-4."""
+    r, k, v, w, _, _ = _wkv_inputs(2, 256, 3, 64, "cpu", seed=7)
+    r, k, w = map(_wkv_chunks, (r, k, w))
+    got, _, _ = _wkv_subchunk_a(r, k, w)
+    torch.testing.assert_close(got, _wkv_pairwise_a(r, k, w),
+                               rtol=SSM_TOL, atol=SSM_TOL)
+
+
+def test_wkv_subchunk_factors_are_safe_at_any_decay():
+    """Why the off-diagonal sub-blocks are split at lam_J: every exponent
+    of both factors is <= 0 (the float cumulative logs never grow), so
+    at log decay -7 per step A stays finite and equal to the pairwise A;
+    where a factor underflows to 0 the pairwise term is 0 as well.  A
+    split at the chunk's start instead, (r * exp(lprev)) @ (k *
+    exp(-lcum))^T, overflows at that decay."""
+    r, k, v, w, _, _ = _wkv_inputs(1, 128, 2, 64, "cpu", seed=8)
+    r, k = map(_wkv_chunks, (r, k))
+    for w in (_wkv_chunks(w), torch.full_like(r, -7.0)):
+        got, exps, pairs = _wkv_subchunk_a(r, k, w)
+        assert all(bool((e <= 0).all()) for e in exps)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, _wkv_pairwise_a(r, k, w),
+                                   rtol=SSM_TOL, atol=SSM_TOL)
+        for f_r, f_k, both in pairs:
+            gone = (f_r == 0) | (f_k == 0)
+            assert bool((both.expand_as(gone)[gone] == 0).all())
+    assert any(bool(((f_r == 0) | (f_k == 0)).any())
+               for f_r, f_k, _ in pairs)
+    lcum, lprev = _wkv_chunk_logs(w)
+    naive = (r * torch.exp(lprev)) @ (k * torch.exp(-lcum)).transpose(-1, -2)
+    assert not bool(torch.isfinite(naive).all())
 
 
 def test_mamba_scan_cpu_runs_the_plain_version():

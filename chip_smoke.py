@@ -103,7 +103,11 @@ Phases (any failure exits non-zero and prints no result line):
      counters bitwise; temperatures within rtol 1e-5, atol 1e-4), and
      replay_blocks (d) at the traffic shape (48 cells x 8192 requests x
      8 rows on 2 and 4 channels, and faulted with 3 fault rows per row;
-     latencies, totals and counters bitwise), with their times;
+     latencies, totals and counters bitwise), with their times; each
+     replay and adaptive variant also prints its chain bound
+     (`ops.replay_chain_cycles` per step x N at the card's maximum SM
+     clock) and the kernel's ratio to it, and each adaptive variant its
+     launch plan (chunk, staged tables, shared bytes, threads);
   8. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
      the card and on the CPU: chosen combos must agree (a flip only
      where the CPU's deciding margin is within 2e-4 of 0) and the
@@ -184,7 +188,13 @@ Phases (any failure exits non-zero and prints no result line):
      (`wkv_flops` at 67 TFLOP/s) and the plain version's;
   16. mamba_scan the same way at jamba's prefill shape (1, 4096, 16384,
      16), a ragged T = 1300 with B = 2, ds = 8 and a T = 1 step from a
-     nonzero state; bound `mamba_scan_hbm_bytes` at 3.35 TB/s.
+     nonzero state, timed at the prefill shape and at the decode step
+     (2, 1, 16384, 16) (device time from torch.profiler, the wrapper
+     call's CUDA-event time beside it); bound: `mamba_scan_hbm_bytes`
+     plus A and the
+     state (read when given, written) at 3.35 TB/s; the serve path's
+     launches by shape (prefill, decode at T = 1) and each shape's
+     launch plan.
 
 Phases 13-16 run after phase 11; glm4-9b's weights are freed before
 rwkv6-3b's are drawn, and those before jamba's.
@@ -258,31 +268,40 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 
 def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
-    """Mean device time in ms of one launch of the CUDA kernel whose
-    name contains `kernel`, over the launches of `reps` calls of `fn`
-    (each followed by a synchronize) after a warm-up, from
-    torch.profiler's CUPTI kernel records.  Unlike `cuda_ms` it leaves
-    out what the wrapper does around the launch, such as input checks
-    that wait for the device.  The profiler has dropped a record now
-    and then; the mean is over the records it kept, and a shortfall is
-    printed."""
+    """Mean device time in ms of the CUDA kernels whose names contain
+    `kernel` in one call of `fn`, over `reps` calls (each followed by a
+    synchronize) after a warm-up, from torch.profiler's CUPTI kernel
+    records: per distinct kernel the mean of its launches, summed over
+    the kernels (a call that launches several sums them).  Unlike
+    `cuda_ms` it leaves out what the wrapper does around the launch,
+    such as input checks that wait for the device.  The profiler has
+    dropped a record now and then, and right after a large session all
+    of a session's records: each mean is over the records it kept (a
+    shortfall is printed), and a session that kept none is opened again,
+    up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key
-            and e.self_device_time_total > 0]
-    check(len(hits) == 1 and 1 <= hits[0].count <= reps,
-          f"profiler saw {[(e.key, e.count) for e in hits]} for {kernel}")
-    if hits[0].count != reps:
-        print(f"  (profiler kept {hits[0].count} of {reps} records of "
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key
+                and e.self_device_time_total > 0]
+        if hits:
+            break
+        print(f"  (profiler session {attempt + 1} kept no record of "
               f"{kernel})")
-    return hits[0].self_device_time_total / hits[0].count / 1e3
+    check(len(hits) >= 1 and all(1 <= e.count <= reps for e in hits),
+          f"profiler saw {[(e.key, e.count) for e in hits]} for {kernel}")
+    for e in hits:
+        if e.count != reps:
+            print(f"  (profiler kept {e.count} of {reps} records of "
+                  f"{e.key[:60]})")
+    return sum(e.self_device_time_total / e.count for e in hits) / 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -290,6 +309,43 @@ def bound_ms(n_bytes: float, n_ops: float,
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (`nvidia-smi ... clocks.max.sm`)."""
+    if not hasattr(sm_clock_hz, "hz"):
+        out = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True)
+        sm_clock_hz.hz = float(out.stdout.strip()) * 1e6
+    return sm_clock_hz.hz
+
+
+def chain_bound(variant: str, n: int, ms: float, **kw) -> dict:
+    """A replay kernel variant's chain bound — `ops.replay_chain_cycles`
+    per step x N dependent steps at the SM clock — printed beside the
+    kernel's time and its ratio to it."""
+    from repro_torch.kernels.replay import ops
+    cyc = ops.replay_chain_cycles(variant, **kw)
+    c_ms = cyc * n / sm_clock_hz() * 1e3
+    print(f"  chain bound ({variant}): {c_ms:.4f} ms ({cyc} cycles/step x "
+          f"{n} steps at {sm_clock_hz() / 1e6:.0f} MHz; "
+          f"{json.dumps(ops.replay_chain_ops(variant, **kw))}); kernel "
+          f"{ms:.3f} ms = {ms / c_ms:.2f}x it")
+    return {"chain_ms": c_ms, "chain_cycles_per_step": cyc}
+
+
+def _adaptive_table_class(tile, bins, n_banks: int, regioned: bool,
+                          faulted: bool) -> str:
+    """Where the adaptive kernel's chain reads its table row at this
+    shape: "smem" when its plan stages the stacks, else "l1"."""
+    from repro_torch.kernels.replay import ops
+    plan = ops.adaptive_plan(tile.shape[-1], max(bins.shape[0], 1),
+                             bins.shape[0] + 1, n_banks, 8, tile.dim() == 4,
+                             regioned, faulted)
+    print(f"  adaptive_blocks plan: {json.dumps(plan)}")
+    return "smem" if plan["tables_staged"] else "l1"
 
 
 # the variant counters of each replay wrapper (every launch also counts
@@ -768,6 +824,7 @@ def kernel_replay(env) -> dict:
               f"with its host-side input checks), plain {plain:.3f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
               f"path {n} dependent requests")
+        chain = chain_bound("2a", n, ms)
         check(n_bad == 0, f"replay_blocks: {n_bad} lanes differ ({name})")
         if entry is None:
             entry = {"name": "replay_blocks", "variant": "a",
@@ -776,7 +833,8 @@ def kernel_replay(env) -> dict:
                      "replaces": "src/repro/kernels/replay/replay.py:640",
                      **path_launches(env, "replay_blocks (a)"),
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     **chain}
     return entry
 
 
@@ -943,6 +1001,9 @@ def kernel_adaptive(env) -> list:
               f"(wrapper call {call:.3f} ms), plain {plain_s * 1e3:.1f} ms, "
               f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
               f"path {n} dependent requests")
+        chain = chain_bound(
+            f"3{variant}", n, ms, n_banks=8, n_edges=bins.numel(),
+            table=_adaptive_table_class(tile, bins, 8, False, False))
         check(same_bins, f"adaptive_blocks ({variant}): bins differ")
         check(close, f"adaptive_blocks ({variant}): outputs beyond tolerance "
                      f"(max abs {err:.3e})")
@@ -952,7 +1013,8 @@ def kernel_adaptive(env) -> list:
             "replaces": "src/repro/kernels/replay/replay.py:522",
             **path_launches(env, f"adaptive_blocks ({variant})"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            **chain})
     return entries
 
 
@@ -988,13 +1050,14 @@ def kernel_replay_banked(env) -> dict:
           f"{err:.3e}); kernel {ms:.3f} ms (wrapper call {call:.3f} ms), "
           f"plain {plain_s * 1e3:.1f} ms, bound {b_ms:.5f} ms ({b_by}: "
           f"{n_bytes / 1e6:.2f} MB)")
+    chain = chain_bound("2b", n, ms)
     check(n_bad == 0, f"replay_blocks (b): {n_bad} lanes differ")
     return {"name": "replay_blocks", "variant": "b", "route": "cuda",
             "source": "src/repro_torch/kernels/replay/replay.cu",
             "replaces": "src/repro/kernels/replay/replay.py:640",
             **path_launches(env, "replay_blocks (b)"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **chain}
 
 
 def cross_device() -> dict:
@@ -1355,6 +1418,7 @@ def kernel_replay_regioned(env) -> dict:
           f"(wrapper call {call:.3f} ms), plain {plain_s * 1e3:.1f} ms, "
           f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
           f"path {n} dependent requests")
+    chain = chain_bound("2c", n, ms)
     check(n_bad == 0, f"replay_blocks (c): {n_bad} lanes differ")
     check(all(same_b), "replay_blocks (c) with a bank map differs from (b)")
     return {"name": "replay_blocks", "variant": "c", "route": "cuda",
@@ -1362,7 +1426,7 @@ def kernel_replay_regioned(env) -> dict:
             "replaces": "src/repro/kernels/replay/replay.py:640",
             **path_launches(env, "replay_blocks (c)"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **chain}
 
 
 def kernel_adaptive_regioned(env) -> dict:
@@ -1428,6 +1492,9 @@ def kernel_adaptive_regioned(env) -> dict:
           f"(max abs {err:.3e}); kernel {ms:.3f} ms (wrapper call {call:.3f} "
           f"ms), plain {plain_s * 1e3:.1f} ms, bound {b_ms:.5f} ms ({b_by}: "
           f"{n_bytes / 1e6:.2f} MB); critical path {n} dependent requests")
+    chain = chain_bound("3c", n, ms, n_banks=8, n_edges=bins.numel(),
+                        table=_adaptive_table_class(tile, bins, 8, True,
+                                                    False))
     check(same_bins, "adaptive_blocks (c): bins differ")
     check(close, f"adaptive_blocks (c): outputs beyond tolerance (max abs "
                  f"{err:.3e})")
@@ -1436,7 +1503,7 @@ def kernel_adaptive_regioned(env) -> dict:
             "replaces": "src/repro/kernels/replay/replay.py:522",
             **path_launches(env, "adaptive_blocks (c)"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **chain}
 
 
 def cross_device_region() -> None:
@@ -1757,13 +1824,14 @@ def kernel_replay_faulted(env) -> dict:
           f"{n_bytes / 1e6:.2f} MB); critical path {n} dependent requests; "
           f"{path_launches(env, 'replay_blocks (e)')['launches']} launches "
           "on the paths driven")
+    chain = chain_bound("2e", n, ms)
     check(n_bad == 0, f"replay_blocks (e): {n_bad} lanes differ")
     return {"name": "replay_blocks", "variant": "e", "route": "cuda",
             "source": "src/repro_torch/kernels/replay/replay.cu",
             "replaces": "src/repro/kernels/replay/replay.py:640",
             **path_launches(env, "replay_blocks (e)"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **chain}
 
 
 def kernel_adaptive_faulted(env) -> dict:
@@ -1849,6 +1917,9 @@ def kernel_adaptive_faulted(env) -> dict:
               f"critical path {n} dependent requests; "
               f"{path_launches(env, 'adaptive_blocks (d)')['launches']} "
               "launches of (d) on the paths driven")
+        chain = chain_bound("3d", n, ms, n_banks=8, n_edges=bins.numel(),
+                            table=_adaptive_table_class(
+                                tile, bins, 8, rmap is not None, True))
         check(n_bad == 0, f"adaptive_blocks (d, {name}): {n_bad} lanes "
                           "differ")
         check(close, f"adaptive_blocks (d, {name}): temperatures beyond "
@@ -1861,10 +1932,12 @@ def kernel_adaptive_faulted(env) -> dict:
                      **path_launches(env, "adaptive_blocks (d)"),
                      "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None,
-                     "ms_by_layout": {}, "plain_ms_by_layout": {}}
+                     "bound_by": b_by, "library_ms": None, **chain,
+                     "ms_by_layout": {}, "plain_ms_by_layout": {},
+                     "chain_ms_by_layout": {}}
         entry["ms_by_layout"][name] = ms
         entry["plain_ms_by_layout"][name] = plain_s * 1e3
+        entry["chain_ms_by_layout"][name] = chain["chain_ms"]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
     return entry
 
@@ -2129,11 +2202,12 @@ def kernel_replay_multi(env) -> dict:
               f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); critical "
               f"path {n} dependent requests; {ms / n * 1e3:.4f} us per "
               "step")
+        chain = chain_bound("2d", n, ms, faulted=fault is not None)
         check(n_bad == 0, f"replay_blocks (d, {name}): {n_bad} lanes differ")
         if fault is not None:
             check(int(out[2][0].sum()) > 0, "faulted (d) counted nothing")
-        res[name] = (ms, plain_s * 1e3, b_ms, b_by, err)
-    ms, plain_ms, b_ms, b_by, _ = res["C=4"]
+        res[name] = (ms, plain_s * 1e3, b_ms, b_by, err, chain)
+    ms, plain_ms, b_ms, b_by, _, chain = res["C=4"]
     return {"name": "replay_blocks", "variant": "d", "route": "cuda",
             "source": "src/repro_torch/kernels/replay/replay.cu",
             "replaces": "src/repro/kernels/replay/replay.py:640",
@@ -2142,7 +2216,9 @@ def kernel_replay_multi(env) -> dict:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
             "ms_by_case": {k: r[0] for k, r in res.items()},
-            "plain_ms_by_case": {k: r[1] for k, r in res.items()}}
+            "plain_ms_by_case": {k: r[1] for k, r in res.items()},
+            "chain_ms_by_case": {k: r[5]["chain_ms"]
+                                 for k, r in res.items()}, **chain}
 
 
 def cross_device_traffic() -> None:
@@ -2385,9 +2461,11 @@ def _serve_model(cfg) -> dict:
     want = {"flash_attention": (layers["attn"] * n_pre, 0),
             "wkv": (layers["rwkv6"] * n_pre, 0),
             "mamba_scan": (layers["mamba"] * n_pre, layers["mamba"] * n_dec)}
+    by_phase = {}
     for kernel, (w_pre, w_dec) in want.items():
         pre_l = sum(x[3][kernel] for x in fast["prefill"])
         dec_l = sum(x[1][kernel] for x in fast["decode"])
+        by_phase[kernel] = (pre_l, dec_l)
         print(f"serve {cfg.name} kernels: {kernel} {launches[kernel]} "
               f"launches ({pre_l} in {n_pre} prefills, {dec_l} in {n_dec} "
               f"decode ticks; expected {w_pre} + {w_dec}); plain run "
@@ -2405,20 +2483,20 @@ def _serve_model(cfg) -> dict:
                "out)", lambda: _serve_short(params, cfg, prompts[-1]))
     del params
     torch.cuda.empty_cache()
-    return launches
+    return {"launches_serve": launches, "launches_by_phase": by_phase}
 
 
 def serve_path() -> dict:
     """Phase 9: glm4-9b at full width through the flash prefill."""
     from repro_torch.configs import get_config
-    return {"launches_serve": _serve_model(get_config(SERVE_ARCH))}
+    return _serve_model(get_config(SERVE_ARCH))
 
 
 def serve_rwkv6() -> dict:
     """Phase 13: rwkv6-3b at full width (32 RWKV6 layers: the WKV kernel
     in every prefill layer, the one-step recurrence in decode)."""
     from repro_torch.configs import get_config
-    return {"launches_serve": _serve_model(get_config("rwkv6-3b"))}
+    return _serve_model(get_config("rwkv6-3b"))
 
 
 def serve_jamba() -> dict:
@@ -2428,7 +2506,7 @@ def serve_jamba() -> dict:
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"),
                               **JAMBA_CUT)
-    return {"launches_serve": _serve_model(cfg)}
+    return _serve_model(cfg)
 
 
 def _serve_short(params, cfg, prompt) -> None:
@@ -2663,14 +2741,19 @@ def _within(got, want) -> tuple[bool, float]:
 
 
 def _ssm_kernel(name, shapes, make, kernel, plain, n_bytes, n_ops, serve,
-                extra) -> dict:
+                extra, timed=(), device_kernel=None) -> dict:
     """`kernel` against `plain` on the card at every listed shape, outputs
     and final states within rtol = atol = 3e-4; the kernel's time at the
-    first (full) shape (CUDA events, median of 10 calls) beside its bound,
-    the plain version's time (one run, warmed) and no library call (no
-    single PyTorch call computes it)."""
+    first (full) shape and at the shapes labelled in `timed` (CUDA
+    events, median of 10 calls; with `device_kernel`, the CUDA kernels
+    of that name's device time from torch.profiler, which leaves out the
+    wrapper's host work) beside its bound, the plain version's time (one
+    run, warmed) and no library call (no single PyTorch call computes
+    it).  The entry's numbers are the first shape's; the others go under
+    `ms_by_shape` with their bounds."""
     import torch
     worst = 0.0
+    by_shape = {}
     for i, (label, shape) in enumerate(shapes.items()):
         ins = make(shape, SEED + i)
         out, state = kernel(*ins)
@@ -2684,19 +2767,27 @@ def _ssm_kernel(name, shapes, make, kernel, plain, n_bytes, n_ops, serve,
         check(ok_o and ok_s, f"{name} {label}: beyond rtol = atol = "
               f"{SSM_TOL:g} (output {err_o:.3e}, state {err_s:.3e})")
         worst = max(worst, err_o, err_s)
-        if i == 0:
-            ms = cuda_ms(lambda: kernel(*ins), reps=10)
+        if i == 0 or label in timed:
+            call = cuda_ms(lambda: kernel(*ins), reps=10)
+            ms = (call if device_kernel is None else
+                  kernel_ms(lambda: kernel(*ins), device_kernel, reps=10))
             b_ms, b_by = bound_ms(n_bytes(shape), n_ops(shape))
-            print(f"  kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            how = ("" if device_kernel is None else
+                   f" device (wrapper call {call:.4f} ms)")
+            print(f"  kernel {ms:.4f} ms{how}, bound {b_ms:.4f} ms ({b_by}: "
                   f"{n_ops(shape):.4e} operations at 67 TFLOP/s, "
                   f"{n_bytes(shape) / 1e6:.1f} MB at 3.35 TB/s), "
                   f"{ms / b_ms:.2f}x the bound; plain {plain_s * 1e3:.1f} ms;"
                   " library none")
-            times = {"ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None}
+            by_shape[label] = {"ms": ms, "call_ms": call,
+                               "plain_ms": plain_s * 1e3,
+                               "bound_ms": b_ms, "bound_by": b_by}
+            if i == 0:
+                times = {**by_shape[label], "library_ms": None}
         del ins, out, state, p_out, p_state
         torch.cuda.empty_cache()
     n = serve["launches_serve"][name]
+    extra = dict(extra, ms_by_shape=by_shape) if timed else extra
     return {"name": name, "route": "cuda", **extra, "launches": n,
             "launches_by_path": {"serve": n}, "max_abs_err": worst, **times}
 
@@ -2745,16 +2836,30 @@ def kernel_mamba(serve) -> dict:
                 -torch.exp(0.3 * n(di, ds)),
                 0.5 * n(b, di, ds) if with_state else None)
 
-    return _ssm_kernel(
+    def n_bytes(sh):
+        b, t, di, ds, with_state = sh
+        return ops.mamba_scan_hbm_bytes(b, t, di, ds) + 4 * di * ds \
+            + (ops.mamba_scan_state_bytes(b, di, ds) if with_state
+               else 4 * b * di * ds)
+
+    entry = _ssm_kernel(
         "mamba_scan", SCAN_SHAPES, make,
         lambda x, dt, bm, cm, a, h0: ops.mamba_scan(x, dt, bm, cm, a,
                                                     h0=h0),
         lambda x, dt, bm, cm, a, h0: ref.mamba_scan(x, dt, bm, cm, a, h0=h0),
-        lambda sh: ops.mamba_scan_hbm_bytes(*sh[:4]),
-        lambda sh: ops.mamba_scan_flops(*sh[:4]), serve,
+        n_bytes, lambda sh: ops.mamba_scan_flops(*sh[:4]), serve,
         {"source": "src/repro_torch/kernels/mamba_scan/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:57",
-         "shape": "b 1, t 4096, di 16384, ds 16"})
+         "shape": "b 1, t 4096, di 16384, ds 16",
+         "plans": {lb: dataclasses.asdict(ops.scan_plan(sh[1], sh[3]))
+                   for lb, sh in SCAN_SHAPES.items()}},
+        timed=("decode t1",), device_kernel="mamba_scan_kernel")
+    pre, dec = serve["launches_by_phase"]["mamba_scan"]
+    entry["launches_by_shape"] = {"prefill": pre, "decode t1": dec}
+    print(f"mamba_scan launches on the serve path by shape: {pre} prefill "
+          f"(one per Mamba layer and prompt), {dec} decode steps at T = 1 "
+          f"(one per Mamba layer and tick)")
+    return entry
 
 
 def cross_device_serve() -> None:

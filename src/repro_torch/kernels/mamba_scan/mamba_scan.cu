@@ -12,132 +12,279 @@
 // of the model's x_proj output, read in place), A [di, ds] contiguous,
 // an optional initial state h0 [B, di, ds] (zeros when null); outputs
 // y [B, T, di] and the final state [B, di, ds] (the decode cache's; h0
-// and the final state may be one buffer: each thread reads its own rows
-// before it writes them).  No D-skip and no gate, as the TPU kernel.
-// float32; ds 8 (the reduced configs) or 16.
-//
-// Design.  One thread per (batch row, channel) keeps its h[ds] and A row
-// in registers for the whole sequence; blocks of 64 channels.  Time is
-// walked in tiles of 32 steps: each thread stages its channel's x and dt
-// of the tile in shared memory (32 independent loads in flight, coalesced
-// across the block's channels), and the block stages the tile's B and C
-// rows (shared by every channel) once.  Ragged T and di are masked, not
-// padded: a channel past di computes nothing, a step past T is not
-// staged.  The state update rounds as the plain version (exp of the
-// product, then multiply and add, no contraction: the build passes
-// -fmad=false); y is a sequential fmaf sum over ds where the plain
-// version's einsum sums in its own order.
+// and the final state may be one buffer: each thread reads its own
+// states before it writes them).  No D-skip and no gate, as the TPU
+// kernel.  float32; ds 8 (the reduced configs) or 16.
 //
 // Bound.  mamba_scan_hbm_bytes = 4 B T (3 di + 2 ds) bytes: at jamba's
 // prefill shape (1, 4096, 16384, 16) 805.8 MB, 0.241 ms at 3.35 TB/s,
-// against ~7.5e9 operations (0.11 ms at 67 TFLOP/s float32): bound by
-// bytes.  This first kernel has B x di threads (16,384 at B = 1: 4
-// warps an SM), so it is bound by the latency of each thread's chain of
-// T steps of ds expf; splitting ds across threads is later work.
+// against ~7.6e9 operations (0.113 ms at 67 TFLOP/s float32).  Each of
+// the 1.07e9 exponentials is one MUFU.EX2 (and 8 float32 instructions
+// of the IEEE expf): 0.26 ms of MUFU work at 16 an SM a clock, above the
+// bytes bound.  A decode step (T = 1) reads and writes the state: 5.4 MB
+// at (2, 1, 16384, 16), 1.6 us.
+//
+// Design.  Each (batch row, channel) has a team of P adjacent threads (P
+// in {2, 4, 8, 16}, dividing ds), each holding ds / P consecutive states
+// and the matching slice of A's row in registers for the whole sequence,
+// so B x di x P threads fill the card where one thread per channel (the
+// first version) left 4 warps an SM.  Per step a thread computes its
+// states' expf(dt * a) and updates them (the exp of the product, then
+// multiply and add, no contraction: the build passes -fmad=false, so the
+// state rounds as the plain version and as the first version, bit for
+// bit), sums its states' h * C with a sequential fmaf and the team adds
+// its partial sums with __shfl_xor_sync in a fixed butterfly (every team
+// lane ends with the same sum: float addition commutes).  A block holds
+// `channels` channels; time is walked in tiles of `steps` steps: the block
+// stages the tile's x and dt [steps][channels] (coalesced over the
+// channels) and B and C [steps][ds] (shared by every channel) in shared
+// memory with cp.async into the second of two buffers while the teams
+// walk the first, in groups of kGroup steps (all loads, then the group's
+// independent exponentials, then the state updates in step order, then
+// the group's team sums), the teams write y into a [steps][channels]
+// tile, and the block stores it coalesced.  Ragged T and di are masked, not padded: a
+// channel past di computes on zeros and stores nothing, a step past T is
+// not staged.  At T = 1 a team's states are adjacent in h0 and the final
+// state, so a warp's state loads and stores cover one contiguous span.
+// The host plan (ops.scan_plan: P, channels per block, steps per tile)
+// was chosen by measurement on the card.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kChannels = 64;    // channels per block, one thread each
-constexpr int kSteps = 32;       // time steps staged per tile
+// steps a thread walks as one group: 8 with 4 states a thread, else 4
+// (measured on an H100: 8 is ~4 % faster at P = 4, ds = 16, and slower
+// at 1 state a thread)
+template <int NS>
+constexpr int kGroup = NS == 4 ? 8 : 4;
+constexpr int kMaxThreads = 512; // threads per block, at most
 
 struct Strides {                 // element strides of the B and T axes
   long long xb, xt, db, dt, bb, bt, cb, ct, yb, yt;
 };
 
-template <int DS>
-__global__ void __launch_bounds__(kChannels)
-mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ bm, const float* __restrict__ cm,
-                  const float* __restrict__ a, const float* h0,
-                  float* __restrict__ y, float* h_out, int t_len, int di,
-                  Strides st) {
-  __shared__ float xs[kSteps][kChannels];
-  __shared__ float dts[kSteps][kChannels];
-  __shared__ float bs[kSteps][DS];
-  __shared__ float cs[kSteps][DS];
+// cp.async of one float into shared memory; `ok` false fills a zero and
+// reads nothing (src must still be a valid address)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior_1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// NS consecutive floats of shared memory, in vector loads where aligned
+template <int NS>
+__device__ __forceinline__ void load_ns(const float* p, float (&v)[NS]) {
+  if constexpr (NS % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < NS / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = f.x;
+      v[4 * q + 1] = f.y;
+      v[4 * q + 2] = f.z;
+      v[4 * q + 3] = f.w;
+    }
+  } else if constexpr (NS == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// U consecutive steps i, ..., i + U - 1 of one thread's NS states: every
+// load first, then the U x NS exponentials (independent of the state),
+// then the state updates in step order, then the U partial sums' team
+// butterflies (independent of each other), then y: the latency of each
+// stage overlaps U times over.
+template <int DS, int P, int U>
+__device__ __forceinline__ void scan_steps(int i, const float* bs,
+                                           const float* cs, const float* xs,
+                                           const float* dts, float* ys,
+                                           int cpb, int cl, int j,
+                                           const float (&av)[DS / P],
+                                           float (&h)[DS / P]) {
+  constexpr int NS = DS / P;
+  float d[U], dx[U], bv[U][NS], cv[U][NS], da[U][NS], acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    d[u] = dts[(i + u) * cpb + cl];
+    dx[u] = d[u] * xs[(i + u) * cpb + cl];
+    load_ns<NS>(bs + (i + u) * DS + j * NS, bv[u]);
+    load_ns<NS>(cs + (i + u) * DS + j * NS, cv[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) da[u][s] = expf(d[u] * av[s]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    acc[u] = 0.f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const float dbx = dx[u] * bv[u][s];
+      h[s] = da[u][s] * h[s] + dbx;
+      acc[u] = fmaf(h[s], cv[u][s], acc[u]);
+    }
+  }
+#pragma unroll
+  for (int m = P / 2; m >= 1; m /= 2)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      acc[u] = acc[u] + __shfl_xor_sync(0xffffffffu, acc[u], m);
+  if (j == 0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) ys[(i + u) * cpb + cl] = acc[u];
+  }
+}
+
+template <int DS, int P>
+__global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ dt,
+                                  const float* __restrict__ bm,
+                                  const float* __restrict__ cm,
+                                  const float* __restrict__ a,
+                                  const float* h0, float* __restrict__ y,
+                                  float* h_out, int t_len, int di, int steps,
+                                  Strides st) {
+  constexpr int NS = DS / P;     // states per thread
+  extern __shared__ __align__(16) float sm[];
+  const int cpb = blockDim.x / P;              // channels per block
+  // two tile buffers of [B steps x DS][C steps x DS][x steps x cpb]
+  // [dt steps x cpb] (16-byte aligned: DS and 2 cpb are multiples of 4),
+  // then the y tile [steps x cpb]
+  const int buf = steps * (2 * DS + 2 * cpb);
+  float* ys = sm + 2 * buf;
 
   const int tid = threadIdx.x;
-  const int ch = blockIdx.x * kChannels + tid;
+  const int cl = tid / P;                      // channel within the block
+  const int j = tid % P;                       // team lane
+  const int ch0 = blockIdx.x * cpb;
+  const int ch = ch0 + cl;
+  const int nch = min(cpb, di - ch0);          // live channels of the block
   const int b = blockIdx.y;
   const bool ok = ch < di;
 
-  float av[DS];
-  float h[DS];
-  const long long hrow = ((long long)b * di + ch) * DS;
+  float av[NS];
+  float h[NS];
+  const long long hrow = ((long long)b * di + ch) * DS + j * NS;
 #pragma unroll
-  for (int s = 0; s < DS; ++s) {
-    av[s] = ok ? a[(long long)ch * DS + s] : 0.f;
+  for (int s = 0; s < NS; ++s) {
+    av[s] = ok ? a[(long long)ch * DS + j * NS + s] : 0.f;
     h[s] = (ok && h0 != nullptr) ? h0[hrow + s] : 0.f;
   }
 
-  const float* xb = x + b * st.xb + ch;
-  const float* db = dt + b * st.db + ch;
+  const float* xb = x + b * st.xb + ch0;
+  const float* db = dt + b * st.db + ch0;
   const float* bb = bm + b * st.bb;
   const float* cb = cm + b * st.cb;
-  float* yb = y + b * st.yb + ch;
+  float* yb = y + b * st.yb + ch0;
 
-  for (int t0 = 0; t0 < t_len; t0 += kSteps) {
-    const int n = min(kSteps, t_len - t0);
-    __syncthreads();                  // the previous tile is consumed
-    if (ok) {
-      for (int i = 0; i < n; ++i) {
-        xs[i][tid] = xb[(long long)(t0 + i) * st.xt];
-        dts[i][tid] = db[(long long)(t0 + i) * st.dt];
-      }
+  // a [steps][cpb] tile is walked P rows at a time: thread tid always
+  // takes column tc of rows tr, tr + P, ... (no division per element)
+  const int tc = tid % cpb, tr = tid / cpb;
+  const bool tc_live = tc < nch;
+
+  // the tile of steps [t0, t0 + n) into buffer `base`, asynchronously
+  auto stage = [&](int t0, float* base) {
+    const int n = min(steps, t_len - t0);
+    float* bs = base;
+    float* cs = bs + steps * DS;
+    float* xs = cs + steps * DS;
+    float* dts = xs + steps * cpb;
+    for (int r = tr; r < n; r += P) {
+      const long long t = t0 + r;
+      cp_async4(xs + r * cpb + tc, tc_live ? xb + t * st.xt + tc : xb,
+                tc_live);
+      cp_async4(dts + r * cpb + tc, tc_live ? db + t * st.dt + tc : db,
+                tc_live);
     }
-    for (int i = tid; i < n * DS; i += kChannels) {
+    for (int i = tid; i < n * DS; i += blockDim.x) {
       const long long t = t0 + i / DS;
-      bs[i / DS][i % DS] = bb[t * st.bt + i % DS];
-      cs[i / DS][i % DS] = cb[t * st.ct + i % DS];
+      cp_async4(bs + i, bb + t * st.bt + i % DS, true);
+      cp_async4(cs + i, cb + t * st.ct + i % DS, true);
     }
+  };
+
+  stage(0, sm);
+  cp_async_commit();
+  for (int t0 = 0, it = 0; t0 < t_len; t0 += steps, ++it) {
+    const int n = min(steps, t_len - t0);
+    if (t0 + steps < t_len) stage(t0 + steps, sm + ((it + 1) & 1) * buf);
+    cp_async_commit();                // (an empty group on the last tile)
+    cp_async_wait_prior_1();          // this tile's copies have landed
     __syncthreads();
-    if (!ok) continue;
-    for (int i = 0; i < n; ++i) {
-      const float d = dts[i][tid];
-      const float dx = d * xs[i][tid];
-      float acc = 0.f;
-#pragma unroll
-      for (int s = 0; s < DS; ++s) {
-        const float da = expf(d * av[s]);
-        const float dbx = dx * bs[i][s];
-        h[s] = da * h[s] + dbx;
-        acc = fmaf(h[s], cs[i][s], acc);
-      }
-      yb[(long long)(t0 + i) * st.yt] = acc;
-    }
+    const float* bs = sm + (it & 1) * buf;
+    const float* cs = bs + steps * DS;
+    const float* xs = cs + steps * DS;
+    const float* dts = xs + steps * cpb;
+    // every team lane runs the steps: the shuffles need the whole warp (a
+    // channel past di computes on zeros)
+    int i = 0;
+    for (; i + kGroup<NS> <= n; i += kGroup<NS>)
+      scan_steps<DS, P, kGroup<NS>>(i, bs, cs, xs, dts, ys, cpb, cl, j, av,
+                                    h);
+    for (; i < n; ++i)
+      scan_steps<DS, P, 1>(i, bs, cs, xs, dts, ys, cpb, cl, j, av, h);
+    __syncthreads();                  // the y tile is complete
+    if (tc_live)
+      for (int r = tr; r < n; r += P)
+        yb[(long long)(t0 + r) * st.yt + tc] = ys[r * cpb + tc];
   }
 
   if (ok) {
 #pragma unroll
-    for (int s = 0; s < DS; ++s) h_out[hrow + s] = h[s];
+    for (int s = 0; s < NS; ++s) h_out[hrow + s] = h[s];
   }
 }
 
-template <int DS>
+template <int DS, int P>
 int launch(const float* x, const float* dt, const float* bm, const float* cm,
            const float* a, const float* h0, float* y, float* h_out,
-           int batch, int t_len, int di, const Strides& st,
-           cudaStream_t stream) {
-  dim3 grid((di + kChannels - 1) / kChannels, batch);
-  mamba_scan_kernel<DS><<<grid, kChannels, 0, stream>>>(
-      x, dt, bm, cm, a, h0, y, h_out, t_len, di, st);
+           int batch, int t_len, int di, int channels, int steps,
+           const Strides& st, cudaStream_t stream) {
+  const int threads = channels * P;
+  const long long smem = 4LL * steps * (2 * (2LL * DS + 2 * channels)
+                                        + channels);
+  if (threads > kMaxThreads || threads % 32 != 0 || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  auto kern = mamba_scan_kernel<DS, P>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((di + channels - 1) / channels, batch);
+  kern<<<grid, threads, smem, stream>>>(x, dt, bm, cm, a, h0, y, h_out,
+                                        t_len, di, steps, st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// h0 may be null (zeros).  Returns the CUDA error of the launch (0 on
-// success).
+// h0 may be null (zeros).  team = P threads per channel (2, 4, 8 or 16,
+// dividing ds), `channels` per block (channels x team a multiple of 32, at
+// most kMaxThreads), `steps` per staged tile.  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int mamba_scan_launch(
     const void* x, const void* dt, const void* bm, const void* cm,
     const void* a, const void* h0, void* y, void* h_out, int batch,
-    int t_len, int di, int ds, long long xb, long long xt, long long db,
-    long long dtt, long long bb, long long bt, long long cb, long long ct,
-    long long yb, long long yt, void* stream) {
-  if (batch < 1 || batch > 65535 || t_len < 1 || di < 1)
+    int t_len, int di, int ds, int team, int channels, int steps,
+    long long xb, long long xt, long long db, long long dtt, long long bb,
+    long long bt, long long cb, long long ct, long long yb, long long yt,
+    void* stream) {
+  if (batch < 1 || batch > 65535 || t_len < 1 || di < 1 || channels < 1 ||
+      steps < 1)
     return (int)cudaErrorInvalidValue;
   const Strides st{xb, xt, db, dtt, bb, bt, cb, ct, yb, yt};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -149,14 +296,17 @@ extern "C" int mamba_scan_launch(
   const auto* hf = static_cast<const float*>(h0);
   auto* yf = static_cast<float*>(y);
   auto* of = static_cast<float*>(h_out);
-  switch (ds) {
-    case 8:
-      return launch<8>(xf, df, bf, cf, af, hf, yf, of, batch, t_len, di, st,
-                       s);
-    case 16:
-      return launch<16>(xf, df, bf, cf, af, hf, yf, of, batch, t_len, di,
-                        st, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define MAMBA_SCAN_CASE(DS_, P_)                                             \
+  if (ds == DS_ && team == P_)                                               \
+    return launch<DS_, P_>(xf, df, bf, cf, af, hf, yf, of, batch, t_len, di, \
+                           channels, steps, st, s);
+  MAMBA_SCAN_CASE(8, 2)
+  MAMBA_SCAN_CASE(8, 4)
+  MAMBA_SCAN_CASE(8, 8)
+  MAMBA_SCAN_CASE(16, 2)
+  MAMBA_SCAN_CASE(16, 4)
+  MAMBA_SCAN_CASE(16, 8)
+  MAMBA_SCAN_CASE(16, 16)
+#undef MAMBA_SCAN_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -148,30 +148,53 @@ __device__ __forceinline__ void store(const Counters& c, int* __restrict__ out,
   out[4 * g_stride + o] = c.probes;
 }
 
-// One faulted sensor reading (faults.fault_sensor) of the true sensed
-// temperature `raw` at arrival t, gap dt, request counter k.  Updates the
+// A faulted sensor reading (faults.fault_sensor) in two parts.
+//
+// sensor_terms: what depends only on the request (arrival t, gap dt,
+// request counter k) and the lane's fault row — the lag factor alpha, the
+// noise term noise * (2h - 1), and the stuck-at (bit 0) and dropout
+// (bit 1) flags.  The hash draws are skipped where their amplitude or
+// probability is 0: the noise term is then a signed zero and the dropout
+// flag false, as in the plain version.  The replay computes these ahead
+// of the lane's dependent chain.
+struct SensorTerms {
+  float alpha, noise;
+  int flags;
+};
+constexpr int kStuckBit = 1, kDropBit = 2;
+
+__device__ __forceinline__ SensorTerms sensor_terms(float lag_tau,
+                                                    float noise, float seed,
+                                                    float drop_p,
+                                                    float stuck_from,
+                                                    float t, float dt, int k) {
+  SensorTerms s;
+  s.alpha = lag_tau > 0.0f
+                ? 1.0f - expf(-fmaxf(dt, 0.0f) / fmaxf(lag_tau, kFloor))
+                : 1.0f;
+  const float h = noise != 0.0f ? hash01(seed, k) : 0.0f;
+  s.noise = noise * (2.0f * h - 1.0f);
+  s.flags = (stuck_from >= 0.0f && t >= stuck_from ? kStuckBit : 0) |
+            (drop_p > 0.0f && hash01(seed + 1.0f, k) < drop_p ? kDropBit : 0);
+  return s;
+}
+
+// sensor_chain: the rest, on the chain — the reading of the true sensed
+// temperature `raw` through the lag state, drift, noise, stuck-at,
+// dropout and quantization, in the plain version's order.  Updates the
 // lag state; returns the reading (the caller keeps it as the held value).
-// The hash draws are skipped where their amplitude or probability is 0:
-// noise * (2h - 1) is then a signed zero and h < 0 false, as in the plain
-// version.
-__device__ __forceinline__ float sensor(const Row& f, float t, float dt,
-                                        float raw, float& lag, float held,
-                                        int k) {
-  const float alpha =
-      f.lag_tau > 0.0f
-          ? 1.0f - expf(-fmaxf(dt, 0.0f) / fmaxf(f.lag_tau, kFloor))
-          : 1.0f;
+__device__ __forceinline__ float sensor_chain(const Row& f, float t,
+                                              float raw, float& lag,
+                                              float held, float alpha,
+                                              float noise_term, int flags) {
   const float lagged =
       lag > kNoReadingHalf ? lag + alpha * (raw - lag) : raw;
   lag = lagged;
   float r = f.lag_tau > 0.0f ? lagged : raw;
   r = r + f.drift * t;
-  const float h = f.noise != 0.0f ? hash01(f.seed, k) : 0.0f;
-  r = r + f.noise * (2.0f * h - 1.0f);
-  if (f.stuck_from >= 0.0f && t >= f.stuck_from) r = f.stuck_c;
-  if (f.drop_p > 0.0f && hash01(f.seed + 1.0f, k) < f.drop_p &&
-      held > kNoReadingHalf)
-    r = held;
+  r = r + noise_term;
+  if (flags & kStuckBit) r = f.stuck_c;
+  if ((flags & kDropBit) && held > kNoReadingHalf) r = held;
   if (f.quant > 0.0f) {
     const float q = fmaxf(f.quant, kFloor);
     r = rintf(r / q) * q;

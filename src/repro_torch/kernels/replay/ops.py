@@ -33,6 +33,13 @@ The region map's range is a property of the campaign: `SimSpec` checks
 it once on the host and `SimEngine` launches with `validated=True`.  A
 direct call without `validated` checks it, with the bank ids and the
 rows, in one read of the device.
+
+`adaptive_stream_terms` runs the adaptive kernel's producer stage alone
+(the terms it computes ahead of each lane's dependent chain; the plain
+version `ref.adaptive_stream_terms` on the CPU), for tests.
+`replay_chain_ops` / `replay_chain_cycles` count the loop-carried
+dependent operations of each kernel variant's step: the least time a
+step can take, whatever the bytes.
 """
 
 from __future__ import annotations
@@ -69,7 +76,27 @@ def _adaptive_lib() -> ctypes.CDLL:
     lib.adaptive_launch.argtypes = [ctypes.c_void_p] * 22 \
         + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.adaptive_launch.restype = ctypes.c_int
+    lib.adaptive_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.adaptive_plan.restype = None
+    lib.adaptive_terms_launch.argtypes = [ctypes.c_void_p] * 11 \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.adaptive_terms_launch.restype = ctypes.c_int
     return lib
+
+
+def adaptive_plan(lanes: int, n_edges: int, n_rows: int, n_banks: int,
+                  mlp_window: int, banked: bool, regioned: bool,
+                  faulted: bool) -> dict:
+    """adaptive.cu's launch plan for these sizes: the chunk of requests
+    per shared-memory buffer, whether the lanes' table stacks are staged
+    in shared memory, the shared bytes and the threads per block (chain
+    lanes + producer warps).  Needs the built library."""
+    out = (ctypes.c_int * 4)()
+    _adaptive_lib().adaptive_plan(lanes, n_edges, n_rows, n_banks,
+                                  mlp_window, int(banked), int(regioned),
+                                  int(faulted), out)
+    return {"chunk": out[0], "tables_staged": bool(out[1]),
+            "smem_bytes": out[2], "threads": out[3]}
 
 
 def _on_cuda(name: str, tensors) -> torch.device | None:
@@ -405,6 +432,161 @@ adaptive_blocks.launches = 0
 adaptive_blocks.launches_banked = 0
 adaptive_blocks.launches_regioned = 0
 adaptive_blocks.launches_faulted = 0
+
+
+def adaptive_stream_terms(arrival, valid, scn_t, tcfg, fault_t=None):
+    """The adaptive kernel's producer stage alone: arrival [G, N]
+    float32, valid [G, N] int32, scn_t [SCN_COLS, L], tcfg [6] and
+    optionally the fault tile [F_COLS, L] (float32) -> the stream terms
+    of every (cell, request, lane), the dict `ref.adaptive_stream_terms`
+    returns.  CUDA tensors launch `adaptive_terms_kernel` (the same
+    device code as the replay's producer warps; counted in
+    `adaptive_stream_terms.launches`); CPU tensors run the plain
+    version."""
+    ins = (arrival, valid, scn_t, tcfg) + (() if fault_t is None
+                                           else (fault_t,))
+    dev = _on_cuda("adaptive_stream_terms", ins)
+    if dev is None:
+        return ref.adaptive_stream_terms(arrival, valid, scn_t, tcfg,
+                                         fault_t)
+    if arrival.dim() != 2:
+        raise ValueError(f"adaptive_stream_terms: arrival must be [G, N], "
+                         f"got {tuple(arrival.shape)}")
+    g, n = arrival.shape
+    lanes = scn_t.shape[-1]
+    _check("adaptive_stream_terms: arrival", arrival, torch.float32, (g, n))
+    _check("adaptive_stream_terms: valid", valid, torch.int32, (g, n))
+    _check("adaptive_stream_terms: scn_t", scn_t, torch.float32,
+           (SCN_COLS, lanes))
+    _check("adaptive_stream_terms: tcfg", tcfg, torch.float32, (6,))
+    if fault_t is not None:
+        _check("adaptive_stream_terms: fault tile", fault_t, torch.float32,
+               (faults.F_COLS, lanes))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {"dt": torch.empty((g, n), **f32),
+           "decay": torch.empty((g, n), **f32),
+           "ambient": torch.empty((g, n, lanes), **f32)}
+    if fault_t is not None:
+        out["alpha"] = torch.empty((g, n, lanes), **f32)
+        out["noise"] = torch.empty((g, n, lanes), **f32)
+        out["flags"] = torch.empty((g, n, lanes), dtype=torch.int32,
+                                   device=dev)
+    ptr = {k: v.data_ptr() for k, v in out.items()}
+    with torch.cuda.device(dev):
+        rc = _adaptive_lib().adaptive_terms_launch(
+            arrival.data_ptr(), valid.data_ptr(), scn_t.data_ptr(),
+            tcfg.data_ptr(), None if fault_t is None else fault_t.data_ptr(),
+            ptr["dt"], ptr["decay"], ptr["ambient"], ptr.get("alpha"),
+            ptr.get("noise"), ptr.get("flags"), g, n, lanes,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"adaptive_stream_terms launch failed: cudaError "
+                           f"{rc} (G={g}, N={n}, L={lanes})")
+    adaptive_stream_terms.launches += 1
+    return out
+
+
+adaptive_stream_terms.launches = 0
+
+
+# The chain model: latency in cycles of a float32 (or int32) add, mul,
+# max, compare or select ("alu"); of a true float32 division ("div": the
+# MUFU reciprocal and its dependent refinement, ~20 + 4 x 4); of a
+# shared-memory load ("smem") and of an L1 hit ("l1").
+CHAIN_LATENCY = {"alu": 4, "div": 36, "smem": 30, "l1": 35}
+EDGE_REGS = 8       # adaptive.cu `kEdgeRegs`: edges counted by a tree
+
+
+def _bank_loop(multi: bool = False) -> dict:
+    """`service_math` from one step's bank state to the next: the state's
+    shared-memory round trip, then (gate,) start = max(max(t, ready),
+    gate), the conflict start, + tRP, + tRCD, + tCL, the precharge
+    start (two maxes), + tRP and the page-policy select."""
+    return {"smem": 1, "alu": 10 + int(multi)}
+
+
+def _watchdog_loop(table: str | None) -> dict:
+    """Detected error -> watchdog -> next step's served row -> its
+    reduction -> error probability -> detected error: the probe gate (2),
+    the served-row select (1), (the row's load,) the reduction's three
+    adds, division, 1 - x and max (5 + div), error_prob (sub, max, mul,
+    add, clamp: 6), the draw (compare, the detected fraction's mul,
+    compare and and: 4) and wd_update (budget add, trip compare and or,
+    tripped select: 4)."""
+    out = {"alu": 2 + 1 + 5 + 6 + 4 + 4, "div": 1}
+    if table is not None:
+        out[table] = 1
+    return out
+
+
+def _heat_loop(n_banks: int, n_edges: int, table: str,
+               faulted: bool) -> dict:
+    """Bank heats -> reading -> bin -> table row -> access energy ->
+    deposit -> bank heats: decay (1), the sum bank 0 first (n_banks - 1),
+    + ambient (1), (d: the faulted sensor — lag sub, mul, add and select,
+    the lag select, + drift, + noise, the stuck-at and dropout selects,
+    the quantization's division, rint, mul and select: 12 + div —, the
+    watchdog's served-bin select: 1), + hysteresis (1), the edge compare
+    (1) and the count (a tree of 3 adds up to EDGE_REGS edges, else one
+    add per edge), max(up, min(cur, down)) (2), the row address (1) and
+    load, the energy (mul, add, mul, add: 4), the deposit's mul and add
+    (2)."""
+    count = 3 if n_edges <= EDGE_REGS else n_edges
+    alu = 1 + (n_banks - 1) + 1 + 1 + 1 + count + 2 + 1 + 4 + 2
+    out = {"alu": alu, table: 1}
+    if faulted:
+        out["alu"] += 12 + 1
+        out["div"] = 1
+    return out
+
+
+def replay_chain_ops(variant: str, n_banks: int = 8, n_edges: int = 5,
+                     table: str = "smem", faulted: bool = False) -> dict:
+    """The loop-carried dependent operations of one step of a replay
+    kernel variant, by latency class (`CHAIN_LATENCY`): the longest of
+    the dependency loops that close from one request to the next.
+
+    variant: "2a"-"2e" (replay_blocks: module rows, per-bank tile,
+    region store, multi-channel, faulted module rows) or "3a"-"3d"
+    (adaptive_blocks: module, per-bank and region tables, faulted);
+    n_banks / n_edges: banks per lane and bin edges (adaptive only);
+    table: where the adaptive step reads its table row ("smem" when the
+    stacks are staged, "l1" otherwise); faulted: replay_blocks (d) under
+    a fault axis.
+
+    replay_blocks: the bank state's loop (`service_math` through shared
+    memory; (d) adds the channel bus to the gate; its bus loop is
+    shorter), and for (e) the watchdog's loop, the longer one there.
+    adaptive_blocks: the heat loop, longer than the bank state's and (d)
+    the watchdog's."""
+    kernel, v = variant[:1], variant[1:]
+    if kernel == "2" and v in ("a", "b", "c", "d", "e"):
+        loops = [_bank_loop(multi=v == "d")]
+        if v == "e" or faulted:
+            loops.append(_watchdog_loop(None))
+    elif kernel == "3" and v in ("a", "b", "c", "d"):
+        if table not in ("smem", "l1"):
+            raise ValueError(f"table must be 'smem' or 'l1', got {table!r}")
+        loops = [_bank_loop(), _heat_loop(n_banks, n_edges, table, v == "d")]
+        if v == "d":
+            loops.append(_watchdog_loop(table))
+    else:
+        raise ValueError(f"unknown replay kernel variant {variant!r} "
+                         "(2a-2e, 3a-3d)")
+    return max(loops, key=_cycles)
+
+
+def _cycles(ops: dict) -> int:
+    return sum(CHAIN_LATENCY[k] * c for k, c in ops.items())
+
+
+def replay_chain_cycles(variant: str, n_banks: int = 8, n_edges: int = 5,
+                        table: str = "smem", faulted: bool = False) -> int:
+    """Cycles per step of `replay_chain_ops` at `CHAIN_LATENCY`: times
+    N requests over the SM clock, the least time of a launch (its lanes'
+    chains run side by side)."""
+    return _cycles(replay_chain_ops(variant, n_banks, n_edges, table,
+                                    faulted))
 
 
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,

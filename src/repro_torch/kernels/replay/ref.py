@@ -2,13 +2,17 @@
 contract: `repro_torch.core.dram_sim.replay_cells` (static) and
 `replay_adaptive_cells` (closed thermal loop) over the flattened
 (trace x policy) cells, unfaulted or with a fault axis.  The CPU path
-of `ops` and the yardstick the kernels are held to on the card."""
+of `ops` and the yardstick the kernels are held to on the card; and
+`adaptive_stream_terms`, the part of each adaptive step that the
+kernel's producer warps compute ahead of the dependent chain."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.dram_sim import replay_adaptive_cells, replay_cells
+from repro_torch.core.thermal import ambient_at
 
 
 def to_cells(arrival, bank, row, is_write, valid, closed):
@@ -224,3 +228,54 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
     lat, total, temps, sel, heat, (tmax, tmean, sw) = out[:6]
     return from_lanes((lat, total, tmax, tmean, sw, heat, temps, sel)
                       + out[6:], t, p, k, c, nf)
+
+
+def adaptive_stream_terms(arrival, valid, scn_t, tcfg, fault_t=None):
+    """The stream terms of the adaptive replay, as `adaptive.cu`'s
+    producer warps compute them: everything a step needs that depends
+    only on the request stream and the lane's scenario or fault row.
+
+    arrival [G, N] float32; valid [G, N]; scn_t [SCN_COLS, L]; tcfg [6];
+    fault_t [F_COLS, L] or None -> dict of
+      dt [G, N]: max(t - t_prev, 0), t_prev the previous VALID request's
+        arrival (0 before the first), as the plain step loop keeps it;
+      decay [G, N]: exp(-dt / tau);
+      ambient [G, N, L]: `thermal.ambient_at` of the lane's scenario;
+    and with `fault_t` ([G, N, L] each) the sensor's lag factor
+      alpha (`faults.fault_sensor`'s 1 - exp(-dt / tau_lag), 1 without
+      lag), the noise term noise * (2 hash01(seed, k) - 1) (the draw
+      skipped, h = 0, where noise is 0), and int32 flags: 1 the stuck-at
+      sensor is active, 2 the dropout draw hash01(seed + 1, k) < p.
+    Every term is computed at padding requests too (the chain skips
+    them)."""
+    dev = arrival.device
+    t = arrival.to(torch.float32)
+    g, n = t.shape
+    v = torch.as_tensor(valid, device=dev).bool()
+    tcfg = torch.as_tensor(tcfg, dtype=torch.float32, device=dev)
+    pos = torch.arange(n, device=dev).expand(g, n)
+    last = torch.where(v, pos, -1).cummax(dim=1).values     # <= k
+    before = torch.cat([torch.full((g, 1), -1, device=dev),
+                        last[:, :-1]], dim=1)                # < k
+    t_prev = torch.where(before >= 0, t.gather(1, before.clamp(min=0)),
+                         torch.zeros((), device=dev))
+    dt = torch.maximum(t - t_prev, torch.zeros((), device=dev))
+    out = {"dt": dt, "decay": torch.exp(-dt / tcfg[0]),
+           "ambient": ambient_at(scn_t.to(torch.float32), t[..., None])}
+    if fault_t is None:
+        return out
+    fp = fault_t.to(torch.float32)[:, None, None, :]         # [F, 1, 1, L]
+    k = torch.arange(n, dtype=torch.int32, device=dev)[None, :, None]
+    tl, dl = t[..., None], dt[..., None]
+    tau = fp[faults.LAG_TAU]
+    lag = torch.exp(-torch.clamp(dl, min=0.0) / torch.clamp(tau, min=1e-9))
+    h = torch.where(fp[faults.NOISE] != 0.0, faults.hash01(fp[faults.SEED], k),
+                    0.0)
+    stuck = (fp[faults.STUCK_FROM] >= 0.0) & (tl >= fp[faults.STUCK_FROM])
+    drop = (fp[faults.DROP_P] > 0.0) \
+        & (faults.hash01(fp[faults.SEED] + 1.0, k) < fp[faults.DROP_P])
+    out["alpha"] = torch.where(tau > 0.0, 1.0 - lag, 1.0).expand(g, n, -1)
+    out["noise"] = (fp[faults.NOISE] * (2.0 * h - 1.0)).expand(g, n, -1)
+    out["flags"] = (stuck.to(torch.int32)
+                    + 2 * drop.to(torch.int32)).expand(g, n, -1)
+    return out

@@ -350,11 +350,16 @@ def test_regioned_wrappers_reject_bad_maps_and_rows(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("banked", [False, True], ids=["module", "bank"])
-@pytest.mark.parametrize("lanes", [3, 8, 130])
-def test_adaptive_kernel_matches_plain(cuda, banked, lanes):
+@pytest.mark.parametrize("lanes,s", [(3, 3), (8, 3), (130, 3), (130, 30)],
+                         ids=["3", "8", "130", "130-unstaged"])
+def test_adaptive_kernel_matches_plain(cuda, banked, lanes, s):
+    """Every launch plan: 3, 8 and 130 lanes (two blocks) with staged
+    stacks and edges in registers, and 130 lanes with 30 edges (more
+    than the register set) whose per-bank stacks do not fit in shared
+    memory."""
     ins = [x.to(cuda) for x in _streams(5, 900, seed=3)]
     tabs, scn, bins, tcfg = (x.to(cuda) for x in
-                             _adaptive_inputs(lanes, banked))
+                             _adaptive_inputs(lanes, banked, s=s))
     before = (replay_ops.adaptive_blocks.launches,
               replay_ops.adaptive_blocks.launches_banked)
     out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
@@ -370,7 +375,7 @@ def test_adaptive_kernel_matches_plain(cuda, banked, lanes):
         bins, scn.T, tcfg, closed > 0.5)
     lat, total, tmax, tmean, sw, heat, temps, sel = out
     assert torch.equal(sel, psel) and torch.equal(sw, pdiag[2])
-    assert int(sel.max()) == 3 and int(sw.sum()) > 0   # JEDEC row reached
+    assert int(sel.max()) == s and int(sw.sum()) > 0   # JEDEC row reached
     torch.testing.assert_close(lat, plat, rtol=1e-5, atol=0)
     torch.testing.assert_close(total, ptot, rtol=1e-5, atol=0)
     for a, b in ((temps, ptemps), (heat, pheat), (tmax, pdiag[0]),
@@ -380,6 +385,32 @@ def test_adaptive_kernel_matches_plain(cuda, banked, lanes):
                  for a, b in ((lat, plat), (temps, ptemps), (heat, pheat)))
     print(f"adaptive_blocks lanes={lanes} banked={banked}: {nonbit} "
           "elements not bitwise equal to the plain version")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_banks", [5, 12, 16])
+def test_adaptive_kernel_other_bank_counts_match_plain(cuda, n_banks):
+    """The heat registers' two widths (8, and 16 past 8 banks): module
+    tables on streams that use every bank."""
+    closed, arr, bank, row, wr, valid = _streams(5, 900, seed=13)
+    bank = ((bank * 7 + row) % n_banks).to(torch.int32)
+    ins = [x.to(cuda) for x in (closed, arr, bank, row, wr, valid)]
+    tabs, scn, bins, tcfg = (x.to(cuda) for x in _adaptive_inputs(8, False))
+    out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                     n_banks=n_banks, emit_raw=True)
+    closed, arr, bank, row, wr, valid = ins
+    from repro_torch.kernels.replay import ref as replay_ref
+    plat, ptot, ptemps, psel, pheat, pdiag = dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(), replay_ref.lane_stacks(tabs),
+        bins, scn.T, tcfg, closed > 0.5, n_banks=n_banks)
+    lat, total, tmax, tmean, sw, heat, temps, sel = out
+    assert heat.shape == (5, n_banks, 8)
+    assert torch.equal(sel, psel) and torch.equal(sw, pdiag[2])
+    torch.testing.assert_close(lat, plat, rtol=1e-5, atol=0)
+    torch.testing.assert_close(total, ptot, rtol=1e-5, atol=0)
+    for a, b in ((temps, ptemps), (heat, pheat), (tmax, pdiag[0]),
+                 (tmean, pdiag[1])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -405,6 +436,49 @@ def test_adaptive_wrapper_rejects_bad_inputs(cuda):
     tim_b = torch.ones((4, 6, 3), device=cuda)
     with pytest.raises(ValueError):
         replay_ops.replay_blocks(*ins, tim_b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("faulted", [False, True], ids=["plain", "faulted"])
+@pytest.mark.parametrize("lanes", [8, 72, 130])
+def test_adaptive_producer_stage_bitwise_equals_stream_terms(cuda, faulted,
+                                                            lanes):
+    """The kernel's producer stage (the stream terms it computes ahead of
+    each lane's chain) against `ref.adaptive_stream_terms` on the card,
+    bit for bit, with padding in the middle of a stream."""
+    from repro_torch.kernels.replay import ref as replay_ref
+    _, arr, _, _, _, valid = (x.to(cuda) for x in _streams(5, 700, seed=5))
+    valid[2, 100:140] = 0
+    _, scn, _, tcfg = (x.to(cuda) for x in _adaptive_inputs(lanes, False))
+    ftile = _fault_inputs(lanes, 5, 700)[0].to(cuda) if faulted else None
+    before = replay_ops.adaptive_stream_terms.launches
+    got = replay_ops.adaptive_stream_terms(arr, valid, scn, tcfg, ftile)
+    torch.cuda.synchronize()
+    assert replay_ops.adaptive_stream_terms.launches == before + 1
+    want = replay_ref.adaptive_stream_terms(arr, valid, scn, tcfg, ftile)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert _bitwise(got[k], want[k].contiguous()), k
+
+
+@pytest.mark.gpu
+def test_adaptive_plan_stages_small_stacks_only(cuda):
+    """The launch plan: the thermal campaign's module and per-bank stacks
+    at 8 lanes are staged in shared memory with 256-request buffers, the
+    region tiles never are, the fault campaigns' 72 lanes fit, and every
+    plan stays within the card's 227 KB."""
+    plan = replay_ops.adaptive_plan
+    for banked in (False, True):
+        p = plan(8, 5, 6, 8, 8, banked, False, False)
+        assert p["tables_staged"] and p["chunk"] == 256, p
+        assert p["threads"] == 32 + 256
+    p = plan(8, 5, 6, 8, 8, True, True, False)
+    assert not p["tables_staged"] and p["chunk"] == 256, p
+    for banked, regioned in ((False, False), (True, False), (True, True)):
+        p = plan(72, 5, 6, 8, 8, banked, regioned, True)
+        assert p["chunk"] >= 32 and p["threads"] == 96 + 256, p
+        assert p["smem_bytes"] <= replay_ops.SMEM_LIMIT
+    assert not plan(130, 30, 31, 8, 8, True, False, False)["tables_staged"]
 
 
 @pytest.mark.gpu
@@ -896,6 +970,114 @@ def test_adaptive_blocks_cpu_runs_plain_version(banked):
     assert torch.equal(p[0], lat) and torch.equal(p[4], heat)
 
 
+def _padded_streams():
+    """Five streams with padding in the middle of one and at the head of
+    another (the plain step loop skips any invalid request)."""
+    closed, arr, bank, row, wr, valid = _streams(5, 400, seed=7)
+    valid[2, 100:140] = 0
+    valid[0, :3] = 0
+    return closed, arr, bank, row, wr, valid
+
+
+@pytest.mark.parametrize("banked", [False, True], ids=["module", "bank"])
+def test_adaptive_stream_terms_are_the_plain_loops_ambient(banked):
+    """With c_heat = 0 the bank heats stay 0, so the plain step loop's
+    raw temperature on every valid request is the ambient: the stream
+    terms' ambient equals it bit for bit; dt follows the last valid
+    arrival and decay is exp(-dt / tau)."""
+    closed, arr, bank, row, wr, valid = _padded_streams()
+    tabs, scn, bins, tcfg = _adaptive_inputs(8, banked)
+    tcfg = tcfg.clone()
+    tcfg[1] = 0.0                                      # c_heat
+    temps = dram_sim.replay_adaptive_cells(
+        arr, bank, row, wr.bool(), valid.bool(),
+        replay_ops.ref.lane_stacks(tabs), bins, scn.T, tcfg, closed > 0.5)[2]
+    before = replay_ops.adaptive_stream_terms.launches
+    st = replay_ops.adaptive_stream_terms(arr, valid, scn, tcfg)
+    assert replay_ops.adaptive_stream_terms.launches == before
+    v = valid.bool()[..., None].expand_as(temps)
+    assert _bitwise(st["ambient"][v], temps[v])
+    t_prev = torch.zeros(arr.shape[0])
+    for k in range(arr.shape[1]):
+        dt = torch.clamp(arr[:, k] - t_prev, min=0.0)
+        assert _bitwise(st["dt"][:, k], dt)
+        t_prev = torch.where(valid[:, k].bool(), arr[:, k], t_prev)
+    assert _bitwise(st["decay"], torch.exp(-st["dt"] / tcfg[0]))
+    assert sorted(st) == ["ambient", "decay", "dt"]
+
+
+def test_adaptive_stream_terms_faulted_terms_match_faults():
+    """The faulted terms against `faults.fault_sensor`, one stage at a
+    time: alpha is the lag output from lag 0 toward a reading of 1; the
+    noise term the reading of 0 with every other stage off; the stuck-at
+    and dropout flags where the reading becomes the stuck value or the
+    held one."""
+    _, arr, _, _, _, valid = _padded_streams()
+    _, scn, _, tcfg = _adaptive_inputs(12, False)
+    ftile, _ = _fault_inputs(12, 5, 400)
+    st = replay_ops.adaptive_stream_terms(arr, valid, scn, tcfg, ftile)
+    g, n = arr.shape
+    t, dt = arr[..., None], st["dt"][..., None]
+    k = torch.arange(n, dtype=torch.int32)[None, :, None]
+    one, zero = torch.ones((g, n, 12)), torch.zeros((g, n, 12))
+    none = torch.full((g, n, 12), F.NO_READING)
+
+    def sensor(rows, raw, lag, held):
+        fp = rows[:, None, None, :]
+        return F.fault_sensor(fp, t, dt, raw, lag, held, k)
+
+    assert _bitwise(st["alpha"], sensor(ftile, one, zero, none)[1])
+    quiet = ftile.clone()
+    for col, off in ((F.LAG_TAU, 0.0), (F.DRIFT, 0.0), (F.STUCK_FROM, -1.0),
+                     (F.DROP_P, 0.0), (F.QUANT, 0.0)):
+        quiet[col] = off
+    noise = sensor(quiet, zero, zero, none)[0]
+    loud = (ftile[F.NOISE] != 0)[None, None, :].expand_as(noise)
+    assert _bitwise(st["noise"][loud], noise[loud])
+    assert bool((st["noise"][~loud] == 0).all() and (noise[~loud] == 0).all())
+    assert bool(loud.any() and (~loud).any())
+    stuck_row = quiet.clone()
+    stuck_row[F.STUCK_FROM] = ftile[F.STUCK_FROM]
+    stuck_row[F.STUCK_C] = 777.0
+    stuck_row[F.NOISE] = 0.0
+    stuck = sensor(stuck_row, zero, zero, none)[0] == 777.0
+    drop_row = quiet.clone()
+    drop_row[F.DROP_P] = ftile[F.DROP_P]
+    drop_row[F.NOISE] = 0.0
+    drop = sensor(drop_row, zero, zero, torch.full_like(zero, 555.0))[0] \
+        == 555.0
+    assert torch.equal(st["flags"], stuck.to(torch.int32)
+                       + 2 * drop.to(torch.int32))
+    assert bool(stuck.any() and drop.any())
+
+
+def test_replay_chain_ops_count_the_dependent_steps():
+    """The chain model against hand counts.  replay_blocks (a): the bank
+    state's shared-memory round trip and service_math's 10 dependent
+    operations (two maxes to the start, the conflict max, + tRP, + tRCD,
+    + tCL, two maxes to the precharge start, + tRP, the page select).
+    adaptive_blocks (a) at 8 banks and 5 edges: the heat loop — decay 1,
+    the sum 7, + ambient 1, + hysteresis 1, compare 1, count tree 3,
+    bin max/min 2, row address 1, energy 4, deposit 2: 23 — and the
+    table row's read.  (d) adds the sensor's 12 and one division and the
+    watchdog's served-bin select."""
+    ops = replay_ops
+    assert ops.replay_chain_ops("2a") == {"smem": 1, "alu": 10}
+    assert ops.replay_chain_cycles("2a") == 30 + 40
+    assert ops.replay_chain_ops("2d") == {"smem": 1, "alu": 11}
+    assert ops.replay_chain_ops("2e") == {"alu": 22, "div": 1}
+    assert ops.replay_chain_ops("3a", 8, 5) == {"alu": 23, "smem": 1}
+    assert ops.replay_chain_cycles("3a", 8, 5) == 23 * 4 + 30
+    assert ops.replay_chain_cycles("3c", 8, 5, "l1") == 23 * 4 + 35
+    assert ops.replay_chain_ops("3a", 16, 5)["alu"] == 31
+    assert ops.replay_chain_ops("3a", 8, 30)["alu"] == 23 - 3 + 30
+    assert ops.replay_chain_ops("3d", 8, 5) == {"alu": 36, "smem": 1,
+                                                "div": 1}
+    assert ops.replay_chain_cycles("3d", 8, 5) == 36 * 4 + 36 + 30
+    with pytest.raises(ValueError):
+        ops.replay_chain_ops("3e")
+
+
 @pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lane"])
 def test_regioned_wrappers_cpu_run_plain_versions(per_lane):
     ins = _streams(3, 90)
@@ -1307,13 +1489,29 @@ SCAN_CASES = [
 ]
 
 
+def _scan_plans(ds: int):
+    """Every team the kernel is built for at state dim ds, each at a
+    mid-size block and tile, a small block with a ragged 7-step tile and
+    the largest block."""
+    return [scan_ops.ScanPlan(p, c // p, st) for p in scan_ops.TEAMS[ds]
+            for c, st in ((256, 32), (32 * p, 7),
+                          (scan_ops.MAX_THREADS, 16))]
+
+
+# each case under `scan_plan`'s own plan (None) and every plan of its ds
+SCAN_PLAN_CASES = [(case, plan) for case in SCAN_CASES
+                   for plan in [None] + _scan_plans(case[3])]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", SCAN_CASES)
-def test_mamba_scan_kernel_matches_plain(cuda, case):
+@pytest.mark.parametrize("case,plan", SCAN_PLAN_CASES, ids=[
+    f"{c}-{'planned' if p is None else f'P{p.team}-c{p.channels}-s{p.steps}'}"
+    for c, p in SCAN_PLAN_CASES])
+def test_mamba_scan_kernel_matches_plain(cuda, case, plan):
     b, t, di, ds, with_state = case
     x, dt, bm, cm, a, h0 = _scan_inputs(b, t, di, ds, cuda, state=with_state)
     before = scan_ops.mamba_scan.launches
-    y, h = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0)
+    y, h = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0, plan=plan)
     torch.cuda.synchronize()
     assert scan_ops.mamba_scan.launches == before + 1
     assert y.shape == x.shape and h.shape == (b, di, ds)
@@ -1509,6 +1707,51 @@ def test_wkv_subchunk_factors_are_safe_at_any_decay():
     assert not bool(torch.isfinite(naive).all())
 
 
+@pytest.mark.gpu
+def test_mamba_scan_plans_agree_bitwise_on_the_state(cuda):
+    """Every team and tile holds the same state arithmetic, so the final
+    states are bitwise equal across plans (y's sum order follows the
+    team)."""
+    x, dt, bm, cm, a, h0 = _scan_inputs(2, 300, 1000, 16, cuda, seed=5,
+                                        state=True)
+    y0, h_ref = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0)
+    for plan in _scan_plans(16):
+        y, h = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0, plan=plan)
+        assert _bitwise(h, h_ref), plan
+        torch.testing.assert_close(y, y0, rtol=SSM_TOL, atol=SSM_TOL)
+
+
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("t", [1, 1300, 4096])
+@pytest.mark.parametrize("di", [1000, 16384])
+@pytest.mark.parametrize("b", [1, 2])
+def test_mamba_scan_plan_covers_every_state_once(ds, t, di, b):
+    """The launch plan at the serve path's shapes: its team divides ds,
+    the block is whole warps, and the kernel's index arithmetic (as
+    `scan_thread_map` repeats it) gives every (batch row, channel,
+    state) to exactly one thread."""
+    plan = scan_ops.scan_plan(t, ds)
+    assert ds % plan.team == 0 and plan.steps == min(plan.steps, t)
+    scan_ops.check_plan(plan, ds)
+    cover = scan_ops.scan_thread_map(plan, b, di, ds)
+    key = (cover[:, 0] * di + cover[:, 1]) * ds + cover[:, 2]
+    assert cover.shape[0] == b * di * ds
+    assert torch.equal(torch.bincount(key, minlength=b * di * ds),
+                       torch.ones(b * di * ds, dtype=torch.int64))
+
+
+def test_mamba_scan_refuses_a_plan_it_was_not_built_for():
+    for plan, ds in ((scan_ops.ScanPlan(16, 8, 4), 8),
+                     (scan_ops.ScanPlan(3, 32, 4), 16),
+                     (scan_ops.ScanPlan(4, 9, 4), 16),
+                     (scan_ops.ScanPlan(4, 512, 4), 16),
+                     (scan_ops.ScanPlan(4, 32, 0), 16),
+                     (scan_ops.ScanPlan(2, 256, 128), 16),
+                     (scan_ops.ScanPlan(2, 512, 16), 16)):
+        with pytest.raises(ValueError, match="plan"):
+            scan_ops.check_plan(plan, ds)
+
+
 def test_mamba_scan_cpu_runs_the_plain_version():
     x, dt, bm, cm, a, h0 = _scan_inputs(2, 30, 96, 4, "cpu", state=True)
     before = scan_ops.mamba_scan.launches
@@ -1523,7 +1766,8 @@ def test_port_never_imports_jax_or_the_reference():
                      re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              ROOT / "examples" / "port_serve_batch.py"] + [
+              ROOT / "examples" / "port_serve_batch.py",
+              ROOT / "benchmarks" / "port_kernel_redesign.py"] + [
         ROOT / "benchmarks" / f"port_{b}_bench.py" for b in ("fault",
                                                              "traffic")]
     assert len(files) > 15

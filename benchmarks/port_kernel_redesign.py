@@ -1,19 +1,28 @@
-"""The redesigned adaptive_blocks and mamba_scan kernels against the
-versions they replace, on one NVIDIA card, and the selective scan's
-launch plans side by side.
+"""The redesigned replay kernels against the versions they replace, on
+one NVIDIA card, and the selective scan's launch plans side by side.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C .archive/parent
     python3 -m benchmarks.port_kernel_redesign --parent .archive/parent
     python3 -m benchmarks.port_kernel_redesign --plans
 
-`--parent DIR` builds DIR's `replay/adaptive.cu` (with its
-`faults.cuh`) and `mamba_scan/mamba_scan.cu` with the same `nvcc` flags
-as this checkout, calls both builds on the same inputs through their C
-interfaces, and counts the output elements that differ bit for bit.  DIR
-is the parent's kernels, or a variant of this checkout's (a build whose
-scan takes a launch plan gets this checkout's plan), for an A/B of two
-designs in one run:
+`--parent DIR` builds those of DIR's `replay/replay.cu`,
+`replay/adaptive.cu` and `mamba_scan/mamba_scan.cu` whose source or
+headers (`*.cuh` beside it) differ from this checkout's, with the same
+`nvcc` flags, calls both builds on the same inputs through their C
+interfaces, and counts the output elements that differ bit for bit.
+DIR is the parent's kernels, or a variant of this checkout's (a build
+whose scan takes a launch plan gets this checkout's plan; a replay
+build whose C interface takes the tile's column count gets it, an
+older one the per-bank flag), for an A/B of two designs in one run:
 
+- replay_blocks at `chip_smoke.py`'s shapes: (a) module rows at both
+  Fig. 4 shapes (70 cells x 8192 requests x the DDR3 and AL-DRAM 55C
+  rows; x 4096 x the profiled table's 6 rows), (b) the per-bank tile
+  of `evaluate_bank_system` (11 rows), (c) the region store and map of
+  `evaluate_region_system` (26 rows, 8 regions), (d) the traffic shape
+  (48 FR-FCFS-ordered cells x 8192 requests x 8 rows) on 2 and 4
+  channels and faulted (24 lanes, 4 channels), (e) the static fault
+  campaign (140 cells x 4096 x 66 lanes); lat, total and counters;
 - adaptive_blocks at `chip_smoke.py`'s shapes: (a) module and (b)
   per-bank stacks of the profiled table at 70 cells x 4096 requests x 8
   lanes, (c) the regions=8 table's deployed stack, (d) each of the three
@@ -23,8 +32,8 @@ designs in one run:
   (bitwise) and y (max abs; its sum order changed);
 
 with each kernel's time, the two builds in turns (old, new, new, old):
-adaptive_blocks by CUDA events around the C launch alone (median of 5),
-mamba_scan by torch.profiler's device time (mean of 10 launches).
+the replay kernels by CUDA events around the C launch alone (median of
+5), mamba_scan by torch.profiler's device time (mean of 10 launches).
 
 `--clocks` samples the SM clock and power while each kernel runs back
 to back.  `--plans` times (device time) the selective scan under every team,
@@ -84,37 +93,243 @@ def _device_ms(fn, kernel: str, reps: int = 10) -> float:
     return total / max(count, 1) / 1e3
 
 
+PARENT_SOURCES = {"replay_blocks": "replay/replay.cu",
+                  "adaptive_blocks": "replay/adaptive.cu",
+                  "mamba_scan": "mamba_scan/mamba_scan.cu"}
+
+
+def _source_bytes(root: Path, src: str) -> list:
+    """A kernel source and the headers beside it, as bytes."""
+    path = root / src
+    return [path.read_bytes()] + [h.read_bytes() for h in
+                                  sorted(path.parent.glob("*.cuh"))]
+
+
 def _build_parent(parent: Path) -> dict:
-    """Compile the parent's two sources with this checkout's flags."""
+    """Compile, with this checkout's flags, the parent's kernel sources
+    that differ from this checkout's (with their headers)."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
-    for name, src in (("adaptive_blocks", "replay/adaptive.cu"),
-                      ("mamba_scan", "mamba_scan/mamba_scan.cu")):
-        path = parent / "src" / "repro_torch" / "kernels" / src
+    root = parent / "src" / "repro_torch" / "kernels"
+    here = ROOT / "src" / "repro_torch" / "kernels"
+    for name, src in PARENT_SOURCES.items():
+        if _source_bytes(root, src) == _source_bytes(here, src):
+            print(f"{name}: the parent's source is this checkout's; not "
+                  "compared")
+            continue
         so = out_dir / f"{name}.so"
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
-                               str(so), str(path)], capture_output=True,
+                               str(so), str(root / src)], capture_output=True,
                               text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {path}:\n{proc.stdout}"
+            raise RuntimeError(f"nvcc failed on {root / src}:\n{proc.stdout}"
                                f"{proc.stderr}")
         libs[name] = ctypes.CDLL(str(so))
-    libs["adaptive_blocks"].adaptive_launch.argtypes = \
-        [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    libs["adaptive_blocks"].adaptive_launch.restype = ctypes.c_int
-    # the first kernel's C interface has no launch plan; a build that
-    # takes one (int team, channels, steps) gets this checkout's plan
-    src = (parent / "src" / "repro_torch" / "kernels" / "mamba_scan"
-           / "mamba_scan.cu").read_text()
-    libs["scan_takes_plan"] = "int team" in src
-    libs["mamba_scan"].mamba_scan_launch.argtypes = \
-        [ctypes.c_void_p] * 8 \
-        + [ctypes.c_int] * (7 if libs["scan_takes_plan"] else 4) \
-        + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
-    libs["mamba_scan"].mamba_scan_launch.restype = ctypes.c_int
+    if "replay_blocks" in libs:
+        libs["replay_blocks"].replay_launch.argtypes = \
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        libs["replay_blocks"].replay_launch.restype = ctypes.c_int
+        # the C interface's 21st argument: the tile's column count, or
+        # (the first kernel) a per-bank flag
+        libs["replay_takes_cols"] = "int n_cols" in (
+            root / "replay" / "replay.cu").read_text()
+    if "adaptive_blocks" in libs:
+        libs["adaptive_blocks"].adaptive_launch.argtypes = \
+            [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        libs["adaptive_blocks"].adaptive_launch.restype = ctypes.c_int
+    if "mamba_scan" in libs:
+        # the first kernel's C interface has no launch plan; a build
+        # that takes one (int team, channels, steps) gets this checkout's
+        src = (root / "mamba_scan" / "mamba_scan.cu").read_text()
+        libs["scan_takes_plan"] = "int team" in src
+        libs["mamba_scan"].mamba_scan_launch.argtypes = \
+            [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * (7 if libs["scan_takes_plan"] else 4) \
+            + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
+        libs["mamba_scan"].mamba_scan_launch.restype = ctypes.c_int
     return libs
+
+
+# -------------------------------------------------------------- replay
+
+def _replay_cases():
+    """(label, inputs) at chip_smoke.py's replay shapes, on freshly
+    profiled tables of the calibrated population: cells (closed,
+    arrival, bank, row, is_write, valid), the kernel-layout timing tile,
+    the region map, the fault tuple (tile, JEDEC column, uniforms), the
+    channel geometry and the interleave codes."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from benchmarks import port_traffic_bench as B
+    from repro_torch.core import faults, perf_model
+    from repro_torch.core import timing as T
+    from repro_torch.core.aldram import ALDRAMController
+    from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
+                                              CALIBRATED_VARIATION)
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+    from repro_torch.core.variation import sample_population
+    from repro_torch.kernels.replay import ref
+
+    dev = torch.device("cuda")
+    pop = sample_population(torch.Generator().manual_seed(SEED),
+                            CALIBRATED_VARIATION, device="cuda")
+    ctrl = {r: ALDRAMController(Profiler(CALIBRATED_CONSTANTS,
+                                         grid_step=1.25), regions=r,
+                                device="cuda") for r in (1, cs.REGIONS)}
+    for c in ctrl.values():
+        c.profile(pop)
+    sys_rows = ctrl[1].evaluate_system(pop, n=4096)["rows"]
+    bank_rows = ctrl[1].evaluate_bank_system(pop, n=4096)["rows"]
+    reg = ctrl[cs.REGIONS].evaluate_region_system(pop, n=4096,
+                                                  levels=cs.LEVELS)
+    none = dict(rmap=None, fault=None, chan=(1, 1, 5.0), codes=None)
+    cases = []
+    for label, n, rows in (
+            ("(a) evaluate", 8192, T.stack_timing([T.DDR3_1600,
+                                                   T.ALDRAM_55C_EVAL])),
+            ("(a) evaluate_system", 4096, sys_rows)):
+        cases.append((label, dict(cells=cs._campaign_cells(n),
+                                  tile=torch.tensor(rows, device=dev)
+                                  .T.contiguous(), **none)))
+    cells = cs._campaign_cells(4096)
+    cases.append(("(b) per-bank tile", dict(
+        cells=cells, tile=ref.timing_tile(torch.tensor(bank_rows,
+                                                       device=dev)),
+        **none)))
+    cases.append(("(c) region store", dict(
+        cells=cells, tile=ref.timing_tile(torch.tensor(reg["rows"],
+                                                       device=dev)),
+        **(none | {"rmap": torch.tensor(reg["region_map"], device=dev)}))))
+
+    # (d): chip_smoke.kernel_replay_multi's inputs
+    n, _, n_rows = B.grid(False)
+    rows = torch.tensor(B.timing_rows(n_rows), device=dev)
+    traces = perf_model.tenant_spec(n=n, n_streams=16,
+                                    seed=0).materialize("cuda")
+    spec = SimSpec(traces=traces, timings=B.timing_rows(n_rows),
+                   policies=B.policies(), n_channels=4)
+    arrival, bank, row, is_write, valid, closed = SimEngine(
+        device="cuda").reorder_streams(spec)
+    t, p, _ = arrival.shape
+    mcells = ref.to_cells(arrival, bank, row, is_write,
+                          torch.tensor(valid, device=dev),
+                          torch.tensor(closed, device=dev))
+    codes = ref.cell_codes(torch.tensor(spec.ileave_codes, device=dev), t,
+                           p, "cuda")
+    fspec = faults.FaultSpec(scenarios=(
+        faults.FaultScenario(),
+        faults.FaultScenario(name="err", err_scale=0.8, err_free_red=0.0,
+                             detect_frac=0.9, retry_ns=60.0),
+        faults.FaultScenario(name="wd", err_scale=0.8, err_free_red=0.0,
+                             detect_frac=1.0, wd_err_n=4, wd_probe=16,
+                             wd_recover_n=2)), seed=SEED)
+    for c in (2, 4):
+        cases.append((f"(d) C={c}", dict(
+            cells=mcells, tile=ref.timing_tile(rows),
+            **(none | {"chan": (c, 1, 5.0), "codes": codes}))))
+    cases.append(("(d) C=4 faulted", dict(
+        cells=mcells,
+        tile=ref.timing_tile(rows.repeat_interleave(len(fspec), dim=0)),
+        rmap=None, fault=(
+            ref.fault_tile(torch.tensor(fspec.pack(), device=dev)
+                           .repeat(n_rows, 1)),
+            rows[0].contiguous(),
+            ref.cell_uniforms(cs._fault_uniforms(t, n), p)),
+        chan=(4, 1, 5.0), codes=codes)))
+
+    # (e): chip_smoke.kernel_replay_faulted's inputs
+    env = {"sys_res": {"rows": sys_rows}, "ctrl": ctrl[1],
+           "region_stack": ctrl[cs.REGIONS].table.safe_stack_regions()}
+    kw = cs._fault_campaigns(env)["static"]
+    tb, fs = kw["traces"], kw["faults"]
+    t, n = tb.arrival.shape
+    ecells = ref.to_cells(*(f[:, None].expand(t, 2, n) for f in tb),
+                          torch.ones((t, n), dtype=torch.bool, device=dev),
+                          torch.tensor([False, True], device=dev))
+    erows = torch.tensor(np.asarray(kw["timings"]), device=dev)
+    cases.append(("(e) faulted module rows", dict(
+        cells=ecells,
+        tile=ref.timing_tile(erows.repeat_interleave(len(fs), dim=0)),
+        rmap=None, fault=(
+            ref.fault_tile(torch.tensor(fs.pack(), device=dev)
+                           .repeat(erows.shape[0], 1)),
+            erows[-1].contiguous(),
+            ref.cell_uniforms(cs._fault_uniforms(t, n), 2)),
+        chan=(1, 1, 5.0), codes=None)))
+    return cases
+
+
+def _replay_outputs(c: dict):
+    import torch
+    from repro_torch.core import faults
+    g, n = c["cells"][1].shape
+    s = c["tile"].shape[-1]
+    return {"lat": torch.empty((g, n, s), device="cuda"),
+            "total": torch.empty((g, s), device="cuda"),
+            "counters": (torch.zeros((faults.N_COUNTERS, g, s),
+                                     dtype=torch.int32, device="cuda")
+                         if c["fault"] is not None else None)}
+
+
+def _replay_call(lib, takes_cols: bool, c: dict, out: dict):
+    """One launch of `lib.replay_launch` on case `c` into `out`; the
+    21st argument is the tile's column count (`takes_cols`) or the
+    per-bank flag of the first interface."""
+    import torch
+    closed, arr, bank, row, wr, valid = c["cells"]
+    g, n = arr.shape
+    tile, rmap, fault = c["tile"], c["rmap"], c["fault"]
+    n_ch, n_rk, t_burst = c["chan"]
+    banked = tile.dim() == 3
+    cols = (tile.shape[0] if takes_cols else 1) if banked else 0
+    p = [x.data_ptr() for x in (closed, arr, bank, row, wr, valid, tile)]
+    rc = lib.replay_launch(
+        *p, None if rmap is None else rmap.data_ptr(),
+        *((fault[0].data_ptr(), fault[1].data_ptr(), fault[2].data_ptr())
+          if fault else (None,) * 3),
+        None if c["codes"] is None else c["codes"].data_ptr(),
+        out["lat"].data_ptr(), out["total"].data_ptr(),
+        None if out["counters"] is None else out["counters"].data_ptr(),
+        g, n, tile.shape[-1], 8, 8, cols,
+        0 if rmap is None else rmap.numel() // 8, 0, n_ch, n_rk, t_burst,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"replay_launch: cudaError {rc}")
+
+
+def compare_replay(old_lib, old_takes_cols: bool) -> list:
+    from repro_torch.kernels.replay import ops
+    new_lib = ops._replay_lib()
+    rows = []
+    for label, c in _replay_cases():
+        new, old = _replay_outputs(c), _replay_outputs(c)
+        _replay_call(new_lib, True, c, new)
+        _replay_call(old_lib, old_takes_cols, c, old)
+        diff = {k: _n_differing(new[k], old[k]) for k in new
+                if new[k] is not None}
+        t = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            lib, out, cols = ((old_lib, old, old_takes_cols) if who == "old"
+                              else (new_lib, new, True))
+            t[who].append(_events_ms(
+                lambda: _replay_call(lib, cols, c, out)))
+        g, n = c["cells"][1].shape
+        row = {"case": label, "G": g, "N": n, "S": c["tile"].shape[-1],
+               "elements": {k: new[k].numel() for k in diff},
+               "differing": diff, "old_ms": t["old"], "new_ms": t["new"]}
+        print(f"replay_blocks {label} G={g} N={n} S={row['S']}: "
+              f"{sum(diff.values())} of {sum(row['elements'].values())} "
+              f"output elements differ from the previous kernel "
+              f"({json.dumps(diff)}); previous {t['old'][0]:.3f} / "
+              f"{t['old'][1]:.3f} ms, new {t['new'][0]:.3f} / "
+              f"{t['new'][1]:.3f} ms")
+        rows.append(row)
+    return rows
 
 
 # ------------------------------------------------------------ adaptive
@@ -442,9 +657,14 @@ def main(argv=None) -> int:
     res = {"card": card}
     if args.parent is not None:
         libs = _build_parent(args.parent.resolve())
-        res["adaptive"] = compare_adaptive(libs["adaptive_blocks"])
-        res["mamba"] = compare_mamba(libs["mamba_scan"],
-                                     libs["scan_takes_plan"])
+        if "replay_blocks" in libs:
+            res["replay"] = compare_replay(libs["replay_blocks"],
+                                           libs["replay_takes_cols"])
+        if "adaptive_blocks" in libs:
+            res["adaptive"] = compare_adaptive(libs["adaptive_blocks"])
+        if "mamba_scan" in libs:
+            res["mamba"] = compare_mamba(libs["mamba_scan"],
+                                         libs["scan_takes_plan"])
     if args.plans:
         res["plans"] = sweep_plans()
     if args.clocks:

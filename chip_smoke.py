@@ -106,7 +106,9 @@ Phases (any failure exits non-zero and prints no result line):
      latencies, totals and counters bitwise), with their times; each
      replay and adaptive variant also prints its chain bound
      (`ops.replay_chain_cycles` per step x N at the card's maximum SM
-     clock) and the kernel's ratio to it, and each adaptive variant its
+     clock; replay_blocks' priced with the bank state forwarded in
+     registers and, faulted, the error probability a lane constant) and
+     the kernel's ratio to it, and each adaptive variant its
      launch plan (chunk, staged tables, shared bytes, threads);
   8. the main path at --fast scale (24 modules, 8 cells, 2.5 ns grid) on
      the card and on the CPU: chosen combos must agree (a flip only

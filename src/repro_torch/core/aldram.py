@@ -605,11 +605,12 @@ class ALDRAMController:
     def evaluate_system(self, pop: Population,
                         temps: tuple[float, ...] | None = None,
                         n: int = 4096, seed: int = 0,
-                        policies=None, engine=None) -> dict:
+                        policies=None, engine=None, traces=None) -> dict:
         """Close the loop from profiling to the paper's Fig. 4: replay
         the workload pool under the all-module-safe profiled row of
         every temperature bin (plus the DDR3 baseline) in ONE batched
-        `SimEngine` campaign on the controller's device."""
+        `SimEngine` campaign on the controller's device.  `traces`
+        replaces the synthesized pool with a given [70, N] batch."""
         from repro_torch.core import dram_sim, perf_model
         from repro_torch.core.sim_engine import SimEngine
         if self.table is None:
@@ -626,7 +627,8 @@ class ALDRAMController:
             rows[1 + si] = tbl.lookup_many(mods, np.full(m, tc)).max(axis=0)
 
         em = perf_model.evaluate_many(rows, n=n, seed=seed, engine=engine,
-                                      policies=policies, n_banks=pop.n_banks)
+                                      policies=policies, n_banks=pop.n_banks,
+                                      traces=traces)
         sp = perf_model.cpi_speedups(em["mean_latency_ns"])
         intensive = np.array([w.intensive for w in perf_model.WORKLOADS])
         per_policy = []

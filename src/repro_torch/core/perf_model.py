@@ -326,13 +326,15 @@ def evaluate(std: TimingParams = DDR3_1600,
              fast: TimingParams = ALDRAM_55C_EVAL,
              n: int = 8192, seed: int = 0,
              engine: SimEngine | None = None,
-             device: str | torch.device = "cuda") -> dict:
+             device: str | torch.device = "cuda",
+             traces: dram_sim.Trace | None = None) -> dict:
     """Fig. 4's aggregate numbers — all 35 workloads, both core modes
-    and both timing sets in ONE replay launch."""
+    and both timing sets in ONE replay launch.  `traces` replaces the
+    synthesized pool with a given [70, N] batch."""
     engine = engine or SimEngine(device=device)
     d0 = engine.dispatch_count
     em = evaluate_many(T.stack_timing([std, fast]), n=n, seed=seed,
-                       engine=engine)
+                       engine=engine, traces=traces)
     sp = cpi_speedups(em["mean_latency_ns"])         # [2, 35, 1, 2]
     out: dict = {"single": {}, "multi": {}}
     for mi, multi in enumerate(MODES):

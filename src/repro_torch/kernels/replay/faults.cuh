@@ -105,16 +105,22 @@ __device__ __forceinline__ bool wd_update(Watchdog& wd, const Row& f,
   return new_trip;
 }
 
-// Margin-conditioned error outcome of one request (error_prob and
-// error_draw): red is the served row's reduction against the JEDEC row,
-// excess the true temperature's excess over the served bin's edge.
-// Sets det / sil; returns the error probability.
+// Margin-conditioned error probability (faults.error_prob): red is the
+// served row's reduction against the JEDEC row, excess the true
+// temperature's excess over the served bin's edge.
+__device__ __forceinline__ float error_prob(const Row& f, float red,
+                                            float excess) {
+  const float p = f.err_scale * fmaxf(red - f.err_free, 0.0f) +
+                  f.err_bin_c * excess;
+  return fminf(fmaxf(p, 0.0f), kErrCap);
+}
+
+// The error outcome of one request (error_prob and error_draw).  Sets
+// det / sil; returns the error probability.
 __device__ __forceinline__ float error_outcome(const Row& f, float red,
                                                float excess, float u,
                                                bool& det, bool& sil) {
-  float p = f.err_scale * fmaxf(red - f.err_free, 0.0f) +
-            f.err_bin_c * excess;
-  p = fminf(fmaxf(p, 0.0f), kErrCap);
+  const float p = error_prob(f, red, excess);
   const bool err = u < p;
   det = err && u < p * f.det_frac;
   sil = err && !det;

@@ -39,7 +39,11 @@ rows, in one read of the device.
 version `ref.adaptive_stream_terms` on the CPU), for tests.
 `replay_chain_ops` / `replay_chain_cycles` count the loop-carried
 dependent operations of each kernel variant's step: the least time a
-step can take, whatever the bytes.
+step can take, whatever the bytes.  replay_blocks' loops are priced
+with the bank state forwarded in registers and, faulted, the error
+probability as a lane constant (static replay serves one of two rows):
+what the work carries, not a shared-memory round trip or a division a
+step.
 """
 
 from __future__ import annotations
@@ -68,7 +72,24 @@ def _replay_lib() -> ctypes.CDLL:
     lib.replay_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.replay_smem_bytes.restype = ctypes.c_int
     lib.replay_launch.restype = ctypes.c_int
+    lib.replay_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.replay_plan.restype = None
     return lib
+
+
+def replay_plan(s_rows: int, n_banks: int, mlp_window: int, n_cols: int,
+                faulted: bool, n_channels: int = 1,
+                n_ranks: int = 1) -> dict:
+    """replay.cu's launch plan for these sizes (n_cols: 0 for module
+    rows, else the tile's columns): the chunk of requests per buffer,
+    whether the lanes' timing tile is staged in shared memory, the
+    shared bytes and the threads per block (chain lanes + producer
+    warps).  Needs the built library."""
+    out = (ctypes.c_int * 4)()
+    _replay_lib().replay_plan(s_rows, n_banks, mlp_window, n_cols,
+                              int(faulted), n_channels, n_ranks, out)
+    return {"chunk": out[0], "tile_staged": bool(out[1]),
+            "smem_bytes": out[2], "threads": out[3]}
 
 
 def _adaptive_lib() -> ctypes.CDLL:
@@ -283,7 +304,7 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
             ileave.data_ptr() if multi else None,
             lat.data_ptr(), total.data_ptr(),
             cnt.data_ptr() if faulted else None, g, n, s, n_banks,
-            mlp_window, int(banked), n_regions,
+            mlp_window, timings_t.shape[0] if banked else 0, n_regions,
             int(regioned and region_map.dim() == 2), n_ch, n_rk, t_burst,
             stream)
     if rc != 0:
@@ -497,22 +518,34 @@ CHAIN_LATENCY = {"alu": 4, "div": 36, "smem": 30, "l1": 35}
 EDGE_REGS = 8       # adaptive.cu `kEdgeRegs`: edges counted by a tree
 
 
-def _bank_loop(multi: bool = False) -> dict:
-    """`service_math` from one step's bank state to the next: the state's
-    shared-memory round trip, then (gate,) start = max(max(t, ready),
-    gate), the conflict start, + tRP, + tRCD, + tCL, the precharge
-    start (two maxes), + tRP and the page-policy select."""
+def _bank_loop(multi: bool = False, forwarded: bool = False) -> dict:
+    """`service_math` from one step's bank state to the next: the
+    state's shared-memory round trip, then (gate,) start = max(max(t,
+    ready), gate), the conflict start, + tRP, + tRCD, + tCL, the
+    precharge start (two maxes), + tRP and the page-policy select.
+    `forwarded` (replay_blocks): the next step's state is
+    loaded while this one computes, and the one select that forwards
+    this step's registers where the slot repeats takes the round trip's
+    place; (d)'s bus adds one operation to the gate either way."""
+    if forwarded:
+        return {"alu": 11 + int(multi)}
     return {"smem": 1, "alu": 10 + int(multi)}
 
 
-def _watchdog_loop(table: str | None) -> dict:
+def _watchdog_loop(table: str | None, static: bool = False) -> dict:
     """Detected error -> watchdog -> next step's served row -> its
     reduction -> error probability -> detected error: the probe gate (2),
     the served-row select (1), (the row's load,) the reduction's three
     adds, division, 1 - x and max (5 + div), error_prob (sub, max, mul,
     add, clamp: 6), the draw (compare, the detected fraction's mul,
     compare and and: 4) and wd_update (budget add, trip compare and or,
-    tripped select: 4)."""
+    tripped select: 4).  `static` (replay_blocks (e) and faulted (d)):
+    the served row is the lane's own or JEDEC, so the probability and
+    its detected threshold are two lane constants — the probe gate (2),
+    the served-row select (1), the probability's select (1), the draw's
+    two compares and and (3), wd_update (4)."""
+    if static:
+        return {"alu": 2 + 1 + 1 + 3 + 4}
     out = {"alu": 2 + 1 + 5 + 6 + 4 + 4, "div": 1}
     if table is not None:
         out[table] = 1
@@ -554,16 +587,22 @@ def replay_chain_ops(variant: str, n_banks: int = 8, n_edges: int = 5,
     stacks are staged, "l1" otherwise); faulted: replay_blocks (d) under
     a fault axis.
 
-    replay_blocks: the bank state's loop (`service_math` through shared
-    memory; (d) adds the channel bus to the gate; its bus loop is
-    shorter), and for (e) the watchdog's loop, the longer one there.
-    adaptive_blocks: the heat loop, longer than the bank state's and (d)
-    the watchdog's."""
+    replay_blocks, priced for the work the replay needs: the
+    bank state's loop with the state forwarded in registers (11
+    dependent operations; (d) 12 with the channel bus in the gate), and
+    for (e) and faulted (d) the static watchdog's loop, whose error
+    probability is a lane constant (11; the bank loop is the one
+    returned where they tie).  Neither the shared round trip a step (70
+    cycles) nor (e)'s per-step division (124), which an earlier kernel
+    did, is work the replay needs, so the model no longer prices them.
+    adaptive_blocks: the heat loop, longer than the bank state's (a
+    shared round trip a step there) and (d) the watchdog's, whose
+    served row follows the bin, so its division is real."""
     kernel, v = variant[:1], variant[1:]
     if kernel == "2" and v in ("a", "b", "c", "d", "e"):
-        loops = [_bank_loop(multi=v == "d")]
+        loops = [_bank_loop(multi=v == "d", forwarded=True)]
         if v == "e" or faulted:
-            loops.append(_watchdog_loop(None))
+            loops.append(_watchdog_loop(None, static=True))
     elif kernel == "3" and v in ("a", "b", "c", "d"):
         if table not in ("smem", "l1"):
             raise ValueError(f"table must be 'smem' or 'l1', got {table!r}")

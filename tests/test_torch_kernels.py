@@ -831,11 +831,15 @@ def test_single_channel_chan_launches_the_old_variants(cuda):
 @pytest.mark.gpu
 def test_multi_channel_wrapper_refuses_oversized_and_bad_inputs(cuda):
     """A geometry whose block state exceeds 227 KB is refused with a
-    message (at 128 lanes, C = 4 x R = 1 the state takes ~72 KB beside
-    the 20 KB request chunk); a misshapen code column is refused."""
+    message (at 128 lanes, C = 4 x R = 1 the bank state takes 64 KB and
+    the bus row 2 KB beside two 64-request buffers of two 16-byte words
+    a request, with 8 padding entries each; mlp_window 8 keeps its ring
+    in registers); a misshapen code column is refused."""
     lib = replay_ops._replay_lib()
     assert lib.replay_smem_bytes(128, 8, 8, 0, 4, 1) == \
-        4 * 1024 * 4 + (4 * 32 + 8 + 4) * 128 * 4 + 1024 * 4
+        32 * 128 * 16 + 2 * 2 * (64 + 8) * 16 + 4 * 128 * 4
+    assert lib.replay_smem_bytes(128, 8, 3, 0, 4, 1) == \
+        32 * 128 * 16 + 2 * 2 * (64 + 8) * 16 + (3 + 4) * 128 * 4
     assert lib.replay_smem_bytes(128, 8, 8, 0, 16, 4) > replay_ops.SMEM_LIMIT
     ins, tile, _, _, codes = _multi_inputs("module", 128, cuda, n=50)
     with pytest.raises(ValueError, match="shared memory"):
@@ -847,6 +851,198 @@ def test_multi_channel_wrapper_refuses_oversized_and_bad_inputs(cuda):
                                      ileave=bad)
     with pytest.raises(ValueError, match="n_channels"):
         replay_ops.replay_blocks(*ins, tile, chan=(0, 1, 5.0), ileave=codes)
+
+
+# edge streams for the replay kernel's step-ahead loads and forwarding:
+# two chunks and a ragged third, not a multiple of 8, padded suffixes
+EDGE_N = 1100
+
+
+def _edge_streams(kind: str, g: int = 4, n: int = EDGE_N, n_banks: int = 8,
+                  seed: int = 20):
+    """Streams whose bank slots repeat as the forwarding must handle:
+    "one_bank" (every request of a cell on one bank), "alternate" (two
+    banks in turn) or "repeat" (the previous request's bank, the one
+    before it, or a new one); few rows (hits and conflicts, several
+    regions and channels), queueing arrivals, a padded suffix in every
+    cell but the first, open and closed pages."""
+    rng = np.random.default_rng(seed)
+    if kind == "one_bank":
+        bank = np.repeat(rng.integers(0, n_banks, (g, 1)), n, 1)
+    elif kind == "alternate":
+        b0 = rng.integers(0, n_banks, g)
+        b1 = (b0 + 1 + rng.integers(0, n_banks - 1, g)) % n_banks
+        bank = np.where(np.arange(n)[None] % 2 == 0, b0[:, None],
+                        b1[:, None])
+    else:
+        bank = rng.integers(0, n_banks, (g, n))
+        pick = rng.random((g, n))
+        for k in range(2, n):
+            bank[:, k] = np.where(pick[:, k] < 0.35, bank[:, k - 1],
+                                  np.where(pick[:, k] < 0.7, bank[:, k - 2],
+                                           bank[:, k]))
+    row = rng.integers(0, 6, (g, n)) * 97 + rng.integers(0, 3, (g, 1)) * 512
+    valid = np.ones((g, n), np.int32)
+    cut = rng.integers(n // 2, n, g)
+    cut[0] = n
+    valid[np.arange(n)[None] >= cut[:, None]] = 0
+    return (torch.tensor(np.arange(g) % 2, dtype=torch.float32),
+            torch.tensor(np.cumsum(rng.exponential(6.0, (g, n)), 1),
+                         dtype=torch.float32),
+            torch.tensor(bank, dtype=torch.int32),
+            torch.tensor(row, dtype=torch.int32),
+            torch.tensor(rng.random((g, n)) < 0.3, dtype=torch.int32),
+            torch.tensor(valid))
+
+
+def _edge_tile(layout: str, s_rows: int, n_banks: int = 8, u: int = 9):
+    """(timing tile in the kernel's layout, region map or None, fault
+    tuple or None) for `layout`: module rows, the per-bank tile, the
+    region store with a shared or a per-lane map, or faulted module
+    rows (every fault mode, the JEDEC column)."""
+    rows = np.tile(ROWS, (-(-s_rows // 3), 1))[:s_rows]
+    rmap = fault = None
+    if layout == "bank":
+        tile = torch.tensor(rows[:, None, :] * np.linspace(
+            1.0, 1.2, n_banks)[None, :, None],
+            dtype=torch.float32).permute(1, 2, 0)
+    elif layout.startswith("region"):
+        tile, rmap = _region_inputs(s_rows, u, 4, layout == "region-lane")
+        if n_banks != 8:
+            rmap = rmap[:n_banks * 4]
+    else:
+        tile = torch.tensor(rows).T
+    if layout == "faulted":
+        ftile, uu = _fault_inputs(s_rows, 4, EDGE_N)
+        fault = (ftile, torch.tensor(ROWS[0]), uu)
+    return tile.contiguous(), rmap, fault
+
+
+def _kernel_vs_plain(cuda, ins, tile, rmap, fault, n_banks: int = 8,
+                     mlp_window: int = 8, chan=(1, 1, 5.0), codes=None):
+    """Launch replay_blocks on the card and hold every output bitwise to
+    dram_sim.replay_cells on the same inputs; returns the kernel's."""
+    ins = [x.to(cuda) for x in ins]
+    tile = tile.to(cuda)
+    rmap = None if rmap is None else rmap.to(cuda)
+    fault = None if fault is None else tuple(x.to(cuda) for x in fault)
+    before = replay_ops.replay_blocks.launches
+    out = replay_ops.replay_blocks(*ins, tile, n_banks, mlp_window,
+                                   region_map=rmap, fault=fault, chan=chan,
+                                   ileave=codes)
+    torch.cuda.synchronize()
+    assert replay_ops.replay_blocks.launches == before + 1
+    closed, arr, bank, row, wr, valid = ins
+    p = dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(),
+        tile.permute(2, 0, 1) if tile.dim() == 3 else tile.T, closed > 0.5,
+        n_banks, mlp_window,
+        region_map=None if rmap is None else (rmap.T if rmap.dim() == 2
+                                              else rmap),
+        fault=None if fault is None else (fault[0].T, fault[1], fault[2]),
+        n_channels=chan[0], n_ranks=chan[1], ileave=codes,
+        t_burst=chan[2])
+    assert len(out) == len(p)
+    for a, b in zip(out, p):
+        assert _bitwise(a, b)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,s_rows", [
+    ("module", 3), ("bank", 33), ("region-shared", 33), ("region-lane", 33),
+    ("faulted", 12)])
+@pytest.mark.parametrize("mlp_window", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["one_bank", "alternate", "repeat"])
+def test_replay_kernel_edge_streams_bitwise_equal_plain(cuda, kind,
+                                                        mlp_window, layout,
+                                                        s_rows):
+    """Every variant on streams whose slots repeat at distance 1 and 2
+    (the forwarding), under the register ring (mlp_window 8) and the
+    shared one (1, which forwards the ring gate, and 3), across chunk
+    boundaries and ragged padded suffixes."""
+    tile, rmap, fault = _edge_tile(layout, s_rows)
+    out = _kernel_vs_plain(cuda, _edge_streams(kind), tile, rmap, fault,
+                           mlp_window=mlp_window)
+    if fault is not None:
+        assert int(out[2][0].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_rows", [1, 2, 33, 130])
+@pytest.mark.parametrize("n_banks", [4, 8, 16])
+@pytest.mark.parametrize("layout", ["module", "bank", "region-shared"])
+def test_replay_kernel_bank_counts_and_lane_blocks_bitwise(cuda, layout,
+                                                           n_banks, s_rows):
+    """4, 8 and 16 banks, one lane to two blocks of lanes (130), the
+    timing rows in registers, staged per bank, or staged per region."""
+    tile, rmap, _ = _edge_tile(layout, s_rows, n_banks)
+    _kernel_vs_plain(cuda, _edge_streams("repeat", n_banks=n_banks, seed=22),
+                     tile, rmap, None, n_banks=n_banks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp_window", [1, 8])
+@pytest.mark.parametrize("faulted", [False, True], ids=["plain", "faulted"])
+@pytest.mark.parametrize("chan", [(2, 1), (4, 1), (2, 2)],
+                         ids=lambda c: f"{c[0]}x{c[1]}")
+def test_multi_channel_edge_streams_bitwise_equal_plain(cuda, chan, faulted,
+                                                        mlp_window):
+    """Variant (d), plain and faulted, on slots and channels repeating at
+    distance 1 and 2 (the bus is forwarded like the bank state), every
+    interleave code."""
+    tile, _, fault = _edge_tile("faulted" if faulted else "module", 12)
+    codes = torch.tensor([0, 1, 2, 0], dtype=torch.int32, device=cuda)
+    out = _kernel_vs_plain(cuda, _edge_streams("repeat", seed=23), tile,
+                           None, fault, mlp_window=mlp_window,
+                           chan=(chan[0], chan[1], 5.0), codes=codes)
+    if faulted:
+        assert int(out[2][0].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp_window", [1, 8])
+def test_faulted_replay_lanes_trip_probe_and_recover(cuda, mlp_window):
+    """Variant (e) with watchdog rows that trip, probe at the adaptive
+    row and recover (a lane that trips twice has recovered in between):
+    the lane constants hold the error draw bitwise."""
+    wd_rows = [F.FaultScenario(err_scale=e, err_free_red=0.0,
+                               detect_frac=d, wd_err_n=m, wd_probe=pr,
+                               wd_recover_n=r, retry_ns=40.0)
+               for e, d, m, pr, r in ((0.8, 1.0, 2, 4, 1),
+                                      (0.5, 0.9, 3, 6, 1),
+                                      (0.3, 1.0, 2, 3, 2),
+                                      (0.8, 0.5, 4, 16, 2))]
+    s_rows = 24
+    rows = [wd_rows[i % 4] for i in range(s_rows)]
+    ftile = torch.tensor(np.stack([r.as_row() for r in rows]).T.copy())
+    idx = (np.arange(s_rows) // 4) % 3
+    tim = torch.tensor(ROWS[::-1][idx].T.copy())
+    gen = torch.Generator().manual_seed(24)
+    u = torch.rand((4, EDGE_N), generator=gen)
+    out = _kernel_vs_plain(cuda, _edge_streams("repeat", seed=24), tim, None,
+                           (ftile, torch.tensor(ROWS[0]), u),
+                           mlp_window=mlp_window)
+    cnt = out[2]
+    assert int(cnt[2].max()) >= 2                 # tripped, recovered, again
+    assert int(cnt[3].sum()) > 0 and int(cnt[4].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_replay_plan_stages_tiles_that_fit(cuda):
+    """The launch plan stages the region store where it fits beside the
+    buffers (U = 62 at 26 lanes, as chip_smoke's region shape) and
+    reads a wide one through the read-only path, bitwise the same."""
+    plan = replay_ops.replay_plan
+    p = plan(26, 8, 8, 62, False)
+    assert p["tile_staged"] and p["chunk"] % 8 == 0
+    assert p["threads"] == 32 + 64 and p["smem_bytes"] <= replay_ops.SMEM_LIMIT
+    assert not plan(3, 8, 8, 0, True)["tile_staged"]
+    wide = plan(130, 8, 8, 400, False)
+    assert not wide["tile_staged"] and wide["chunk"] >= 64
+    tile, rmap, _ = _edge_tile("region-lane", 130, u=400)
+    _kernel_vs_plain(cuda, _edge_streams("repeat", seed=25), tile, rmap,
+                     None)
 
 
 # ---------------------------------------------------------------- the CPU
@@ -1052,20 +1248,23 @@ def test_adaptive_stream_terms_faulted_terms_match_faults():
 
 
 def test_replay_chain_ops_count_the_dependent_steps():
-    """The chain model against hand counts.  replay_blocks (a): the bank
-    state's shared-memory round trip and service_math's 10 dependent
-    operations (two maxes to the start, the conflict max, + tRP, + tRCD,
-    + tCL, two maxes to the precharge start, + tRP, the page select).
-    adaptive_blocks (a) at 8 banks and 5 edges: the heat loop — decay 1,
-    the sum 7, + ambient 1, + hysteresis 1, compare 1, count tree 3,
-    bin max/min 2, row address 1, energy 4, deposit 2: 23 — and the
-    table row's read.  (d) adds the sensor's 12 and one division and the
-    watchdog's served-bin select."""
+    """The chain model against hand counts.  replay_blocks (a): the
+    forwarding select and service_math's 10 dependent operations (two
+    maxes to the start, the conflict max, + tRP, + tRCD, + tCL, two
+    maxes to the precharge start, + tRP, the page select), the bank
+    state forwarded in registers; (d) adds the bus to the gate; (e)'s
+    static watchdog loop (probe gate 2, served-row select 1, the
+    probability's select 1, the draw 3, wd_update 4) ties with the bank
+    loop.  adaptive_blocks (a) at 8 banks and 5 edges: the heat loop —
+    decay 1, the sum 7, + ambient 1, + hysteresis 1, compare 1, count
+    tree 3, bin max/min 2, row address 1, energy 4, deposit 2: 23 — and
+    the table row's read.  (d) adds the sensor's 12 and one division and
+    the watchdog's served-bin select."""
     ops = replay_ops
-    assert ops.replay_chain_ops("2a") == {"smem": 1, "alu": 10}
-    assert ops.replay_chain_cycles("2a") == 30 + 40
-    assert ops.replay_chain_ops("2d") == {"smem": 1, "alu": 11}
-    assert ops.replay_chain_ops("2e") == {"alu": 22, "div": 1}
+    assert ops.replay_chain_ops("2a") == {"alu": 11}
+    assert ops.replay_chain_cycles("2a") == 44
+    assert ops.replay_chain_ops("2d") == {"alu": 12}
+    assert ops.replay_chain_ops("2e") == {"alu": 11}
     assert ops.replay_chain_ops("3a", 8, 5) == {"alu": 23, "smem": 1}
     assert ops.replay_chain_cycles("3a", 8, 5) == 23 * 4 + 30
     assert ops.replay_chain_cycles("3c", 8, 5, "l1") == 23 * 4 + 35
@@ -1076,6 +1275,41 @@ def test_replay_chain_ops_count_the_dependent_steps():
     assert ops.replay_chain_cycles("3d", 8, 5) == 36 * 4 + 36 + 30
     with pytest.raises(ValueError):
         ops.replay_chain_ops("3e")
+
+
+# the chain rows of PERF.md: (variant, kwargs) -> (operations, cycles)
+CHAIN_ROWS = [
+    (("2a", {}), ({"alu": 11}, 44)),
+    (("2b", {}), ({"alu": 11}, 44)),
+    (("2c", {}), ({"alu": 11}, 44)),
+    (("2d", {}), ({"alu": 12}, 48)),
+    (("2d", {"faulted": True}), ({"alu": 12}, 48)),
+    (("2e", {}), ({"alu": 11}, 44)),
+    (("3a", {"n_banks": 8, "n_edges": 5}), ({"alu": 23, "smem": 1}, 122)),
+    (("3b", {"n_banks": 8, "n_edges": 5}), ({"alu": 23, "smem": 1}, 122)),
+    (("3c", {"n_banks": 8, "n_edges": 5, "table": "l1"}),
+     ({"alu": 23, "l1": 1}, 127)),
+    (("3d", {"n_banks": 8, "n_edges": 5}),
+     ({"alu": 36, "smem": 1, "div": 1}, 210)),
+]
+
+
+@pytest.mark.parametrize("variant,want", CHAIN_ROWS,
+                         ids=[f"{v}{'-faulted' if kw else ''}"
+                              if v[0] == "2" else v
+                              for (v, kw), _ in CHAIN_ROWS])
+def test_replay_chain_model_prices_each_row(variant, want):
+    """The chain bound of each kernel row: replay_blocks (a)-(e) and
+    faulted (d) priced with the bank state forwarded (no shared round
+    trip) and the static error probability a lane constant (no
+    division); adaptive_blocks (a)-(d) keep the heat loop, (d) its
+    division.  At 1,980 MHz, (a) at N = 8192 is 0.182 ms."""
+    name, kw = variant
+    ops, cycles = want
+    assert replay_ops.replay_chain_ops(name, **kw) == ops
+    assert replay_ops.replay_chain_cycles(name, **kw) == cycles
+    if name == "2a":
+        assert round(cycles * 8192 / 1.98e9 * 1e3, 3) == 0.182
 
 
 @pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lane"])

@@ -128,17 +128,23 @@ def _build_parent(parent: Path) -> dict:
                                f"{proc.stderr}")
         libs[name] = ctypes.CDLL(str(so))
     if "replay_blocks" in libs:
+        # since the lanes-per-block cap, both C interfaces end in an int
+        # max_lanes before the stream
+        lanes = "int max_lanes" in (root / "replay" / "replay.cu").read_text()
         libs["replay_blocks"].replay_launch.argtypes = \
             [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 \
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * lanes + [ctypes.c_void_p]
         libs["replay_blocks"].replay_launch.restype = ctypes.c_int
         # the C interface's 21st argument: the tile's column count, or
         # (the first kernel) a per-bank flag
         libs["replay_takes_cols"] = "int n_cols" in (
             root / "replay" / "replay.cu").read_text()
     if "adaptive_blocks" in libs:
+        lanes = "int max_lanes" in (root / "replay" /
+                                    "adaptive.cu").read_text()
         libs["adaptive_blocks"].adaptive_launch.argtypes = \
-            [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 22 + [ctypes.c_int] * (11 + lanes) \
+            + [ctypes.c_void_p]
         libs["adaptive_blocks"].adaptive_launch.restype = ctypes.c_int
     if "mamba_scan" in libs:
         # the first kernel's C interface has no launch plan; a build
@@ -276,6 +282,12 @@ def _replay_outputs(c: dict):
                          if c["fault"] is not None else None)}
 
 
+def _default_lanes(fn, n_before: int) -> tuple:
+    """The lanes-per-block argument (0: the kernel's default) where the
+    C interface takes one: it has more than its `n_before` arguments."""
+    return (0,) if len(fn.argtypes) > n_before else ()
+
+
 def _replay_call(lib, takes_cols: bool, c: dict, out: dict):
     """One launch of `lib.replay_launch` on case `c` into `out`; the
     21st argument is the tile's column count (`takes_cols`) or the
@@ -297,6 +309,7 @@ def _replay_call(lib, takes_cols: bool, c: dict, out: dict):
         None if out["counters"] is None else out["counters"].data_ptr(),
         g, n, tile.shape[-1], 8, 8, cols,
         0 if rmap is None else rmap.numel() // 8, 0, n_ch, n_rk, t_burst,
+        *_default_lanes(lib.replay_launch, 27),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"replay_launch: cudaError {rc}")
@@ -440,6 +453,7 @@ def _adaptive_call(lib, c: dict, out: dict):
         *(None if v is None else v.data_ptr() for v in out.values()),
         g, n, lanes, s, s + 1, 8, 8, int(banked),
         0 if rmap is None else rmap.numel() // 8, 0, 1,
+        *_default_lanes(lib.adaptive_launch, 34),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"adaptive_launch: cudaError {rc}")

@@ -71,17 +71,48 @@ Phases (any failure exits non-zero and prints no result line):
      `torch.profiler` for the device busy share;
   6c. the traffic path at full size, launch counts reset just before and
      read just after: `port_traffic_bench.run(fast=False)` — 16
-     multi-tenant streams x n = 8192 x 3 FR-FCFS interleave policies x 8
-     timing rows on 1, 2 and 4 channels, per channel count a warm-up,
-     the FR-FCFS prepass timed alone and 3 timed runs of ONE replay
-     launch each (replay_blocks (a) on one channel, (d) on two and four,
-     asserted); then a multi-channel closed-loop campaign (2 channels,
+     multi-tenant streams x n = 8192 (a `TenantSpec` axis on the
+     campaign mesh of every visible card, drawn once before timing; no
+     synthesis in a timed run, asserted)
+     x 3 FR-FCFS interleave policies x 8 timing rows on 1, 2 and 4
+     channels, per channel count a warm-up, the FR-FCFS prepass timed
+     alone and 3 timed runs of ONE replay launch each (replay_blocks (a)
+     on one channel, (d) on two and four, asserted), then one unsharded
+     4-channel run (`sharded_rel` 0, asserted); then a multi-channel
+     closed-loop campaign (2 channels,
      the 8 default thermal lanes on the deployed module stack, 16
      streams x n = 2048), which runs the plain step loop on the card
      (the adaptive kernel is single-channel, as the reference's); then
-     one 4-channel run under `torch.profiler` for the busy share, after
-     phases 7 and 9-11 (its ~262k kernel records once left the next
-     profiler session of a kernel timing with no record);
+     one 4-channel run on the first 4096 requests of each stream under
+     `torch.profiler` for the busy share, after phases 7 and 9-11 (its
+     ~131k kernel records, ~262k at 8192, once left the next profiler
+     session of a kernel timing with no record);
+  6d. the campaign engine, launch counts reset just before and read
+     just after: the Fig. 4 pool (70 traces x 8192, DDR3-1600 and the
+     55C set) unsharded, on `make_campaign_mesh(1)` and on a 3-entry
+     mesh repeating the card (T = 70 pads to 72), the thermal path's
+     adaptive campaign (70 x 4096, the deployed module stack, 4 + 4
+     scenarios) and `run_bracket` on the 3-entry mesh: one `campaign
+     mesh <kind> shards=<k> shard_shape=<...>: 0 differing` line each
+     (one dispatch, one launch per shard); `perf_model.synth_spec` as a
+     declarative axis against `trace_batch`, static and adaptive, twice
+     (0 differing, dispatches +1 each run, syntheses +1 on the first
+     run, which draws the pool, and +0 on the second, which replays it
+     from its cache); the replay tuner (`ReplayTuner(platform="cuda")`,
+     its table written to `chiprun_out/replay_tune_cuda.json`)
+     profiling its two CUDA candidates (the default block and 32 lanes)
+     on both declarative campaigns (FCFS), each candidate's
+     seconds and the winner, every candidate and the `backend="auto"`
+     run bitwise the default; the guardband: `design_quantile` on the
+     card (26 margin_grid launches) against the CPU's (within one
+     bisection step) and above the 115-module population's realised
+     compound quantile, and a tighten x 3 / relax x 5 round trip on the
+     deployed module and per-bank stacks that must be the identity;
+     then replay_blocks (a) and adaptive_blocks (a) at 32, 64 and 128
+     chain lanes a block against the kernels' own choice at the Fig. 4
+     shape (S = 2), at 66 and 128 rows, at the thermal campaign's 8
+     lanes and at 72 and 128 lanes: bitwise the default block, with
+     paired, interleaved CUDA-event times beside each chain bound;
   7. margin_grid at every shape below the key search that the main and
      region paths gave it, on the inputs of its first call there: the
      wrapper (the per-element kernel) against the plain version (rtol =
@@ -128,7 +159,12 @@ Phases (any failure exits non-zero and prints no result line):
      with its cell, lane, request and |u - p|); then
      `port_traffic_bench.run(fast=True)` on the same tenant streams on
      both: per channel count the mean, p99 and gap equal, and the
-     4-channel latency grid bitwise equal.
+     4-channel latency grid bitwise equal; then the campaign engine on
+     a declarative axis of the pool's first 13 traces (n = 1024) on
+     both: on
+     each device the 3-entry mesh, the bracket on it and every tuner
+     candidate of the platform bitwise the device's default run, and
+     the card's static runs and bracket static half bitwise the CPU's.
 
   9. the serve path at full width, after the AL-DRAM phases' memory is
      freed: glm4-9b unreduced (9.40 B parameters, float32, 37.6 GB of
@@ -269,6 +305,10 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+class NoProfilerRecord(RuntimeError):
+    """torch.profiler kept no record of a kernel in three sessions."""
+
+
 def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
     """Mean device time in ms of the CUDA kernels whose names contain
     `kernel` in one call of `fn`, over `reps` calls (each followed by a
@@ -280,7 +320,8 @@ def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
     dropped a record now and then, and right after a large session all
     of a session's records: each mean is over the records it kept (a
     shortfall is printed), and a session that kept none is opened again,
-    up to three times."""
+    up to three times; if none of them keeps a record (it happened after
+    the Jamba profile) it raises `NoProfilerRecord`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -297,7 +338,10 @@ def kernel_ms(fn, kernel: str, reps: int = 5) -> float:
             break
         print(f"  (profiler session {attempt + 1} kept no record of "
               f"{kernel})")
-    check(len(hits) >= 1 and all(1 <= e.count <= reps for e in hits),
+    if not hits:
+        raise NoProfilerRecord(f"no profiler record of {kernel} in 3 "
+                               "sessions")
+    check(all(1 <= e.count <= reps for e in hits),
           f"profiler saw {[(e.key, e.count) for e in hits]} for {kernel}")
     for e in hits:
         if e.count != reps:
@@ -565,7 +609,7 @@ def path_launches(env, kernel: str) -> dict:
     and per path."""
     by_path = {path: env[f"launches_{path}"][kernel]
                for path in ("main", "thermal", "region", "fault",
-                            "traffic")
+                            "traffic", "campaign")
                if f"launches_{path}" in env}
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -2052,7 +2096,7 @@ def traffic_path(env) -> None:
     spec_a = _multi_adaptive_spec(env, traces)
     eng = SimEngine(device="cuda")
     reset_counts()
-    bench, t_bench = wall(lambda: B.run(False, "cuda", traces))
+    bench, t_bench = wall(lambda: B.run(False, "cuda"))
     adap, t_adap = wall(lambda: eng.run(spec_a))
     launches = read_counts()
 
@@ -2065,7 +2109,10 @@ def traffic_path(env) -> None:
               f"launches in the timed runs {json.dumps(d['launches'])}")
     print(f"traffic bench: {bench['requests']} requests per run, "
           f"{t_bench:.3f} s in all; gap slope "
-          f"{bench['gap_contention_slope']:.5f}")
+          f"{bench['gap_contention_slope']:.5f}; tenant axis drawn once "
+          f"in {bench['synth_s']:.3f} s before timing, on "
+          f"{bench['devices']} device(s), shard {bench['shard']}, "
+          f"sharded_rel {bench['sharded_rel']:.0e}")
     t, n_a = MULTI_ADAPTIVE_SHAPE
     print(f"multi-channel adaptive campaign (C=2, {t} streams x n={n_a}, "
           f"8 thermal lanes, FR-FCFS window 16) ran the plain step loop on "
@@ -2090,10 +2137,12 @@ def traffic_path(env) -> None:
           "one channel must launch (a), two and four (d)")
     check(per["1"]["p99_ns"] > per["2"]["p99_ns"] >= per["4"]["p99_ns"],
           "more channels must lower the p99")
-    # per channel count a warm-up and 3 timed runs; the closed loop
-    # launches no adaptive kernel
+    check(bench["declarative"] and bench["sharded_rel"] == 0.0,
+          f"traffic bench sharded_rel {bench['sharded_rel']}")
+    # per channel count a warm-up and 3 timed runs, then the unsharded
+    # 4-channel check; the closed loop launches no adaptive kernel
     check(launches["replay_blocks (a)"] == 4
-          and launches["replay_blocks (d)"] == 8
+          and launches["replay_blocks (d)"] == 9
           and sum(v for k, v in launches.items()
                   if k.startswith("adaptive_blocks")) == 0,
           f"traffic path launches {launches}")
@@ -2105,19 +2154,29 @@ def traffic_path(env) -> None:
                traffic_bench=bench)
 
 
+# requests per stream of the traffic profile: the first half of each
+# stream, so the profile's ~131k kernel records (the FR-FCFS prepass's
+# steps) take half the time 8192 took (PR 22: the run near its 600 s aim)
+TRAFFIC_PROFILE_N = 4096
+
+
 def traffic_breakdown(env) -> None:
     """Phase 6c, its profile (run after phases 7 and 9-11): one 4-channel
     traffic run (FR-FCFS prepass, one launch of (d), device statistics)
-    under `torch.profiler`."""
+    under `torch.profiler`, on the first `TRAFFIC_PROFILE_N` requests of
+    each stream."""
     from benchmarks import port_traffic_bench as B
+    from repro_torch.core.dram_sim import Trace
     from repro_torch.core.sim_engine import SimEngine, SimSpec
 
     _, _, n_rows = B.grid(False)
-    spec = SimSpec(traces=env["traffic_traces"],
+    spec = SimSpec(traces=tuple(Trace(*(f[:TRAFFIC_PROFILE_N] for f in t))
+                                for t in env["traffic_traces"]),
                    timings=B.timing_rows(n_rows), policies=B.policies(),
                    n_channels=4)
     eng = SimEngine(device="cuda")
-    busy_share("traffic path (one 4-channel run)", lambda: eng.run(spec))
+    busy_share(f"traffic path (one 4-channel run, n={TRAFFIC_PROFILE_N})",
+               lambda: eng.run(spec))
 
 
 def kernel_replay_multi(env) -> dict:
@@ -2254,6 +2313,393 @@ def cross_device_traffic() -> None:
           f"the per-channel mean / p99 / gap {worst:.3e}; 4-channel latency "
           f"grid {grids['cuda'].latencies.shape} bitwise equal: {same}")
     check(same and worst <= 1e-6, "card and CPU traffic campaigns differ")
+
+
+# -------------------------------------------------------- campaign engine
+
+BLOCK_CAPS = (None, 32, 64, 128)     # None: the kernels' own block
+LANES_ROUNDS = 31                    # paired rounds of the lanes timings
+
+
+def _differing(a: dict, b: dict) -> tuple[int, int]:
+    """(differing elements, elements) over the arrays both dicts hold."""
+    import numpy as np
+    bad = tot = 0
+    for k, x in a.items():
+        x, y = np.asarray(x), np.asarray(b[k])
+        if x.dtype == np.float32:
+            x, y = x.view(np.int32), y.view(np.int32)
+        check(x.shape == y.shape, f"{k}: shape {x.shape} vs {y.shape}")
+        bad += int((x != y).sum())
+        tot += x.size
+    return bad, tot
+
+
+def _fields(res, names) -> dict:
+    return {f: getattr(res, f) for f in names}
+
+
+def _bracket_fields(br) -> dict:
+    out = {"worst_bin": br["worst_bin"], "temp_peak": br["temp_peak"]}
+    for half in ("adaptive", "static"):
+        out.update({f"{half}.{k}": v for k, v in br[half].items()})
+    return out
+
+
+STATIC_FIELDS = ("mean_latency_ns", "p99_latency_ns", "total_ns")
+ADAPTIVE_FIELDS = STATIC_FIELDS + ("temp_max", "temp_mean", "bin_switches",
+                                   "bank_heat")
+
+
+def _campaign_specs(env):
+    """The phase's campaigns: the Fig. 4 pool (70 traces x 8192) under
+    DDR3-1600 and the 55C set, and the thermal path's adaptive campaign
+    (70 traces x 4096, the deployed module stack, 4 + 4 scenarios),
+    each over a materialized pool or the declarative `synth_spec`; FCFS,
+    so the prepass does not dominate."""
+    from repro_torch.core import perf_model
+    from repro_torch.core import thermal as TH
+    from repro_torch.core import timing as T
+    from repro_torch.core.aldram import default_scenarios
+    from repro_torch.core.sim_engine import SimSpec
+
+    rows = T.stack_timing([T.DDR3_1600, T.ALDRAM_55C_EVAL])
+    stack, edges = env["ctrl"].table.safe_stack()
+    scns = default_scenarios()
+    tspec = TH.ThermalSpec(scns + tuple(x.oracle() for x in scns),
+                           tuple(edges.tolist()), TH.ThermalConfig())
+    out = {}
+    for tag, n in (("static", 8192), ("adaptive", 4096)):
+        kw = (dict(timings=rows) if tag == "static" else
+              dict(timings=stack[None], thermal=tspec))
+        out[tag] = SimSpec(traces=perf_model.trace_batch(n, SEED,
+                                                         device="cuda"), **kw)
+        out[tag + " declarative"] = SimSpec(
+            traces=perf_model.synth_spec(n, SEED), **kw)
+    return out
+
+
+def campaign_engine(env) -> None:
+    """Phase 6d: the campaign engine on the card, launch counts reset
+    just before and read just after — the campaign mesh (one-entry and a
+    3-entry mesh repeating the card: T = 70 pads to 72), the
+    declarative pool (drawn by its first run, replayed from its cache by
+    the next), the replay tuner over its CUDA candidates and the
+    guardband's design point (`margin_grid` at 1 x 1, 26 launches);
+    every sharded, declarative and tuned output bitwise the unsharded,
+    materialized default run's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import guardband, perf_model
+    from repro_torch.core import timing as T
+    from repro_torch.core.autotune import ReplayTuner
+    from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
+                                              CALIBRATED_VARIATION)
+    from repro_torch.core.sim_engine import SimEngine
+    from repro_torch.core.variation import compound_quantile
+    from repro_torch.launch.mesh import make_campaign_mesh
+
+    specs = _campaign_specs(env)
+    bracket_args = dict(base_row=T.DDR3_1600.as_row(), n_real=4)
+    reset_counts()
+    t_phase = time.perf_counter()
+    base = {k: SimEngine(device="cuda").run(specs[k])
+            for k in ("static", "adaptive")}
+    base_br = SimEngine(device="cuda").run_bracket(specs["adaptive"],
+                                                   **bracket_args)
+    meshes = {1: make_campaign_mesh(1),
+              3: make_campaign_mesh(devices=["cuda:0"] * 3)}
+    runs = (("static", 1), ("static", 3), ("adaptive", 3), ("bracket", 3))
+    for kind, k in runs:
+        eng = SimEngine(device="cuda", mesh=meshes[k])
+        l0 = read_counts()
+        if kind == "bracket":
+            out, secs = wall(lambda: eng.run_bracket(specs["adaptive"],
+                                                     **bracket_args))
+            bad, tot = _differing(_bracket_fields(out),
+                                  _bracket_fields(base_br))
+        else:
+            out, secs = wall(lambda: eng.run(specs[kind]))
+            names = STATIC_FIELDS if kind == "static" else ADAPTIVE_FIELDS
+            bad, tot = _differing(_fields(out, names),
+                                  _fields(base[kind], names))
+        l1 = read_counts()
+        dl = {v: l1[v] - l0[v] for v in l1 if l1[v] != l0[v]}
+        print(f"campaign mesh {kind} shards={k} shard_shape="
+              f"{eng.shard_shape}: {bad} differing (of {tot}) against the "
+              f"unsharded run; {eng.dispatch_count} dispatch, launches "
+              f"{json.dumps(dl)}, {secs:.3f} s")
+        check(bad == 0, f"campaign mesh {kind} x{k}: {bad} differ")
+        check(eng.dispatch_count == 1, f"{kind}: {eng.dispatch_count}")
+        check(eng.shard_shape[:2] == (k, -(-70 // k)), str(eng.shard_shape))
+        kern = "adaptive_blocks (a)" if kind != "static" else \
+            "replay_blocks (a)"
+        check(dl.get(kern, 0) == k, f"{kind} x{k}: launches {dl}")
+
+    for kind in ("static", "adaptive"):
+        spec = specs[kind + " declarative"]
+        names = STATIC_FIELDS if kind == "static" else ADAPTIVE_FIELDS
+        for run in ("first", "second"):
+            eng = SimEngine(device="cuda")
+            with perf_model.synth_dispatch_scope() as scope:
+                out, secs = wall(lambda: eng.run(spec))
+            bad, tot = _differing(_fields(out, names),
+                                  _fields(base[kind], names))
+            print(f"campaign declarative {kind} {run} run (synth_spec, n="
+                  f"{spec.traces.n}): {bad} differing (of {tot}) against "
+                  f"trace_batch; dispatches +{eng.dispatch_count}, "
+                  f"syntheses +{scope.count}, {secs:.3f} s")
+            want = 1 if run == "first" else 0     # drawn once, then cached
+            check(bad == 0 and eng.dispatch_count == 1
+                  and scope.count == want,
+                  f"declarative {kind} {run}: {bad} differ, "
+                  f"{eng.dispatch_count} dispatches, {scope.count} syntheses")
+
+    tune_path = ROOT / "chiprun_out" / "replay_tune_cuda.json"
+    tune_path.parent.mkdir(exist_ok=True)
+    tuner = ReplayTuner(platform="cuda", path=str(tune_path))
+    for kind in ("static", "adaptive"):
+        spec = specs[kind + " declarative"]
+        eng = SimEngine(device="cuda", backend="auto", tuner=tuner)
+        (win, secs) = wall(lambda: eng.autotune(spec, reps=3))
+        key = tuner.table._bin(tuner._condition(eng._tuner_key(spec)[1]))
+        times = tuner.timings[(eng._tuner_key(spec)[0], key)]
+        names = STATIC_FIELDS if kind == "static" else ADAPTIVE_FIELDS
+        ref = _fields(base[kind], names)
+        worst = 0
+        for cfg in tuner.candidates:
+            worst = max(worst, _differing(
+                _fields(eng.run(spec, config=cfg), names), ref)[0])
+        auto = _differing(_fields(eng.run(spec), names), ref)[0]
+        print(f"campaign tuner {kind}: candidates " + "; ".join(
+            f"{c.backend} lanes={c.block_rows or 'default'}: {t:.4f} s"
+            for c, t in zip(tuner.candidates, times))
+              + f" -> winner {win}; {worst} differing in the worst "
+              f"candidate, {auto} in the backend='auto' run; "
+              f"{eng.dispatch_count} dispatches, {secs:.3f} s")
+        check(worst == 0 and auto == 0, f"tuner {kind}: {worst}, {auto}")
+    check(tune_path.exists(), "the tuner table was not written")
+
+    (q_card, secs) = wall(lambda: guardband.design_quantile(
+        CALIBRATED_CONSTANTS, device="cuda"))
+    q_cpu = guardband.design_quantile(CALIBRATED_CONSTANTS, device="cpu")
+    realised = float(compound_quantile(env["pop"].cells,
+                                       CALIBRATED_VARIATION).max())
+    table = env["ctrl"].table
+    same = True
+    for floor in (table.safe_stack()[0], table.safe_stack_banks()[0]):
+        rows = floor
+        for _ in range(3):
+            rows, _ = guardband.tighten_rows(rows)
+        for _ in range(5):
+            rows = guardband.relax_rows(rows, floor)
+        same &= bool(np.array_equal(rows, floor))
+    launches = read_counts()
+    print(f"guardband: design quantile {q_card:.7f} on the card, "
+          f"{q_cpu:.7f} on the CPU (|diff| {abs(q_card - q_cpu):.2e}, one "
+          f"bisection step {8 / 2 ** 24:.2e}); realised over the 115 "
+          f"modules {realised:.5f}; margin_grid launches "
+          f"{launches['margin_grid']} ({secs:.3f} s); tighten x3 / relax x5 "
+          f"on the module and per-bank stacks is the identity: {same}")
+    check(q_card > realised, f"design {q_card} <= realised {realised}")
+    check(abs(q_card - q_cpu) <= 8 / 2 ** 24, f"{q_card} vs {q_cpu}")
+    check(launches["margin_grid"] == 26, str(launches))
+    check(same, "tighten / relax round trip moved a row")
+    print(f"campaign engine path kernels: {json.dumps(launches)}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    env.update(launches_campaign=launches)
+    campaign_block_lanes(env)
+
+
+def paired_ms(fns: dict, rounds: int) -> dict:
+    """Paired, interleaved CUDA-event timings: each round calls every
+    entry of `fns` once (after one warm-up call each), in an order
+    rotated by one each round, with a synchronize around every call.
+    Per key: the median call time in ms, and the median and the 10th /
+    90th percentiles of the per-round ratio to the first key's call."""
+    import numpy as np
+    import torch
+    keys = list(fns)
+    for k in keys:
+        fns[k]()
+    torch.cuda.synchronize()
+    t = {k: [] for k in keys}
+    for r in range(rounds):
+        for k in keys[r % len(keys):] + keys[:r % len(keys)]:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[k]()
+            e1.record()
+            e1.synchronize()
+            t[k].append(e0.elapsed_time(e1))
+    base = np.array(t[keys[0]])
+    out = {}
+    for k in keys:
+        ratio = np.array(t[k]) / base
+        out[k] = {"ms": float(np.median(t[k])),
+                  "ratio": float(np.median(ratio)),
+                  "ratio_p10": float(np.percentile(ratio, 10)),
+                  "ratio_p90": float(np.percentile(ratio, 90))}
+    return out
+
+
+def _print_caps(label: str, times: dict, outs: dict, plan_fn) -> None:
+    """One line per explicit cap: its paired time and ratio to the
+    default block, the launch plan, and the elements that differ from
+    the default block's outputs (which must be none)."""
+    import torch
+    for cap in BLOCK_CAPS[1:]:
+        bad = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                  for a, b in zip(outs[cap], outs[None]))
+        tc, td = times[cap], times[None]
+        print(f"lanes per block {cap}: {label}: {tc['ms']:.4f} ms (default "
+              f"block {td['ms']:.4f} ms; paired ratio {tc['ratio']:.3f}, "
+              f"p10-p90 {tc['ratio_p10']:.3f}-{tc['ratio_p90']:.3f}); plan "
+              f"{json.dumps(plan_fn(cap))}; {bad} elements differ from the "
+              "default block")
+        check(bad == 0, f"{label} at {cap} lanes: {bad} differ")
+
+
+def campaign_block_lanes(env) -> None:
+    """Phase 6d, its kernel times: replay_blocks (a) and adaptive_blocks
+    (a) at 32, 64 and 128 chain lanes per block against the kernels' own
+    choice, at chip_smoke's shapes (the Fig. 4 pool at 2 timing rows;
+    the thermal campaign's 8 lanes), at the fault campaigns' lane counts
+    (66 rows; 72 lanes) and at 128 (one full default block a cell, 70
+    blocks on 132 SMs, which a cap spreads over more SMs): each bitwise
+    the default block, with paired, interleaved CUDA-event times
+    (`paired_ms`, 31 rounds) beside its chain bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core import thermal as TH
+    from repro_torch.core import timing as T
+    from repro_torch.kernels.replay import ops, ref
+
+    dev = torch.device("cuda")
+    rows2 = T.stack_timing([T.DDR3_1600, T.ALDRAM_55C_EVAL])
+    stack, edges = env["ctrl"].table.safe_stack()
+    scns = TH.stack_scenarios(_campaign_specs_scenarios())
+    for n, s in ((8192, 2), (4096, 66), (4096, 128)):
+        cells = _campaign_cells(n)
+        tim = torch.tensor(np.tile(rows2, (s // 2, 1)), device=dev)
+        tim_t = tim.T.contiguous()
+        fns = {cap: (lambda c=cap: ops.replay_blocks(
+            *cells, tim_t, validated=True, block_lanes=c))
+            for cap in BLOCK_CAPS}
+        outs = {cap: fn() for cap, fn in fns.items()}
+        times = paired_ms(fns, LANES_ROUNDS)
+        _print_caps(f"replay_blocks (a) G=70 N={n} S={s}", times, outs,
+                    lambda c: ops.replay_plan(s, 8, 8, 0, False,
+                                              block_lanes=c))
+        chain_bound("2a", n, times[None]["ms"])
+    for lanes in (8, 72, 128):
+        cells = _campaign_cells(4096)
+        k = lanes // 8
+        tabs = ref.table_tile(ref.lane_tables(torch.tensor(
+            np.repeat(stack[None], k, 0), device=dev), 8))
+        scn = ref.lane_scenarios(torch.tensor(scns, device=dev), k).T \
+            .contiguous()
+        bins = torch.tensor(edges, dtype=torch.float32, device=dev)
+        tcfg = torch.tensor(TH.ThermalConfig().as_row(), device=dev)
+        fns = {cap: (lambda c=cap: ops.adaptive_blocks(
+            *cells, tabs, scn, bins, tcfg, validated=True, block_lanes=c))
+            for cap in BLOCK_CAPS}
+        outs = {cap: fn()[:6] for cap, fn in fns.items()}
+        times = paired_ms(fns, LANES_ROUNDS)
+        plan = ops.adaptive_plan(lanes, len(edges), len(edges) + 1, 8, 8,
+                                 False, False, False)
+        _print_caps(f"adaptive_blocks (a) G=70 N=4096 L={lanes}", times, outs,
+                    lambda c: ops.adaptive_plan(
+                        lanes, len(edges), len(edges) + 1, 8, 8, False,
+                        False, False, block_lanes=c))
+        chain_bound("3a", 4096, times[None]["ms"], n_edges=len(edges),
+                    table="smem" if plan["tables_staged"] else "l1")
+
+
+def _campaign_specs_scenarios():
+    from repro_torch.core.aldram import default_scenarios
+    scns = default_scenarios()
+    return scns + tuple(x.oracle() for x in scns)
+
+
+def cross_device_engine() -> None:
+    """Phase 8f: the campaign engine at --fast scale on the card and on
+    the CPU, static and adaptive over a declarative axis of the pool's
+    first 13 traces (`synth_spec(n=1024)`):
+    on each device the 3-entry mesh (cuda:0 or cpu, repeated), the
+    bracket on it and every tuner candidate of the platform bitwise the
+    device's unsharded materialized default run; across the devices
+    the static runs and the bracket's static half bitwise and its worst
+    bins equal (the closed loop senses through `sin` / `exp`, whose
+    last bits differ between the card and the CPU: phase 8b holds its
+    bins; here the adaptive means' largest relative difference is
+    printed)."""
+    import numpy as np
+    from repro_torch.core import perf_model
+    from repro_torch.core import thermal as TH
+    from repro_torch.core import timing as T
+    from repro_torch.core.autotune import ReplayTuner
+    from repro_torch.core.dram_sim import Policy
+    from repro_torch.core.sim_engine import SimEngine, SimSpec
+    from repro_torch.launch.mesh import make_campaign_mesh
+
+    pool = perf_model.synth_spec(1024, SEED)
+    synth = dataclasses.replace(pool, **{       # 13 traces: pads to 15
+        f: getattr(pool, f)[:13] for f in ("offsets", "row_hits",
+                                            "write_fracs", "inter_arrivals")})
+    rows = T.stack_timing([T.DDR3_1600, T.ALDRAM_55C_EVAL])
+    tab = np.stack([T.ALDRAM_55C_EVAL.as_row(), T.DDR3_1600.as_row()])[None]
+    tspec = TH.ThermalSpec(_campaign_specs_scenarios(), (55.0,),
+                           TH.ThermalConfig())
+    pols = (Policy(), Policy(reorder_window=8))
+    kw = {"static": dict(timings=rows, policies=pols),
+          "adaptive": dict(timings=tab, thermal=tspec, policies=pols)}
+    out, within = {}, {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_campaign_mesh(
+            devices=["cuda:0" if dev == "cuda" else "cpu"] * 3)
+        t0 = time.perf_counter()
+        res = {}
+        for kind, k in kw.items():
+            names = STATIC_FIELDS if kind == "static" else ADAPTIVE_FIELDS
+            base = _fields(SimEngine(device=dev).run(SimSpec(
+                traces=synth.materialize(dev), **k)), names)
+            res[kind] = base
+            spec = SimSpec(traces=synth, **k)
+            runs = {"mesh": SimEngine(device=dev, mesh=mesh).run(spec)}
+            for i, cfg in enumerate(ReplayTuner(platform=dev,
+                                                path="").candidates):
+                runs[f"candidate {i}"] = SimEngine(device=dev).run(
+                    spec, config=cfg)
+            for name, r in runs.items():
+                within[f"{dev} {kind} {name}"] = _differing(
+                    _fields(r, names), base)[0]
+        br = {m: _bracket_fields(SimEngine(device=dev, mesh=m).run_bracket(
+            SimSpec(traces=synth, **kw["adaptive"]), T.DDR3_1600.as_row()))
+            for m in (None, mesh)}
+        within[f"{dev} bracket mesh"] = _differing(br[mesh], br[None])[0]
+        res["bracket"] = br[None]
+        out[dev] = (res, time.perf_counter() - t0)
+    g, c = out["cuda"][0], out["cpu"][0]
+    static_bad = _differing(g["static"], c["static"])[0]
+    br_static = {k: v for k, v in g["bracket"].items()
+                 if k.startswith("static.") or k == "worst_bin"}
+    bracket_bad = _differing(br_static, c["bracket"])[0]
+    rel = float(np.abs(g["adaptive"]["mean_latency_ns"]
+                       / c["adaptive"]["mean_latency_ns"] - 1.0).max())
+    print(f"cross-device engine --fast (3-entry mesh, 13 traces of "
+          f"synth_spec n=1024, "
+          f"every candidate): differing elements on each device "
+          f"{json.dumps(within)}; card vs CPU: static {static_bad}, "
+          f"bracket static half and worst bins {bracket_bad}, adaptive "
+          f"means max rel diff {rel:.3e}; card {out['cuda'][1]:.2f} s, CPU "
+          f"{out['cpu'][1]:.2f} s")
+    check(all(v == 0 for v in within.values()),
+          "a sharded, declarative or tuned run differs from its device's "
+          "default")
+    check(static_bad == 0 and bracket_bad == 0,
+          "card and CPU campaign engines differ")
 
 
 # ------------------------------------------------------------ serve path
@@ -2715,6 +3161,7 @@ def kernel_flash(serve) -> dict:
             "shape": "b 1, s 4096, heads 32/2, d 128, causal",
             **{k2: f32[k2] for k2 in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
+            "ms_source": "cuda_events_call",
             "library": f32["library"],
             "bf16": bf16, "ptxas": ptxas}
 
@@ -2749,10 +3196,11 @@ def _ssm_kernel(name, shapes, make, kernel, plain, n_bytes, n_ops, serve,
     first (full) shape and at the shapes labelled in `timed` (CUDA
     events, median of 10 calls; with `device_kernel`, the CUDA kernels
     of that name's device time from torch.profiler, which leaves out the
-    wrapper's host work) beside its bound, the plain version's time (one
-    run, warmed) and no library call (no single PyTorch call computes
-    it).  The entry's numbers are the first shape's; the others go under
-    `ms_by_shape` with their bounds."""
+    wrapper's host work, or the call's CUDA-event time where the
+    profiler keeps no record: `ms_source` says which) beside its bound,
+    the plain version's time (one run, warmed) and no library call (no
+    single PyTorch call computes it).  The entry's numbers are the first
+    shape's; the others go under `ms_by_shape` with their bounds."""
     import torch
     worst = 0.0
     by_shape = {}
@@ -2771,17 +3219,26 @@ def _ssm_kernel(name, shapes, make, kernel, plain, n_bytes, n_ops, serve,
         worst = max(worst, err_o, err_s)
         if i == 0 or label in timed:
             call = cuda_ms(lambda: kernel(*ins), reps=10)
-            ms = (call if device_kernel is None else
-                  kernel_ms(lambda: kernel(*ins), device_kernel, reps=10))
+            ms, src = call, "cuda_events_call"
+            if device_kernel is not None:
+                try:
+                    ms = kernel_ms(lambda: kernel(*ins), device_kernel,
+                                   reps=10)
+                    src = "torch_profiler"
+                except NoProfilerRecord as e:
+                    print(f"  ({e}: its time is the call's from CUDA "
+                          "events)")
             b_ms, b_by = bound_ms(n_bytes(shape), n_ops(shape))
-            how = ("" if device_kernel is None else
-                   f" device (wrapper call {call:.4f} ms)")
+            how = (" device" if src == "torch_profiler" else
+                   " (the wrapper call's CUDA-event time)") + (
+                f" (wrapper call {call:.4f} ms)"
+                if device_kernel is not None else "")
             print(f"  kernel {ms:.4f} ms{how}, bound {b_ms:.4f} ms ({b_by}: "
                   f"{n_ops(shape):.4e} operations at 67 TFLOP/s, "
                   f"{n_bytes(shape) / 1e6:.1f} MB at 3.35 TB/s), "
                   f"{ms / b_ms:.2f}x the bound; plain {plain_s * 1e3:.1f} ms;"
                   " library none")
-            by_shape[label] = {"ms": ms, "call_ms": call,
+            by_shape[label] = {"ms": ms, "ms_source": src, "call_ms": call,
                                "plain_ms": plain_s * 1e3,
                                "bound_ms": b_ms, "bound_by": b_by}
             if i == 0:
@@ -2935,7 +3392,7 @@ def main() -> int:
         k1 = phase(kernel_margin_grid, env)
         for fn in (thermal_path, thermal_breakdown, region_path,
                    region_breakdown, fault_path, fault_breakdown,
-                   traffic_path):
+                   traffic_path, campaign_engine):
             phase(fn, env)
         k1.update(path_launches(env, "margin_grid"))
         k1.update(phase(kernel_margin_small, env))
@@ -2948,7 +3405,7 @@ def main() -> int:
             kernel_replay_faulted, kernel_adaptive_faulted,
             kernel_replay_multi))
         # the serve path needs the AL-DRAM phases' memory back; the
-        # traffic profile (~262k kernel records) runs after every kernel
+        # traffic profile (~131k kernel records) runs after every kernel
         # timing, since a trace that size has left the next profiler
         # session with no record
         traffic = {"traffic_traces": env["traffic_traces"]}
@@ -2967,7 +3424,8 @@ def main() -> int:
         del traffic
         phase(cross_device_thermal, phase(cross_device))
         for fn in (cross_device_region, cross_device_fault,
-                   cross_device_traffic, cross_device_serve):
+                   cross_device_traffic, cross_device_engine,
+                   cross_device_serve):
             phase(fn)
         print("phase seconds: " + json.dumps(PHASE_SECONDS))
         print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
@@ -2976,8 +3434,12 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, *k4, k5, k6, k7, k8, k9,
-                                  k10, k11, k12]}))
+    kernels = [k1, k2, k3, *k4, k5, k6, k7, k8, k9, k10, k11, k12]
+    for k in kernels:
+        # `ms`: torch.profiler device time, unless the entry says that
+        # it is a wrapper call's CUDA-event time
+        k.setdefault("ms_source", "torch_profiler")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -53,7 +53,9 @@ bank's open row: `frfcfs_order` is the host oracle, `frfcfs_reorder`
 its content-cached host pass, `frfcfs_perm` the device scheduler (one
 step per request over a [cells, window] pending buffer) and
 `replay_rows_frfcfs` the scheduler merged into the static replay.
-`TenantSpec` synthesizes multi-tenant request streams.
+`SynthSpec` and `TenantSpec` are declarative trace batches (the
+workload pool's knobs, or multi-tenant mixes) that the engine
+replays through their cached materialization.
 """
 
 from __future__ import annotations
@@ -181,13 +183,116 @@ def synth_trace(generator: torch.Generator, n: int, n_banks: int = 8,
                  is_write.to(dev))
 
 
+def _trace_generator(seed: int, offset: int) -> torch.Generator:
+    """Independent CPU generator of trace `offset` under `seed`: every
+    declarative trace row draws from its own, so any subset of rows
+    synthesizes bit for bit as its slice of the whole batch."""
+    state = np.random.SeedSequence([seed, offset]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def _stack_rows(rows, device) -> Trace:
+    """Stack per-row [n] traces into one [t, n] batch on `device`."""
+    return Trace(*(torch.stack(f).to(device) for f in zip(*rows)))
+
+
+def _materialize(spec, device) -> tuple[Trace, ...]:
+    """The shared `materialize` of the declarative trace specs: the
+    rows are drawn once on the host (cached on the spec and counted as
+    ONE `perf_model.synth_dispatch_count` synthesis), then copied to
+    `device` (cached per device)."""
+    dev = resolve_device(device)
+    cache = spec._cache
+    if "traces" not in cache:
+        from repro_torch.core import perf_model        # lazy: no cycle
+        perf_model.synth_dispatch_count += 1
+        tb = spec.synth("cpu")
+        cache["traces"] = tuple(Trace(*(f[i] for f in tb))
+                                for i in range(len(spec)))
+    key = str(dev)
+    if key not in cache:
+        cache[key] = (cache["traces"] if dev.type == "cpu" else tuple(
+            Trace(*(f.to(dev) for f in t)) for t in cache["traces"]))
+    return cache[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthSpec:
+    """A declarative trace batch: the `synth_trace` knobs of every
+    stream instead of materialized tensors.  `sim_engine.SimSpec`
+    accepts one as its `traces` axis; the engine replays its cached
+    materialization.
+
+    Row i is `synth_trace(_trace_generator(seed, offsets[i]), n,
+    n_banks, row_hits[i], write_fracs[i], inter_arrivals[i])`, drawn on
+    the host, so a seed gives one trace on every device and the rows
+    equal `perf_model.trace_batch`'s bit for bit.  Each row has its own
+    generator, so any shard of rows synthesizes bit for bit as its
+    slice of the whole batch.
+
+    `materialize()` draws the batch once (cached on the instance,
+    counted as ONE `perf_model.synth_dispatch_count` synthesis) and
+    returns it as a tuple of `Trace`s."""
+
+    n: int
+    offsets: tuple[int, ...]
+    row_hits: tuple[float, ...]
+    write_fracs: tuple[float, ...]
+    inter_arrivals: tuple[float, ...]
+    seed: int = 0
+    n_banks: int = 8
+
+    def __post_init__(self):
+        for f in ("offsets", "row_hits", "write_fracs", "inter_arrivals"):
+            object.__setattr__(self, f, tuple(getattr(self, f)))
+            if len(getattr(self, f)) != len(self.offsets):
+                raise ValueError(f"{f}: {len(getattr(self, f))} entries for "
+                                 f"{len(self.offsets)} streams")
+        object.__setattr__(self, "_cache", {})
+
+    def __len__(self) -> int:
+        return len(self.offsets)
+
+    def stream_knobs(self):
+        """The per-stream knob tensors ([T]-leading, CPU; the knobs are
+        kept in float64 so each row sees its Python float exactly):
+        the tree a sharded campaign splits across devices."""
+        f64 = torch.float64
+        return (torch.tensor(self.offsets, dtype=torch.int64),
+                torch.tensor(self.row_hits, dtype=f64),
+                torch.tensor(self.write_fracs, dtype=f64),
+                torch.tensor(self.inter_arrivals, dtype=f64))
+
+    def synth_traced(self, knobs, device: str | torch.device = "cuda"
+                     ) -> Trace:
+        """The [t, n] `Trace` batch of (a shard of) `stream_knobs()`
+        rows (on any device: the draws run on the host) on `device`."""
+        offs, rhs, wfs, ias = (k.tolist() for k in knobs)
+        return _stack_rows(
+            [synth_trace(_trace_generator(self.seed, o), self.n,
+                         n_banks=self.n_banks, row_hit=rh, write_frac=wf,
+                         inter_arrival_ns=ia, device="cpu")
+             for o, rh, wf, ia in zip(offs, rhs, wfs, ias)],
+            resolve_device(device))
+
+    def synth(self, device: str | torch.device = "cuda") -> Trace:
+        """The whole [T, n] batch on `device`."""
+        return self.synth_traced(self.stream_knobs(), device)
+
+    def materialize(self, device: str | torch.device = "cuda"
+                    ) -> tuple[Trace, ...]:
+        """The streams as a tuple of [n] `Trace`s on `device`."""
+        return _materialize(self, device)
+
+
 @dataclasses.dataclass(frozen=True)
 class TenantSpec:
     """A multi-tenant trace batch: each stream is a mixture of tenants
     drawn per request from a shared pool, each tenant with its own
     locality / write / inter-arrival knobs and arrival-rate process
     (`thermal.rate_scenario` rows read by `ambient_at` as a rate
-    multiplier).
+    multiplier).  Like `SynthSpec` it is a declarative trace axis of
+    `sim_engine.SimSpec`, replayed through its cached materialization.
 
     Pool axes ([K] tenants): `row_hits`, `write_fracs`,
     `inter_arrivals`, and `arrivals` — each tenant's rate-scenario row
@@ -200,10 +305,10 @@ class TenantSpec:
     request's locality and write knobs are its tenant's, exponential
     gaps are scaled by the tenant's inter-arrival time and divided by
     its rate (floored at 0.05) at the unmodulated cumulative time.
-    `materialize` draws each stream from its own CPU `torch.Generator`
-    (seeded from `seed` and the stream's offset, as
-    `perf_model.trace_batch` seeds its traces): the bits are the port's
-    own, not the reference's threefry streams."""
+    Each stream draws from its own CPU `torch.Generator` (seeded from
+    `seed` and the stream's offset, as `perf_model.trace_batch` seeds
+    its traces): the bits are the port's own, not the reference's
+    threefry streams."""
 
     n: int
     mixes: tuple
@@ -251,15 +356,19 @@ class TenantSpec:
     def __len__(self) -> int:
         return len(self.mixes)
 
-    def _stream(self, i: int) -> Trace:
-        from repro_torch.core.perf_model import _trace_generator
-        gen = _trace_generator(self.seed, self.offsets[i])
+    def stream_knobs(self):
+        """The per-stream rows ([T]-leading, CPU): offsets and the
+        float64 [T, K] mixes, the tree a sharded campaign splits."""
+        return (torch.tensor(self.offsets, dtype=torch.int64),
+                torch.tensor(self.mixes, dtype=torch.float64))
+
+    def _stream(self, offset: int, mix: torch.Tensor) -> Trace:
+        gen = _trace_generator(self.seed, offset)
         f32 = torch.float32
         rhs = torch.tensor(self.row_hits, dtype=f32)
         wfs = torch.tensor(self.write_fracs, dtype=f32)
         ias = torch.tensor(self.inter_arrivals, dtype=f32)
         scn = torch.tensor(self.arrivals, dtype=f32)            # [K, SCN]
-        mix = torch.tensor(self.mixes[i], dtype=torch.float64)
         tenant = torch.multinomial(mix + 1e-9, self.n, replacement=True,
                                    generator=gen)
         bank = torch.randint(0, self.n_banks, (self.n,), generator=gen,
@@ -275,18 +384,27 @@ class TenantSpec:
         arrival = torch.cumsum(gaps / torch.clamp(rate, min=0.05), 0)
         return Trace(arrival, bank, row, is_write)
 
+    def synth_traced(self, knobs, device: str | torch.device = "cuda"
+                     ) -> Trace:
+        """The [t, n] `Trace` batch of (a shard of) `stream_knobs()`
+        rows (on any device: the draws run on the host) on `device`."""
+        offs, mixes = (k.cpu() for k in knobs)
+        return _stack_rows([self._stream(int(o), m)
+                            for o, m in zip(offs.tolist(), mixes)],
+                           resolve_device(device))
+
+    def synth(self, device: str | torch.device = "cuda") -> Trace:
+        """The whole [T, n] batch on `device`."""
+        return self.synth_traced(self.stream_knobs(), device)
+
     def materialize(self, device: str | torch.device = "cuda"
                     ) -> tuple[Trace, ...]:
-        """The streams as a tuple of [n] `Trace`s on `device` (drawn on
-        the host, so every device gets the same bits; cached per
-        device)."""
-        dev = resolve_device(device)
-        key = str(dev)
-        if key not in self._cache:
-            self._cache[key] = tuple(
-                Trace(*(f.to(dev) for f in self._stream(i)))
-                for i in range(len(self)))
-        return self._cache[key]
+        """The streams as a tuple of [n] `Trace`s on `device`."""
+        return _materialize(self, device)
+
+
+# the declarative trace axes `sim_engine.SimSpec` accepts
+SYNTH_SPECS = (SynthSpec, TenantSpec)
 
 
 def check_prefix_valid(valid, where: str = "replay") -> None:
@@ -1163,11 +1281,9 @@ def simulate(trace: Trace, tp: TimingParams, n_banks: int = 8,
     """Replay one trace under one set of timing parameters (a 1x1x1
     `SimEngine` campaign with host statistics and host reordering)."""
     from repro_torch.core import sim_engine
-    res = sim_engine.SimEngine(stats="host", reorder="host",
-                               device=device).run(
-        sim_engine.SimSpec(traces=(trace,), timings=tp, policies=(policy,),
-                           n_banks=n_banks, mlp_window=mlp_window,
-                           collect=("latencies",)))
+    res = sim_engine.default_engine(device).run(sim_engine.SimSpec.single(
+        trace, tp, policy, n_banks=n_banks, mlp_window=mlp_window,
+        collect=("latencies",)))
     return {
         "mean_latency_ns": res.mean_latency_ns[0, 0, 0],
         "p99_latency_ns": res.p99_latency_ns[0, 0, 0],

@@ -14,11 +14,15 @@ the arrival pressure).  AL-DRAM's speedup comes ONLY from swapping the
 timing rows.  `evaluate_many` replays the whole 70-trace pool under any
 number of timing rows in ONE `SimEngine` launch; the traces are drawn on
 the host from `torch.Generator`s (one per trace, seeded from `seed` and
-the trace's pool offset) and moved to the engine's device.
+the trace's pool offset) and moved to the engine's device.  `synth_spec`
+is the same pool as a declarative trace axis, which the engine replays
+through its cached materialization (`synth_dispatch_count` counts each
+batch drawn: one per `trace_batch`, one per first `materialize`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -112,24 +116,73 @@ def _pool_knobs():
     return offs, rhs, wfs, ias
 
 
-def _trace_generator(seed: int, offset: int) -> torch.Generator:
-    """Independent CPU generator of pool trace `offset` under `seed`."""
-    state = np.random.SeedSequence([seed, offset]).generate_state(1)[0]
-    return torch.Generator().manual_seed(int(state))
+def _synth_batch(n: int, seed: int, n_banks: int,
+                 device: str | torch.device) -> dram_sim.Trace:
+    """The whole 70-trace pool as one [70, n] batch on `device`: the
+    rows of `synth_spec`, each drawn on the host from its own generator
+    (seeded from `seed` and the trace's pool offset)."""
+    return synth_spec(n, seed, n_banks).synth(device)
+
+
+# counts synthesis launches the way SimEngine.dispatch_count counts
+# replay launches: `trace_batch` and every first `materialize` of a
+# declarative trace axis add one
+synth_dispatch_count = 0
+
+
+class _SynthScope:
+    """Handle yielded by `synth_dispatch_scope`: `.count` is the number
+    of synthesis launches since the scope opened (frozen at exit)."""
+
+    def __init__(self, start: int):
+        self._start = start
+        self._end: int | None = None
+
+    @property
+    def count(self) -> int:
+        cur = synth_dispatch_count if self._end is None else self._end
+        return cur - self._start
+
+
+@contextlib.contextmanager
+def synth_dispatch_scope(reset: bool = False):
+    """Scoped synthesis-launch accounting over the module-global
+    `synth_dispatch_count`: yields a handle whose `.count` is the
+    launches inside the scope; `reset=True` restores the global to its
+    entry value on exit."""
+    global synth_dispatch_count
+    start = synth_dispatch_count
+    scope = _SynthScope(start)
+    try:
+        yield scope
+    finally:
+        scope._end = synth_dispatch_count
+        if reset:
+            synth_dispatch_count = start
 
 
 def trace_batch(n: int = 8192, seed: int = 0, n_banks: int = 8,
                 device: str | torch.device = "cuda") -> dram_sim.Trace:
     """All 35 workloads x (single, multi) as one batched `Trace` with a
     [70, n] leading axis on `device` — rows ordered single-block then
-    multi-block, each in WORKLOADS order."""
-    traces = [dram_sim.synth_trace(_trace_generator(seed, off), n,
-                                   n_banks=n_banks, row_hit=rh,
-                                   write_frac=wf, inter_arrival_ns=ia,
-                                   device="cpu")
-              for off, rh, wf, ia in zip(*_pool_knobs())]
-    return dram_sim.Trace(*(torch.stack(f).to(device)
-                            for f in zip(*traces)))
+    multi-block, each in WORKLOADS order.  One synthesis launch."""
+    global synth_dispatch_count
+    synth_dispatch_count += 1
+    return _synth_batch(n, seed, n_banks, device)
+
+
+def synth_spec(n: int = 8192, seed: int = 0,
+               n_banks: int = 8) -> dram_sim.SynthSpec:
+    """The declarative `trace_batch`: the same 70-trace pool as a
+    `dram_sim.SynthSpec` (same knobs, same generator offsets, so the
+    streams are bit for bit `trace_batch`'s).  Handed to a `SimSpec` as
+    the trace axis, it is drawn once, on first use, and its cached
+    materialization replayed by every later run."""
+    offs, rhs, wfs, ias = _pool_knobs()
+    return dram_sim.SynthSpec(n=n, offsets=tuple(offs), row_hits=tuple(rhs),
+                              write_fracs=tuple(wfs),
+                              inter_arrivals=tuple(ias), seed=seed,
+                              n_banks=n_banks)
 
 
 def tenant_spec(n: int = 8192, n_streams: int = 8, seed: int = 0,
@@ -216,10 +269,10 @@ def evaluate_adaptive(table, bins, scenarios, config=None, n: int = 4096,
     axis).  The two-launch path rounds the peaks up on the host between
     them; `fused=True` runs `SimEngine.run_bracket`, which rounds them
     up on the device with no host round trip — the same evaluation to
-    device-stats tolerance.  The trace pool is materialized before the
-    launches either way: synthesis inside the launch waits for ROADMAP
-    queue A item 7.  Speedups are CPI-model speedups vs the JEDEC
-    baseline, shaped [modes, workloads, P, C]."""
+    device-stats tolerance in one replay dispatch, against two unfused;
+    either draws the pool once.
+    Speedups are CPI-model speedups vs the JEDEC baseline, shaped
+    [modes, workloads, P, C]."""
     engine = engine or SimEngine(device=device)
     config = config or TH.ThermalConfig()
     scenarios = tuple(scenarios)

@@ -48,6 +48,34 @@ the device (`_device_stats`, p99 from a `torch.topk` of static depth)
 and moves only [T, P, S] summaries to the host; stats="host" is the
 numpy reference (`_masked_stats`).  The two agree within 1e-5
 relative; the latency grid itself is identical either way.
+
+The trace axis may also be declarative, a `dram_sim.SynthSpec` (the
+workload pool's knobs, `perf_model.synth_spec`) or `TenantSpec`: the
+engine replays its materialization, drawn once on the host and cached
+on the spec (one `synth_dispatch_count` synthesis, on first use), packed
+and sharded like `Trace`s.  The draws run on CPU generators, so drawing
+inside every run, as the reference's fused synthesis does on its
+device, would only repeat host work.
+
+`mesh` (`launch.mesh.make_campaign_mesh`) shards a campaign: the
+[T]-leading per-stream tensors are padded to a multiple of the device count by repeating the last stream,
+each mesh device reorders and replays its shard through the same static
+or adaptive path as the unsharded run, and only the `want`-selected
+per-shard statistics cross back, the padded rows sliced off after the
+gather.  `run_bracket` takes the per-scenario temperature peak as an
+exact max across shards before it picks the worst bins.  One run is one
+`dispatch_count` however many shards it has; each shard is one kernel
+launch.  Lanes and cells are independent, so a sharded run is bitwise
+the unsharded one.
+
+`backend` picks the replay core: "kernel" (default: the CUDA kernels on
+a card, their plain versions on the CPU, as every `ops.py` wrapper
+decides), "merged" (`dram_sim.replay_rows_frfcfs`, the FR-FCFS
+scheduler merged into the plain static replay: plain PyTorch, so it
+raises on a CUDA engine and is a candidate on the CPU only) or "auto"
+(the attached `autotune.ReplayTuner`'s profiled choice, else "kernel").
+`autotune` profiles the tuner's candidates, which on a card vary the
+kernels' chain lanes per block.
 """
 
 from __future__ import annotations
@@ -59,11 +87,15 @@ import torch
 
 from repro_torch.core import faults as F
 from repro_torch.core import timing as T
-from repro_torch.core.dram_sim import (OPEN_FCFS, Policy, Trace,
+from repro_torch.core.autotune import ReplayConfig, ReplayTuner, replay_unit
+from repro_torch.core.dram_sim import (OPEN_FCFS, SYNTH_SPECS, Policy,
+                                       SynthSpec, TenantSpec, Trace,
                                        check_prefix_valid, frfcfs_perm,
                                        frfcfs_reorder)
 from repro_torch.core.thermal import ThermalSpec
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import CampaignMesh
+from repro_torch.launch.sharding import shard_campaign, tree_leaves, tree_map
 
 COLLECTABLE = ("latencies", "temps", "bins")
 
@@ -107,9 +139,10 @@ def _as_tables(timings, n_bins: int) -> np.ndarray:
 class SimSpec:
     """A declarative trace-replay campaign: every trace runs under every
     policy and every timing row.  `traces` is a tuple of `Trace`s (any
-    lengths; shorter ones are padded) or a single `Trace` whose fields
-    carry a leading batch axis.  `collect` keeps raw per-request grids
-    (moved to the host): "latencies" ([T, P, S, N] or [T, P, K, C, N]),
+    lengths; shorter ones are padded), a single `Trace` whose fields
+    carry a leading batch axis, or a declarative `dram_sim.SynthSpec` /
+    `TenantSpec`, replayed through its cached materialization.
+    `collect` keeps raw per-request grids (moved to the host): "latencies" ([T, P, S, N] or [T, P, K, C, N]),
     and on the adaptive path "temps" and "bins".
 
     Attaching `thermal` switches to the closed-loop replay: `timings`
@@ -128,7 +161,7 @@ class SimSpec:
     through the map.  Its range is checked here, once per campaign, on
     the host."""
 
-    traces: tuple[Trace, ...]
+    traces: tuple[Trace, ...] | SynthSpec | TenantSpec
     # [S, 6] | per-bank [S, banks, 6] | region store [S, U, 6] |
     # adaptive [K, S+1, 6] | [K, S+1, banks, 6] | [K, S+1, U, 6]
     timings: np.ndarray
@@ -160,11 +193,12 @@ class SimSpec:
             tr = (tuple(Trace(*(f[i] for f in tr))
                         for i in range(tr.arrival.shape[0]))
                   if tr.arrival.ndim == 2 else (tr,))
-        if not isinstance(tr, (tuple, list)):
-            raise NotImplementedError(
-                "declarative trace axes (SynthSpec/TenantSpec) are not "
-                "ported yet: ROADMAP queue A item 7")
-        object.__setattr__(self, "traces", tuple(tr))
+        if isinstance(tr, (tuple, list)):
+            tr = tuple(tr)
+        elif not isinstance(tr, SYNTH_SPECS):
+            raise TypeError(f"traces must be Traces, a SynthSpec or a "
+                            f"TenantSpec, got {type(tr).__name__}")
+        object.__setattr__(self, "traces", tr)
         object.__setattr__(
             self, "timings",
             _as_rows(self.timings) if self.thermal is None else
@@ -210,6 +244,22 @@ class SimSpec:
             raise ValueError("fault axis + spatial (per-bank/per-region) "
                              "static timings unsupported")
 
+    @classmethod
+    def single(cls, trace: Trace, tp: T.TimingParams,
+               policy: Policy = OPEN_FCFS, **kw) -> "SimSpec":
+        return cls(traces=(trace,), timings=tp, policies=(policy,), **kw)
+
+    @property
+    def synth(self) -> SynthSpec | TenantSpec | None:
+        """The declarative synthesis spec, when the trace axis is one."""
+        return self.traces if isinstance(self.traces, SYNTH_SPECS) else None
+
+    def trace_tuple(self, device="cpu") -> tuple[Trace, ...]:
+        """The trace axis as `Trace`s (a declarative axis through its
+        cached materialization, on `device`)."""
+        return (self.traces.materialize(device) if self.synth is not None
+                else self.traces)
+
     @property
     def fault_on(self) -> bool:
         """True when the fault axis can perturb the replay (an all-inert
@@ -254,7 +304,7 @@ class SimSpec:
         return windows, slacks, caps
 
     def _pack(self, traces, device, lead: tuple):
-        lens = [int(t.arrival.shape[0]) for t in self.traces]
+        lens = [int(t.arrival.shape[0]) for t in self.trace_tuple()]
         n = max(lens)
         arrival = torch.zeros(lead + (n,), dtype=torch.float32,
                               device=device)
@@ -275,7 +325,8 @@ class SimSpec:
     def pack_device(self, device: torch.device):
         """The FCFS streams: dense [T, N] request tensors on `device`
         plus the [T, N] validity mask (host numpy)."""
-        return self._pack(((((i,), t) for i, t in enumerate(self.traces))),
+        return self._pack(((((i,), t) for i, t in
+                            enumerate(self.trace_tuple(device)))),
                           device, (len(self.traces),))
 
     def pack(self, device: torch.device):
@@ -287,7 +338,7 @@ class SimSpec:
         windows, _, _ = self.policy_knobs()
 
         def cells():
-            for i, t in enumerate(self.traces):
+            for i, t in enumerate(self.trace_tuple()):
                 done: dict = {}
                 for j, (p, w) in enumerate(zip(self.policies, windows)):
                     key = None if w <= 1 else (int(w), p.reorder_slack_ns)
@@ -434,11 +485,12 @@ def _eff_window(arrival: np.ndarray, valid: np.ndarray, window: int,
     return max(1, min(window, eff, arrival.shape[1]))
 
 
-def _plan_entries(windows: np.ndarray, policies, arrival: np.ndarray,
-                  valid: np.ndarray) -> tuple:
+def _plan_entries(windows: np.ndarray, policies, arrival,
+                  valid) -> tuple:
     """The reorder plan: one `(window, eff, policy indices)` entry per
-    window > 1, its buffer cut to the `_eff_window` bound of the group's
-    largest slack (a larger slack can only need a deeper buffer)."""
+    window > 1, the buffer cut to the `_eff_window` bound of the group's
+    largest slack over the [T, N] arrivals (host numpy; a larger slack
+    can only need a deeper buffer)."""
     groups: dict[int, list[int]] = {}
     for i, w in enumerate(windows.tolist()):
         if w > 1:
@@ -506,78 +558,402 @@ def _masked_stats(lat: np.ndarray, valid: np.ndarray):
     return mean, vlo + (vhi - vlo) * frac
 
 
+def _shard_pad(tree, n_dev: int):
+    """Pad every [T, ...]-leading tensor of a per-stream tree to a T
+    divisible by the device count by repeating the last row (real work,
+    so padded shards stay finite; the engine slices the extra rows off
+    after the gather).  Returns (padded tree, real T)."""
+    t = int(tree_leaves(tree)[0].shape[0])
+    pad = (-t) % n_dev
+    if pad == 0:
+        return tree, t
+    return tree_map(lambda x: torch.cat(
+        [x, x[-1:].expand((pad,) + tuple(x.shape[1:]))], 0), tree), t
+
+
+def _merged_replay(arrival, bank, row, is_write, valid, timings, closed,
+                   spec: "SimSpec", plan: tuple, all_valid: bool,
+                   fault=None, region_map=None):
+    """The `backend="merged"` static core: [T, N] FCFS streams -> (lat
+    [T, P, S, N], total [T, P, S] (, counters [T, P, S, NC])) with each
+    reordering policy's FR-FCFS schedule merged into its replay
+    (`dram_sim.replay_rows_frfcfs`, one stream at a time, its pending
+    buffer cut to the group's `_eff_window` bound), and the other
+    policies replayed in arrival order by the plain replay.  Latencies
+    land in issue order, as the prepass pipeline's, so the two are
+    bitwise equal cell for cell.  Plain PyTorch: the engine runs it on
+    the CPU only.  `fault` = (fault rows [S, F_COLS], JEDEC row [6],
+    uniforms [T, N]), consumed by issue step as the prepass's."""
+    from repro_torch.core.dram_sim import replay_rows_frfcfs
+    from repro_torch.kernels.replay import ops as replay_ops
+    t, n = arrival.shape
+    p, s = len(spec.policies), timings.shape[0]
+    dev = arrival.device
+    windows, slacks, caps = spec.policy_knobs()
+    codes = spec.ileave_codes
+    n_ch, n_rk, t_burst = spec.chan
+    lat = torch.zeros((t, p, s, n), dtype=torch.float32, device=dev)
+    total = torch.zeros((t, p, s), dtype=torch.float32, device=dev)
+    cnt = (None if fault is None else torch.zeros(
+        (t, p, s, F.N_COUNTERS), dtype=torch.int32, device=dev))
+    grouped = {j for _, _, idx in plan for j in idx}
+    ident = [j for j in range(p) if j not in grouped]
+    if ident:
+        def bcast(x):
+            return x[:, None, :].expand(t, len(ident), n)
+
+        out = replay_ops.replay_grid(
+            bcast(arrival), bcast(bank), bcast(row), bcast(is_write), valid,
+            timings, closed[ident], spec.n_banks, spec.mlp_window,
+            validated=True, region_map=region_map, fault=fault,
+            chan=spec.chan, ileave=torch.as_tensor(codes[ident]))
+        lat[:, ident], total[:, ident] = out[0], out[1]
+        if fault is not None:
+            cnt[:, ident] = out[2]
+    for window, eff, idx in plan:
+        for ti in range(t):
+            for j in idx:
+                fl = (None if fault is None
+                      else (fault[0], fault[1], fault[2][ti]))
+                out = replay_rows_frfcfs(
+                    arrival[ti], bank[ti], row[ti], is_write[ti], valid[ti],
+                    timings, bool(closed[j]), window, float(slacks[j]),
+                    int(caps[j]), min(eff, n), spec.n_banks,
+                    spec.mlp_window, all_valid=all_valid, n_channels=n_ch,
+                    n_ranks=n_rk, ileave=int(codes[j]), t_burst=t_burst,
+                    fault=fl, region_map=region_map)
+                lat[ti, j], total[ti, j] = out[0], out[1]
+                if fault is not None:
+                    cnt[ti, j] = out[2].T
+    return (lat, total) + (() if fault is None else (cnt,))
+
+
+@dataclasses.dataclass
+class _Launch:
+    """What every shard of one campaign launch shares: the spec, the
+    resolved replay core and block, the reorder plan, the p99 depth,
+    the outputs wanted and the replicated inputs (host arrays, or
+    tensors on the engine's device for an unsharded launch), each
+    placed on a shard's device by `on`."""
+
+    spec: "SimSpec"
+    backend: str
+    block: int | None
+    plan: tuple
+    p99_k: int
+    want: tuple
+    timings: object
+    region_map: object = None
+    fault: tuple | None = None
+    thermal: tuple | None = None          # (scns, bins, tcfg)
+    base_row: object = None
+    n_real: int = 0
+
+    def on(self, x, dev, dtype=None):
+        return None if x is None else torch.as_tensor(x, dtype=dtype,
+                                                      device=dev)
+
+
+def _issue_order(job: _Launch, streams, dev):
+    """[t, N] FCFS streams -> [t, P, N] issue orders (the FR-FCFS
+    prepass on `dev`); host-reordered [t, P, N] streams pass through."""
+    arrival, bank, row, is_write, valid = streams
+    if arrival.dim() == 3:
+        return arrival, bank, row, is_write
+    _, slacks, caps = job.spec.policy_knobs()
+    return _reorder_prepass(arrival, bank, row, is_write, valid, slacks,
+                            caps, job.plan, job.spec.n_banks,
+                            len(job.spec.policies))
+
+
+def _static_body(job: _Launch, dev, streams, timings=None) -> dict:
+    """One shard's static replay on `dev`: every (trace, policy, timing
+    row) cell, reduced to the `job.want` outputs ("stats": masked mean /
+    p99; "lat": the raw grid); total runtime always, the fault counters
+    with a fault axis."""
+    from repro_torch.kernels.replay import ops as replay_ops
+    spec = job.spec
+    valid = streams[4]
+    timings = job.on(job.timings if timings is None else timings, dev)
+    closed = job.on(spec.closed_flags, dev)
+    rmap = job.on(job.region_map, dev)
+    if job.backend == "merged" and streams[0].dim() == 2:
+        out = _merged_replay(*streams, timings, spec.closed_flags, spec,
+                             job.plan, bool(valid.all()), job.fault, rmap)
+    else:
+        out = replay_ops.replay_grid(
+            *_issue_order(job, streams, dev), valid, timings, closed,
+            spec.n_banks, spec.mlp_window, validated=True, region_map=rmap,
+            fault=job.fault, chan=spec.chan,
+            ileave=job.on(spec.ileave_codes, dev), block_lanes=job.block)
+    lat, total = out[:2]
+    res = {"total": total}
+    if "stats" in job.want:
+        res["mean"], res["p99"] = _device_stats(lat, valid, job.p99_k)
+    if "lat" in job.want:
+        res["lat"] = lat
+    if job.fault is not None:
+        res["cnt"] = out[2]
+    return res
+
+
+def _adaptive_body(job: _Launch, dev, streams) -> dict:
+    """One shard's closed-loop replay on `dev`: every (trace, policy,
+    table stack, scenario) cell.  "stats" adds mean / p99 and the
+    thermal diagnostics the kernel reduces; "diag" the diagnostics from
+    the raw sensed temperatures and bins (the host-statistics path);
+    "lat" / "temps" / "bins" the raw grids.  Total runtime and the
+    end-of-trace bank heat always; the counters with a fault axis.  A
+    multi-channel campaign runs the plain step loop (the adaptive
+    kernel is single-channel, as the reference's)."""
+    from repro_torch.kernels.replay import ops as replay_ops
+    from repro_torch.kernels.replay import ref as replay_ref
+    spec = job.spec
+    valid = streams[4]
+    scns, bins, tcfg = (job.on(x, dev) for x in job.thermal)
+    tables = job.on(job.timings, dev)
+    closed = job.on(spec.closed_flags, dev)
+    rmap = job.on(job.region_map, dev)
+    args = (*_issue_order(job, streams, dev), valid, tables, bins, scns,
+            tcfg, closed, spec.n_banks, spec.mlp_window)
+    if spec.multi:
+        out = replay_ref.replay_grid_adaptive(
+            *args, region_map=rmap, fault=job.fault, chan=spec.chan,
+            ileave=job.on(spec.ileave_codes, dev))
+    else:
+        raw = bool({"temps", "bins", "diag"} & set(job.want))
+        out = replay_ops.replay_grid_adaptive(
+            *args, emit_raw=raw, validated=True, region_map=rmap,
+            fault=job.fault, block_lanes=job.block)
+    lat, total, temps, bin_sel, heat, diag = out[:6]
+    res = {"total": total, "bank_heat": heat}
+    if "diag" in job.want:
+        diag = _device_thermal_diag(temps, bin_sel, valid)
+    if "stats" in job.want:
+        res["mean"], res["p99"] = _device_stats(lat, valid, job.p99_k)
+    if {"stats", "diag"} & set(job.want):
+        res.update(zip(("temp_max", "temp_mean", "bin_switches"), diag))
+    for name, x in (("lat", lat), ("temps", temps), ("bins", bin_sel)):
+        if name in job.want:
+            res[name] = x
+    if job.fault is not None:
+        res["cnt"] = out[-1]
+    return res
+
+
+def _bracket(job: _Launch, shards: list) -> list:
+    """The bracket over (device, streams) shards: every shard's adaptive
+    half, the per-scenario temperature peak as an exact max across the
+    shards (on the first shard's device) plus the hysteresis margin
+    rounded up to worst-case bins (`torch.searchsorted`), then every
+    shard's static half under the JEDEC base row and each scenario's
+    worst-bin row — no host round trip in between.  Each shard's issue
+    orders are computed once, for both halves."""
+    shards = [(dev, _issue_order(job, st, dev) + (st[4],))
+              for dev, st in shards]
+    outs = [_adaptive_body(job, dev, st) for dev, st in shards]
+    dev0 = shards[0][0]
+    peak = torch.stack([o["temp_max"][:, :, 0, :job.n_real]
+                        .amax(dim=(0, 1)).to(dev0) for o in outs]).amax(0)
+    scns, bins, tcfg = (job.on(x, dev0) for x in job.thermal)
+    worst = torch.searchsorted(bins, peak + tcfg[2], side="left")
+    for (dev, st), o in zip(shards, outs):
+        tab0 = job.on(job.timings, dev)[0]      # [S+1, (B,) 6], JEDEC last
+        base = job.on(job.base_row, dev, torch.float32).expand(
+            tab0.shape[1:])
+        rows = torch.cat([base[None], tab0[worst.to(dev)]], dim=0)
+        o.update({f"static_{k}": v for k, v in
+                  _static_body(job, dev, st, rows).items()})
+        o["worst_bin"], o["temp_peak"] = worst, peak
+    return outs
+
+
+_BODIES = {"static": _static_body, "adaptive": _adaptive_body}
+
+
 @dataclasses.dataclass
 class SimEngine:
     """Compiles a `SimSpec` into one replay launch on `device` (default
-    "cuda"; raises without a card).  `dispatch_count` increments once
-    per `run`.  `reorder` says where FR-FCFS issue orders are computed:
-    "device" (the scheduler on the engine's device, before the launch)
-    or "host" (`dram_sim.frfcfs_reorder` while packing)."""
+    "cuda"; raises without a card), or one launch per shard of a
+    campaign `mesh`.  `dispatch_count` increments once per `run` (and
+    `run_bracket`).  `reorder` says where FR-FCFS issue orders are
+    computed: "device" (the scheduler on the engine's device, before
+    the launch) or "host" (`dram_sim.frfcfs_reorder` while packing).
+    `backend` ("kernel", "merged" or "auto"), `tuner` and `mesh` as in
+    the module docstring; a mesh needs device statistics and device
+    reordering, and carries no fault axis (the reference's fault
+    campaigns are single-device)."""
 
     device: str | torch.device = "cuda"
     dispatch_count: int = 0
     stats: str = "device"
     reorder: str = "device"
-    mesh: object = None
+    mesh: CampaignMesh | None = None
+    backend: str = "kernel"
+    tuner: ReplayTuner | None = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        if self.backend not in ("kernel", "merged", "auto"):
+            raise ValueError(f"backend must be 'kernel', 'merged' or "
+                             f"'auto': {self.backend}")
         if self.stats not in ("device", "host"):
             raise ValueError(f"stats must be 'device' or 'host': {self.stats}")
         if self.reorder not in ("device", "host"):
             raise ValueError(f"reorder must be 'device' or 'host': "
                              f"{self.reorder}")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "sharded campaigns (mesh) are not ported yet: ROADMAP "
-                "queue A item 10b")
+            if not isinstance(self.mesh, CampaignMesh) \
+                    or "campaign" not in self.mesh.axis_names:
+                raise TypeError("mesh must be a launch.mesh.CampaignMesh "
+                                "(make_campaign_mesh)")
+            if self.stats != "device" or self.reorder != "device":
+                raise ValueError("sharded campaigns need stats='device' "
+                                 "and reorder='device'")
+        if self.backend == "merged":
+            self._check_merged()
+        self.device = resolve_device(self.device)
+        self.shard_shape = None     # (devices, streams a shard, N) last run
+
+    def _check_merged(self) -> None:
+        devs = [torch.device(self.device)] + list(
+            self.mesh.devices if self.mesh is not None else ())
+        if any(d.type == "cuda" for d in devs):
+            raise ValueError(
+                "backend 'merged' is the plain PyTorch replay: on a CUDA "
+                "device it would send the card to the plain version of a "
+                "ported kernel, which the port never does (ROADMAP North "
+                "star, Kernels); use backend='kernel'")
+
+    # ------------------------------------------------------------ tuning
+    def _tuner_key(self, spec: SimSpec):
+        """(campaign-kind unit, request count): the tuner table key.
+        Region-compressed campaigns fold the region count into the size."""
+        n = (spec.traces.n if spec.synth is not None else
+             max(int(t.arrival.shape[0]) for t in spec.traces))
+        adaptive = spec.thermal is not None
+        banked = (spec.timings.ndim - (1 if adaptive else 0)) == 3
+        regioned = spec.region_map is not None
+        if regioned:
+            n *= spec.region_map.shape[-1] // spec.n_banks
+        return replay_unit(adaptive, banked, channels=spec.multi,
+                           regioned=regioned), n
+
+    def _resolve(self, spec: SimSpec, config: ReplayConfig | None = None):
+        """(backend, block lanes) for one run: an explicit
+        `config` wins; otherwise backend="auto" with a tuner answers
+        with the profiled candidate of this campaign's (kind, size) bin
+        (candidate 0 on unprofiled bins), and "auto" without one is the
+        kernel at its default block."""
+        from repro_torch.kernels.replay import ops as replay_ops
+        cfg = config
+        if cfg is None and self.backend == "auto" and self.tuner is not None:
+            cfg = self.tuner.lookup(*self._tuner_key(spec))
+        backend, bs = ((self.backend, None) if cfg is None
+                       else (cfg.backend, cfg.block_rows))
+        if backend == "auto":
+            backend = "kernel"
+        if backend == "merged":
+            self._check_merged()
+        replay_ops.check_block_lanes("SimEngine", bs)
+        return backend, bs
+
+    def autotune(self, spec: SimSpec, reps: int = 3) -> ReplayConfig:
+        """Profile every candidate replay configuration on this campaign
+        and record the winner in the tuner's table (persisted to disk),
+        which `backend="auto"` consults on later runs of any campaign of
+        the same kind and size bin.  Creates a `ReplayTuner` for the
+        engine's platform when none is attached.  Every profiling run counts in `dispatch_count` like any
+        other, so call this during warm-up, not in a measured section."""
+        import time
+        if self.tuner is None:
+            self.tuner = ReplayTuner(platform=self.device.type)
+        unit, n = self._tuner_key(spec)
+
+        def measure(cfg: ReplayConfig) -> float:
+            self.run(spec, config=cfg)            # build + warm
+            best = np.inf
+            for _ in range(max(1, reps)):
+                t0 = time.perf_counter()
+                self.run(spec, config=cfg)        # ends on a host copy
+                best = min(best, time.perf_counter() - t0)
+            return best
+
+        cfg, _ = self.tuner.tune(unit, n, measure)
+        return cfg
+
+    # ----------------------------------------------------------- streams
+    def _streams(self, spec: SimSpec, where: str):
+        """(per-stream tree, valid [T, N] host, reorder plan): the packed
+        streams on the engine's device — [T, N] FCFS order, or [T, P, N]
+        host-reordered — with the valid mask, checked once (bank range,
+        prefix mask; rows for a region map)."""
+        from repro_torch.kernels.replay import ops as replay_ops
+        dev = self.device
+        windows, _, _ = spec.policy_knobs()
+        rows = spec.region_map is not None
+        if self.reorder == "host":
+            arrival, bank, row, is_write, valid, _ = spec.pack(dev)
+            plan = ()
+        else:
+            arrival, bank, row, is_write, valid = spec.pack_device(dev)
+            plan = (_plan_entries(windows, spec.policies,
+                                  arrival.cpu().numpy(), valid)
+                    if (windows > 1).any() else ())
+        replay_ops.check_data(where, bank, valid, spec.n_banks,
+                              row if rows else None)
+        return ((arrival, bank, row, is_write,
+                 torch.as_tensor(valid, device=dev)), valid, plan)
 
     def reorder_streams(self, spec: SimSpec, where: str = "SimEngine"):
         """The campaign's [T, P, N] request tensors in each policy's
         issue order on the engine's device, the [T, N] valid mask (host
-        numpy) and the [P] closed-page flags.  The streams are checked
-        once (bank range, prefix mask; rows for a region map) before the
-        scheduler runs."""
-        from repro_torch.kernels.replay import ops as replay_ops
-        dev = self.device
-        rows = spec.region_map is not None
-        if self.reorder == "host":
-            arrival, bank, row, is_write, valid, closed = spec.pack(dev)
-            replay_ops.check_data(where, bank, valid, spec.n_banks,
-                                  row if rows else None)
-            return arrival, bank, row, is_write, valid, closed
-        arrival, bank, row, is_write, valid = spec.pack_device(dev)
-        replay_ops.check_data(where, bank, valid, spec.n_banks,
-                              row if rows else None)
-        windows, slacks, caps = spec.policy_knobs()
-        plan = (_plan_entries(windows, spec.policies,
-                              arrival.cpu().numpy(), valid)
-                if (windows > 1).any() else ())
-        streams = _reorder_prepass(
-            arrival, bank, row, is_write, torch.as_tensor(valid, device=dev),
-            slacks, caps, plan, spec.n_banks, len(spec.policies))
-        return streams + (valid, spec.closed_flags)
+        numpy) and the [P] closed-page flags (a declarative axis through
+        its materialization)."""
+        streams, valid, plan = self._streams(spec, where)
+        job = _Launch(spec, "kernel", None, plan, 0, (), None)
+        return _issue_order(job, streams, self.device) + (
+            valid, spec.closed_flags)
 
-    def run(self, spec: SimSpec, fault_uniforms=None) -> SimResult:
-        """One replay launch over the whole campaign grid.  The streams
-        are checked once, before the reorder and the launch (the region
-        map was checked by `SimSpec`).  With a fault axis the error
-        uniforms are a [T, N] float32 draw from a generator on the
-        engine's device seeded with `FaultSpec.seed`, consumed by issue
-        position; `fault_uniforms` ([T, N] at the padded stream length)
-        replaces that draw."""
-        from repro_torch.kernels.replay import ops as replay_ops
-        from repro_torch.kernels.replay import ref as replay_ref
-        arrival, bank, row, is_write, valid, closed = self.reorder_streams(
-            spec, "SimEngine.run")
+    def _dispatch(self, kind: str, job: _Launch, per_stream) -> dict:
+        """Run one campaign launch and bring its outputs to the host:
+        on the engine's device, or — with a mesh — one shard per mesh
+        device (the per-stream tree padded to a device multiple by
+        repeating the last stream, each shard's streams moved to its
+        device), the outputs gathered and the padded rows sliced off.
+        Per-scenario outputs of the bracket are global."""
+        if self.mesh is None:
+            shards, t = [(self.device, per_stream)], None
+        else:
+            per_stream, t = _shard_pad(per_stream, self.mesh.size)
+            t_pad = int(tree_leaves(per_stream)[0].shape[0])
+            self.shard_shape = (self.mesh.size, t_pad // self.mesh.size,
+                                int(per_stream[0].shape[-1]))
+            shards = list(zip(self.mesh.devices,
+                              shard_campaign(self.mesh, per_stream)))
+        outs = (_bracket(job, shards) if kind == "bracket" else
+                [_BODIES[kind](job, dev, st) for dev, st in shards])
+        glob = {"worst_bin", "temp_peak"}
+        return {k: (outs[0][k].cpu().numpy() if k in glob else np.concatenate(
+                    [o[k].cpu().numpy() for o in outs], 0)[:t])
+                for k in outs[0]}
+
+    # --------------------------------------------------------------- run
+    def run(self, spec: SimSpec, fault_uniforms=None,
+            config: ReplayConfig | None = None) -> SimResult:
+        """One replay launch over the whole campaign grid (one per shard
+        under a mesh).  The streams are checked once, before the reorder
+        and the launch (the region map was checked by `SimSpec`).  With
+        a fault axis the error uniforms are a [T, N] float32 draw from a
+        generator on the engine's device seeded with `FaultSpec.seed`,
+        consumed by issue position; `fault_uniforms` ([T, N] at the
+        padded stream length) replaces that draw.  `config` overrides
+        the engine's backend for this run."""
+        backend, bs = self._resolve(spec, config)
+        if self.mesh is not None and spec.fault_on:
+            raise ValueError("fault campaigns are single-device: run a "
+                             "faulted spec on an engine without a mesh")
+        per_stream, valid, plan = self._streams(spec, "SimEngine.run")
         dev = self.device
-        regioned = spec.region_map is not None
-        valid_d = torch.as_tensor(valid, device=dev)
-        codes = torch.as_tensor(spec.ileave_codes, device=dev)
-        closed_d = torch.as_tensor(closed, device=dev)
-        timings = torch.as_tensor(spec.timings, device=dev)
-        rmap = (torch.as_tensor(spec.region_map, device=dev) if regioned
-                else None)
         fa = spec.faults
         nf = 0 if fa is None else len(fa)
         fault = None
@@ -595,65 +971,53 @@ class SimEngine:
                                      f"([T, N] padded), got {tuple(u.shape)}")
             fault = (torch.as_tensor(fa.pack(), device=dev), u)
         self.dispatch_count += 1
-        extra = {}
+        job = _Launch(spec, backend, bs, plan, _p99_k(valid), (),
+                      torch.as_tensor(spec.timings, device=dev),
+                      region_map=spec.region_map)
+        host = self.stats == "host"
         if spec.thermal is None:
             s_rows = spec.timings.shape[0]
             if fault is not None:
                 # lane l = s*F + f replays timing row s under fault row f;
                 # the last timing row is the JEDEC fallback
-                timings = timings.repeat_interleave(nf, dim=0)
-                fault = (fault[0].repeat(s_rows, 1), timings[-1], fault[1])
-            out = replay_ops.replay_grid(
-                arrival, bank, row, is_write, valid_d, timings, closed_d,
-                spec.n_banks, spec.mlp_window, validated=True,
-                region_map=rmap, fault=fault, chan=spec.chan, ileave=codes)
-            lat, total = out[:2]
-            lead = (s_rows, nf) if fault is not None else None
+                job.timings = job.timings.repeat_interleave(nf, dim=0)
+                job.fault = (fault[0].repeat(s_rows, 1), job.timings[-1],
+                             fault[1])
+            job.want = (("lat",) if host else ("stats",) + (
+                ("lat",) if "latencies" in spec.collect else ()))
+            out = self._dispatch("static", job, per_stream)
+            extra = {}
         else:
-            scns, bins, tcfg = spec.thermal.pack()
-            raw = self.stats == "host" or "temps" in spec.collect \
-                or "bins" in spec.collect
-            if spec.multi:        # the adaptive kernel is single-channel
-                out = replay_ref.replay_grid_adaptive(
-                    arrival, bank, row, is_write, valid_d, timings, bins,
-                    scns, tcfg, closed_d, spec.n_banks, spec.mlp_window,
-                    region_map=rmap, fault=fault, chan=spec.chan,
-                    ileave=codes)
-            else:
-                out = replay_ops.replay_grid_adaptive(
-                    arrival, bank, row, is_write, valid_d, timings, bins,
-                    scns, tcfg, closed_d, spec.n_banks, spec.mlp_window,
-                    emit_raw=raw, validated=True, region_map=rmap,
-                    fault=fault)
-            lat, total, temps, bin_sel, heat, diag = out[:6]
-            lead = None
-            if self.stats == "host":
-                diag = _device_thermal_diag(temps, bin_sel, valid_d)
-            extra = dict(zip(("temp_max", "temp_mean", "bin_switches"),
-                             (x.cpu().numpy() for x in diag)))
-            extra["bank_heat"] = heat.cpu().numpy()
-            for name, x in (("temps", temps), ("bins", bin_sel)):
+            job.fault = fault
+            job.thermal = spec.thermal.pack()
+            job.want = (("lat", "temps", "bins", "diag") if host else
+                        ("stats",) + tuple(
+                            x for x, c in (("lat", "latencies"),
+                                           ("temps", "temps"),
+                                           ("bins", "bins"))
+                            if c in spec.collect))
+            out = self._dispatch("adaptive", job, per_stream)
+            extra = {k: out[k] for k in ("temp_max", "temp_mean",
+                                         "bin_switches", "bank_heat")}
+            for name in ("temps", "bins"):
                 if name in spec.collect:
-                    extra[name] = x.cpu().numpy()
-        if self.stats == "host":
-            lat_h = lat.cpu().numpy()
-            mean, p99 = _masked_stats(lat_h, valid)
+                    extra[name] = out[name]
+        if host:
+            mean, p99 = _masked_stats(out["lat"], valid)
         else:
-            mean, p99 = (x.cpu().numpy()
-                         for x in _device_stats(lat, valid_d, _p99_k(valid)))
-            lat_h = (lat.cpu().numpy() if "latencies" in spec.collect
-                     else None)
+            mean, p99 = out["mean"], out["p99"]
         res = dict(mean_latency_ns=mean, p99_latency_ns=p99,
-                   total_ns=total.cpu().numpy(),
-                   latencies=(lat_h if "latencies" in spec.collect
+                   total_ns=out["total"],
+                   latencies=(out["lat"] if "latencies" in spec.collect
                               else None), **extra)
         if fault is not None:
-            res["fault_counters"] = out[-1].cpu().numpy()
-            if lead is not None:
+            res["fault_counters"] = out["cnt"]
+            if spec.thermal is None:
                 # unflatten the static (timing x fault) lanes:
                 # [T, P, S*F, ...] -> [T, P, S, F, ...]
                 res = {k: (None if x is None else
-                           x.reshape(x.shape[:2] + lead + x.shape[3:]))
+                           x.reshape(x.shape[:2] + (s_rows, nf)
+                                     + x.shape[3:]))
                        for k, x in res.items()}
         elif fa is not None:
             # an all-inert spec: the unfaulted grid repeated along F
@@ -667,24 +1031,24 @@ class SimEngine:
         return SimResult(spec=spec, valid=valid, **res)
 
     def run_bracket(self, spec: SimSpec, base_row,
-                    n_real: int | None = None) -> dict:
+                    n_real: int | None = None,
+                    config: ReplayConfig | None = None) -> dict:
         """The adaptive-vs-static-worst-case bracket of
         `perf_model.evaluate_adaptive` as one engine call: the adaptive
         campaign runs, its per-scenario temperature peaks (max over
         traces and policies of the first `n_real` scenarios, default
-        all) plus the hysteresis margin round up to worst-case bins on
-        the device (`torch.searchsorted`), and the static campaign
-        replays `base_row` followed by each scenario's worst-bin row —
-        two launches with no host round trip between them (the streams
-        are checked once, before the first).
+        all; under a mesh an exact max across shards) plus the
+        hysteresis margin round up to worst-case bins on the device
+        (`torch.searchsorted`), and the static campaign replays
+        `base_row` followed by each scenario's worst-bin row — two
+        launches (per shard) with no host round trip between them (the
+        streams are checked once, before the first).
 
         `spec` must be adaptive with one table stack.  Returns numpy
         dicts {"adaptive": mean/p99/total/temp_max/temp_mean/
         bin_switches/bank_heat, "static": mean/p99/total over the
         [1 + n_real] rows, "worst_bin" [n_real], "temp_peak" [n_real],
         "valid"}."""
-        from repro_torch.kernels.replay import ops as replay_ops
-        from repro_torch.kernels.replay import ref as replay_ref
         if spec.thermal is None or spec.timings.shape[0] != 1:
             raise ValueError("run_bracket needs an adaptive spec with one "
                              "table stack")
@@ -694,50 +1058,39 @@ class SimEngine:
         if spec.region_map is not None:
             raise ValueError("run_bracket replays per-module or per-bank "
                              "stacks, not a region map")
+        backend, bs = self._resolve(spec, config)
+        per_stream, valid, plan = self._streams(spec, "run_bracket")
         dev = self.device
-        arrival, bank, row, is_write, valid, closed = self.reorder_streams(
-            spec, "run_bracket")
-        valid_d = torch.as_tensor(valid, device=dev)
-        codes = torch.as_tensor(spec.ileave_codes, device=dev)
-        closed_d = torch.as_tensor(closed, device=dev)
-        tables = torch.as_tensor(spec.timings, device=dev)
         # every host-to-device copy before the first launch: a copy from
         # pageable host memory waits for the stream
-        scns, bins, tcfg = (torch.as_tensor(x, device=dev)
-                            for x in spec.thermal.pack())
-        n_real = scns.shape[0] if n_real is None else int(n_real)
-        tab0 = tables[0]                      # [S+1, (B,) 6], JEDEC last
-        base = torch.as_tensor(base_row, dtype=torch.float32,
-                               device=dev).expand(tab0.shape[1:])
-        k = _p99_k(valid)
+        thermal = tuple(torch.as_tensor(x, device=dev)
+                        for x in spec.thermal.pack())
+        n_real = thermal[0].shape[0] if n_real is None else int(n_real)
         self.dispatch_count += 1
-        if spec.multi:            # the adaptive kernel is single-channel
-            out = replay_ref.replay_grid_adaptive(
-                arrival, bank, row, is_write, valid_d, tables, bins, scns,
-                tcfg, closed_d, spec.n_banks, spec.mlp_window,
-                chan=spec.chan, ileave=codes)
-        else:
-            out = replay_ops.replay_grid_adaptive(
-                arrival, bank, row, is_write, valid_d, tables, bins, scns,
-                tcfg, closed_d, spec.n_banks, spec.mlp_window,
-                validated=True)
-        lat, total, _, _, heat, (tmax, tmean, sw) = out
-        mean_a, p99_a = _device_stats(lat, valid_d, k)
-        peak = tmax[:, :, 0, :n_real].amax(dim=(0, 1))
-        worst = torch.searchsorted(bins, peak + tcfg[2], side="left")
-        rows = torch.cat([base[None], tab0[worst]], dim=0)
-        lat_s, total_s = replay_ops.replay_grid(
-            arrival, bank, row, is_write, valid_d, rows, closed_d,
-            spec.n_banks, spec.mlp_window, validated=True, chan=spec.chan,
-            ileave=codes)
-        mean_s, p99_s = _device_stats(lat_s, valid_d, k)
+        job = _Launch(spec, backend, bs, plan, _p99_k(valid), ("stats",),
+                      torch.as_tensor(spec.timings, device=dev),
+                      thermal=thermal,
+                      base_row=torch.as_tensor(base_row, dtype=torch.float32,
+                                               device=dev), n_real=n_real)
+        out = self._dispatch("bracket", job, per_stream)
+        return {"adaptive": {k: out[k] for k in (
+                    "mean", "p99", "total", "temp_max", "temp_mean",
+                    "bin_switches", "bank_heat")},
+                "static": {k: out[f"static_{k}"]
+                           for k in ("mean", "p99", "total")},
+                "worst_bin": out["worst_bin"], "temp_peak": out["temp_peak"],
+                "valid": valid}
 
-        def host(**d):
-            return {name: x.cpu().numpy() for name, x in d.items()}
 
-        return {"adaptive": host(mean=mean_a, p99=p99_a, total=total,
-                                 temp_max=tmax, temp_mean=tmean,
-                                 bin_switches=sw, bank_heat=heat),
-                "static": host(mean=mean_s, p99=p99_s, total=total_s),
-                "worst_bin": worst.cpu().numpy(),
-                "temp_peak": peak.cpu().numpy(), "valid": valid}
+_DEFAULT: dict[str, SimEngine] = {}
+
+
+def default_engine(device: str | torch.device = "cuda") -> SimEngine:
+    """The shared engine of the `dram_sim.simulate` shim on `device`:
+    the bitwise reference configuration (host statistics, host
+    reordering)."""
+    dev = resolve_device(device)
+    if str(dev) not in _DEFAULT:
+        _DEFAULT[str(dev)] = SimEngine(device=dev, stats="host",
+                                       reorder="host")
+    return _DEFAULT[str(dev)]

@@ -131,3 +131,13 @@ def refresh_grid(lo_ms: float = 8.0, hi_ms: float = 512.0) -> np.ndarray:
     """Refresh-interval sweep grid (Fig. 2a), 8 ms steps."""
     return np.arange(lo_ms, hi_ms + REFRESH_STEP_MS / 2, REFRESH_STEP_MS,
                      dtype=np.float32)
+
+
+def combos_with_trefi(combos: np.ndarray,
+                      trefi_ms: Sequence[float] | np.ndarray) -> np.ndarray:
+    """Replace the tREFI column, broadcasting per-module safe intervals:
+    [C, 5] combos x [M] intervals -> [M, C, 5]."""
+    out = np.repeat(combos[None, :, :], len(np.atleast_1d(trefi_ms)),
+                    axis=0).copy()
+    out[..., 4] = np.asarray(trefi_ms, dtype=np.float32)[:, None]
+    return out

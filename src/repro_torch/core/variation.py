@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -94,6 +95,28 @@ class Population(NamedTuple):
     def to(self, device: str | torch.device) -> "Population":
         return Population(self.cells.to(device))
 
+    def module(self, i: int) -> torch.Tensor:
+        """Module i's cells as [chips * banks * K, 5]."""
+        return self.cells[i].reshape(-1, self.cells.shape[-1])
+
+    def params(self):
+        """The cells as a `charge.CellParams` of [modules, chips, banks,
+        K] fields."""
+        from repro_torch.core.charge import CellParams
+        return CellParams.unstack(self.cells)
+
+    def with_cells(self, cells) -> "Population":
+        """Same hierarchy, new per-cell parameters (the hook a drift
+        model uses to feed aged cells back through the unchanged
+        profile -> table -> replay pipeline); the shape must match, and
+        the cells keep this population's dtype and device."""
+        cells = torch.as_tensor(cells)
+        if tuple(cells.shape) != tuple(self.cells.shape):
+            raise ValueError(f"with_cells: shape {tuple(cells.shape)} != "
+                             f"{tuple(self.cells.shape)}")
+        return Population(cells.to(dtype=self.cells.dtype,
+                                   device=self.cells.device))
+
 
 def _randn(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32)
@@ -143,3 +166,67 @@ def sample_population(generator: torch.Generator,
                                FIELD_WEAK_SIGNS)
         cells = cells * grad[None, None, None, :, :]
     return Population(cells=cells.to(dev))
+
+
+def field_medians(cfg: VariationConfig = VariationConfig()) -> np.ndarray:
+    """[5] population medians in the stacked `CellParams` column order."""
+    return np.array([cfg.mu_tau_r, cfg.mu_xfer, cfg.mu_tau_ret85,
+                     cfg.mu_tau_p, cfg.mu_tau_w], np.float32)
+
+
+def field_sigmas(cfg: VariationConfig = VariationConfig()) -> np.ndarray:
+    """[5] total compound ln-sigmas per field: the hierarchical spread
+    (module + chip + bank + cell tail) scaled by each field's `k_*`
+    factor, the compound the `worst_case_reference` cell is `quantile`
+    sigmas out on."""
+    s_tot = cfg.s_module + cfg.s_chip + cfg.s_bank + cfg.s_cell
+    return s_tot * np.array([cfg.k_tau_r, cfg.k_xfer, cfg.k_tau_ret,
+                             cfg.k_tau_p, cfg.k_tau_w], np.float32)
+
+
+def _weak_z(cells, cfg: VariationConfig) -> np.ndarray:
+    """Per-field weak-signed z-scores of [..., 5] cells, in float64."""
+    cells = np.asarray(torch.as_tensor(cells).cpu(), np.float64)
+    return (np.asarray(FIELD_WEAK_SIGNS) * np.log(cells / field_medians(cfg))
+            / field_sigmas(cfg))
+
+
+def compound_quantile(cells, cfg: VariationConfig = VariationConfig()
+                      ) -> np.ndarray:
+    """Per-cell realised compound quantile: the largest q such that the
+    `worst_case_reference(quantile=q)` design cell is at least as weak
+    as this cell on every field at once (min over the per-field
+    weak-signed z-scores).  `compound_quantile(pop.cells, cfg).max()`
+    is the population's realised design point, which
+    `guardband.design_quantile` must exceed."""
+    return _weak_z(cells, cfg).min(-1)
+
+
+def weakness_score(cells, cfg: VariationConfig = VariationConfig()
+                   ) -> np.ndarray:
+    """Per-cell scalar weakness in [0, inf): the mean over fields of
+    the positive part of the weak-signed z-score (0 = at or better than
+    the median on every field)."""
+    return np.clip(_weak_z(cells, cfg), 0.0, None).mean(-1).astype(
+        np.float32)
+
+
+def worst_case_reference(cfg: VariationConfig = VariationConfig(),
+                         quantile: float = 4.0,
+                         device: str | torch.device = "cpu"
+                         ) -> torch.Tensor:
+    """The manufacturer's worst-case design cell, [1, 5] float32:
+    `quantile` sigmas out on every parameter at once.  JEDEC timings
+    must keep this cell error-free at 85C, the guarantee AL-DRAM
+    preserves (paper Sec. 4)."""
+    s_tot = cfg.s_module + cfg.s_chip + cfg.s_bank + cfg.s_cell
+
+    def f(k):
+        return float(np.exp(np.float32(quantile * s_tot * k)))
+
+    return torch.tensor([[cfg.mu_tau_r * f(cfg.k_tau_r),
+                          cfg.mu_xfer / f(cfg.k_xfer),
+                          cfg.mu_tau_ret85 / f(cfg.k_tau_ret),
+                          cfg.mu_tau_p * f(cfg.k_tau_p),
+                          cfg.mu_tau_w * f(cfg.k_tau_w)]],
+                        dtype=torch.float32, device=device)

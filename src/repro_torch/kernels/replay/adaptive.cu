@@ -702,8 +702,16 @@ auto pick(bool regioned, bool faulted) {
                              : adaptive_kernel<false, false, NB>);
 }
 
-int block_lanes(int lanes) {
-  return lanes < kMaxLanes ? ((lanes + 31) / 32) * 32 : kMaxLanes;
+// Chain lanes of a block: the lanes rounded up to a warp, at most
+// kMaxLanes or the caller's cap (32, 64 or 128; 0 keeps kMaxLanes).  Lanes
+// are independent, so the block size changes no output.
+int block_lanes(int lanes, int cap) {
+  const int top = cap > 0 ? cap : kMaxLanes;
+  return lanes < top ? ((lanes + 31) / 32) * 32 : top;
+}
+
+bool valid_cap(int cap) {
+  return cap == 0 || cap == 32 || cap == 64 || cap == kMaxLanes;
 }
 
 // The launch plan: chunk length and table staging, from shared memory.
@@ -713,8 +721,8 @@ struct Plan {
 };
 
 Plan plan(int lanes, int n_edges, int n_rows, int n_banks, int mlp_window,
-          bool banked, bool regioned, bool faulted) {
-  const long long lb = block_lanes(lanes);
+          bool banked, bool regioned, bool faulted, int cap) {
+  const long long lb = block_lanes(lanes, cap);
   const long long fixed = (kScnRows + (faulted ? kFaultRows : 0)) * lb +
                           n_edges + (4LL * n_banks + mlp_window) * lb;
   const long long tab =
@@ -743,7 +751,8 @@ int set_smem(const void* kern, long long smem) {
 // success); the kernel runs asynchronously on `stream` (a cudaStream_t).
 // temps_out and bins_out may be NULL when emit_raw is 0, region_map when
 // n_regions is 0 (variants a and b); fault, uniforms and counters are all
-// NULL (variants a-c) or all given (variant d).
+// NULL (variants a-c) or all given (variant d).  max_lanes caps the chain
+// lanes of a block (32, 64 or 128; 0 keeps the default, block_lanes).
 extern "C" int adaptive_launch(
     const float* closed, const float* arrival, const int* bank,
     const int* row, const int* is_write, const int* valid,
@@ -753,18 +762,19 @@ extern "C" int adaptive_launch(
     float* tmean_out, int* sw_out, float* heat_out, float* temps_out,
     int* bins_out, int* counters, int g, int n, int lanes, int n_edges,
     int n_rows, int n_banks, int mlp_window, int banked, int n_regions,
-    int map_per_lane, int emit_raw, void* stream) {
+    int map_per_lane, int emit_raw, int max_lanes, void* stream) {
   const bool faulted = fault != nullptr;
   const bool regioned = n_regions > 0;
   if (g <= 0 || n <= 0 || lanes <= 0 || n_edges <= 0 || n_rows <= 0 ||
       n_banks <= 0 || n_banks > kMaxBanks || mlp_window <= 0 ||
       n_regions < 0 || (regioned && (!banked || region_map == nullptr)) ||
       (emit_raw && (temps_out == nullptr || bins_out == nullptr)) ||
-      (faulted && (uniforms == nullptr || counters == nullptr)))
+      (faulted && (uniforms == nullptr || counters == nullptr)) ||
+      !valid_cap(max_lanes))
     return (int)cudaErrorInvalidValue;
-  const int lb = block_lanes(lanes);
+  const int lb = block_lanes(lanes, max_lanes);
   const Plan pl = plan(lanes, n_edges, n_rows, n_banks, mlp_window,
-                       banked != 0, regioned, faulted);
+                       banked != 0, regioned, faulted, max_lanes);
   if (pl.chunk == 0) return (int)cudaErrorInvalidValue;
   auto kern = n_banks == kFewBanks ? pick<kFewBanks>(regioned, faulted)
                                    : pick<kMaxBanks>(regioned, faulted);
@@ -784,16 +794,18 @@ extern "C" int adaptive_launch(
 
 // The launch plan of `adaptive_launch` for these sizes: out[0] chunk
 // length (0: no plan fits), out[1] tables staged, out[2] shared bytes,
-// out[3] threads per block.
+// out[3] threads per block, out[4] chain lanes per block.
 extern "C" void adaptive_plan(int lanes, int n_edges, int n_rows,
                               int n_banks, int mlp_window, int banked,
-                              int regioned, int faulted, int* out) {
+                              int regioned, int faulted, int max_lanes,
+                              int* out) {
   const Plan pl = plan(lanes, n_edges, n_rows, n_banks, mlp_window,
-                       banked != 0, regioned != 0, faulted != 0);
+                       banked != 0, regioned != 0, faulted != 0, max_lanes);
   out[0] = pl.chunk;
   out[1] = pl.stage_tab;
   out[2] = (int)pl.smem;
-  out[3] = block_lanes(lanes) + kProducers;
+  out[3] = block_lanes(lanes, max_lanes) + kProducers;
+  out[4] = block_lanes(lanes, max_lanes);
 }
 
 // The stream terms alone (the producers' stage, for tests): dt and decay
@@ -809,7 +821,7 @@ extern "C" int adaptive_terms_launch(
       (faulted && (alpha_out == nullptr || noise_out == nullptr ||
                    flags_out == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int lb = block_lanes(lanes);
+  const int lb = block_lanes(lanes, 0);
   const int chunk = 64;
   const long long smem =
       4LL * ((kScnRows + (faulted ? kFaultRows : 0)) * lb + kReqWords * chunk +

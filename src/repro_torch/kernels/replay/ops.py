@@ -27,7 +27,10 @@ JEDEC column [6], and adds the [N_COUNTERS, G, lanes] int32 counters
 `replay_blocks` also takes a multi-channel geometry, `chan` =
 (n_channels, n_ranks, t_burst) with a per-cell interleave code column
 [G] (variant d, with any timing layout and with faults); the adaptive
-kernel is single-channel, as the reference's.
+kernel is single-channel, as the reference's.  Both kernels and their
+grid wrappers take `block_lanes` (32, 64 or 128 chain lanes per block;
+None keeps the kernel's own choice), the replay tuner's lever
+(`core.autotune`): lanes are independent, so it changes no output.
 
 The region map's range is a property of the campaign: `SimSpec` checks
 it once on the host and `SimEngine` launches with `validated=True`.  A
@@ -63,41 +66,58 @@ from repro_torch.kernels.replay import ref
 MAX_BANKS = 16
 # the shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
+# the chain lanes per block a caller may ask of replay.cu / adaptive.cu
+# (`block_lanes=`; None keeps each kernel's default, at most 128)
+BLOCK_LANES = (32, 64, 128)
+
+
+def check_block_lanes(where: str, block_lanes) -> int:
+    """`block_lanes` (None, 32, 64 or 128) -> the C entry point's cap (0:
+    the kernel's default); anything else raises, on every device."""
+    if block_lanes is None:
+        return 0
+    if isinstance(block_lanes, bool) or block_lanes not in BLOCK_LANES:
+        raise ValueError(f"{where}: block_lanes must be None or one of "
+                         f"{BLOCK_LANES}, got {block_lanes!r}")
+    return int(block_lanes)
 
 
 def _replay_lib() -> ctypes.CDLL:
     lib = build.load("replay_blocks")
     lib.replay_launch.argtypes = [ctypes.c_void_p] * 15 \
-        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
-    lib.replay_smem_bytes.argtypes = [ctypes.c_int] * 6
+        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.replay_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.replay_smem_bytes.restype = ctypes.c_int
     lib.replay_launch.restype = ctypes.c_int
-    lib.replay_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.replay_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.replay_plan.restype = None
     return lib
 
 
 def replay_plan(s_rows: int, n_banks: int, mlp_window: int, n_cols: int,
                 faulted: bool, n_channels: int = 1,
-                n_ranks: int = 1) -> dict:
+                n_ranks: int = 1, block_lanes: int | None = None) -> dict:
     """replay.cu's launch plan for these sizes (n_cols: 0 for module
     rows, else the tile's columns): the chunk of requests per buffer,
     whether the lanes' timing tile is staged in shared memory, the
-    shared bytes and the threads per block (chain lanes + producer
-    warps).  Needs the built library."""
-    out = (ctypes.c_int * 4)()
+    shared bytes, the threads per block (chain lanes + producer warps)
+    and the chain lanes per block.  Needs the built library."""
+    out = (ctypes.c_int * 5)()
     _replay_lib().replay_plan(s_rows, n_banks, mlp_window, n_cols,
-                              int(faulted), n_channels, n_ranks, out)
+                              int(faulted), n_channels, n_ranks,
+                              check_block_lanes("replay_plan", block_lanes),
+                              out)
     return {"chunk": out[0], "tile_staged": bool(out[1]),
-            "smem_bytes": out[2], "threads": out[3]}
+            "smem_bytes": out[2], "threads": out[3], "lanes": out[4]}
 
 
 def _adaptive_lib() -> ctypes.CDLL:
     lib = build.load("adaptive_blocks")
     lib.adaptive_launch.argtypes = [ctypes.c_void_p] * 22 \
-        + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.adaptive_launch.restype = ctypes.c_int
-    lib.adaptive_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.adaptive_plan.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.adaptive_plan.restype = None
     lib.adaptive_terms_launch.argtypes = [ctypes.c_void_p] * 11 \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -107,17 +127,19 @@ def _adaptive_lib() -> ctypes.CDLL:
 
 def adaptive_plan(lanes: int, n_edges: int, n_rows: int, n_banks: int,
                   mlp_window: int, banked: bool, regioned: bool,
-                  faulted: bool) -> dict:
+                  faulted: bool, block_lanes: int | None = None) -> dict:
     """adaptive.cu's launch plan for these sizes: the chunk of requests
     per shared-memory buffer, whether the lanes' table stacks are staged
-    in shared memory, the shared bytes and the threads per block (chain
-    lanes + producer warps).  Needs the built library."""
-    out = (ctypes.c_int * 4)()
-    _adaptive_lib().adaptive_plan(lanes, n_edges, n_rows, n_banks,
-                                  mlp_window, int(banked), int(regioned),
-                                  int(faulted), out)
+    in shared memory, the shared bytes, the threads per block (chain
+    lanes + producer warps) and the chain lanes per block.  Needs the
+    built library."""
+    out = (ctypes.c_int * 5)()
+    _adaptive_lib().adaptive_plan(
+        lanes, n_edges, n_rows, n_banks, mlp_window, int(banked),
+        int(regioned), int(faulted),
+        check_block_lanes("adaptive_plan", block_lanes), out)
     return {"chunk": out[0], "tables_staged": bool(out[1]),
-            "smem_bytes": out[2], "threads": out[3]}
+            "smem_bytes": out[2], "threads": out[3], "lanes": out[4]}
 
 
 def _on_cuda(name: str, tensors) -> torch.device | None:
@@ -209,7 +231,7 @@ def _check_map(where: str, region_map, n_banks: int, lanes: int) -> int:
 def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
                   n_banks: int = 8, mlp_window: int = 8,
                   validated: bool = False, region_map=None, fault=None,
-                  chan=(1, 1, 5.0), ileave=None):
+                  chan=(1, 1, 5.0), ileave=None, block_lanes=None):
     """closed [G] float32 (1 = closed page); arrival [G, N] float32;
     bank/row/is_write/valid [G, N] int32; timings_t [6, S] float32, the
     per-bank tile [n_banks, 6, S], or with `region_map` (int32 [banks *
@@ -231,7 +253,12 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
     (replay.cu `replay_smem_bytes` > 227 KB) is refused.
     `validated=True` skips the data checks, which wait for the device
     (bank range, prefix mask and, regioned, row sign and map range):
-    only for a caller that has checked these same inputs already."""
+    only for a caller that has checked these same inputs already.
+    `block_lanes` (32, 64 or 128) caps the chain lanes of a block; None
+    keeps replay.cu's `block_lanes`.  Lanes are independent, so every
+    output is bitwise the same at any block size; the plain version has
+    no blocks, but any other value raises on every device."""
+    cap = check_block_lanes("replay_blocks", block_lanes)
     regioned = region_map is not None
     faulted = fault is not None
     banked = timings_t.dim() == 3
@@ -276,7 +303,7 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
     if faulted:
         _check_fault("replay_blocks", fault, s, g, n, static=True)
     smem = _replay_lib().replay_smem_bytes(s, n_banks, mlp_window,
-                                           int(faulted), n_ch, n_rk)
+                                           int(faulted), n_ch, n_rk, cap)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"replay_blocks: {n_ch} channels x {n_rk} ranks x {n_banks} "
@@ -306,7 +333,7 @@ def replay_blocks(closed, arrival, bank, row, is_write, valid, timings_t,
             cnt.data_ptr() if faulted else None, g, n, s, n_banks,
             mlp_window, timings_t.shape[0] if banked else 0, n_regions,
             int(regioned and region_map.dim() == 2), n_ch, n_rk, t_burst,
-            stream)
+            cap, stream)
     if rc != 0:
         raise RuntimeError(f"replay_blocks launch failed: cudaError {rc} "
                            f"(G={g}, N={n}, S={s}, banked={banked}, "
@@ -331,7 +358,8 @@ replay_blocks.launches_multi = 0
 def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
                     scn_t, bins, tcfg, n_banks: int = 8,
                     mlp_window: int = 8, emit_raw: bool = False,
-                    validated: bool = False, region_map=None, fault=None):
+                    validated: bool = False, region_map=None, fault=None,
+                    block_lanes=None):
     """Closed-loop replay launch.  closed [G] float32; arrival [G, N]
     float32; bank/row/is_write/valid [G, N] int32; tables_t [S+1, 6, L]
     (lane l's table stack, JEDEC row last), the per-bank tile
@@ -352,8 +380,9 @@ def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
     `adaptive_blocks.launches`, an unfaulted per-bank tile also in
     `launches_banked`, an unfaulted region tile in `launches_regioned`,
     a faulted launch in `launches_faulted`); CPU tensors run
-    `dram_sim.replay_adaptive_cells`.  `validated` as in
-    `replay_blocks`."""
+    `dram_sim.replay_adaptive_cells`.  `validated` and `block_lanes`
+    as in `replay_blocks`."""
+    cap = check_block_lanes("adaptive_blocks", block_lanes)
     regioned = region_map is not None
     faulted = fault is not None
     ins = (closed, arrival, bank, row, is_write, valid, tables_t, scn_t,
@@ -435,7 +464,7 @@ def adaptive_blocks(closed, arrival, bank, row, is_write, valid, tables_t,
             cnt.data_ptr() if faulted else None,
             g, n, lanes, edges.shape[0], s + 1, n_banks, mlp_window,
             int(banked), n_regions, int(regioned and region_map.dim() == 2),
-            int(emit_raw), stream)
+            int(emit_raw), cap, stream)
     if rc != 0:
         raise RuntimeError(f"adaptive_blocks launch failed: cudaError {rc} "
                            f"(G={g}, N={n}, L={lanes}, banked={banked}, "
@@ -631,7 +660,7 @@ def replay_chain_cycles(variant: str, n_banks: int = 8, n_edges: int = 5,
 def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
                 n_banks: int = 8, mlp_window: int = 8,
                 validated: bool = False, region_map=None, fault=None,
-                chan=(1, 1, 5.0), ileave=None):
+                chan=(1, 1, 5.0), ileave=None, block_lanes=None):
     """arrival/bank/row/is_write [T, P, N]; valid [T, N] (prefix-true);
     timings [S, 6] or per-bank [S, n_banks, 6]; closed [P] bool ->
     (latency [T, P, S, N], total [T, P, S]), on the device of
@@ -640,7 +669,8 @@ def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
     (fault rows [S, F_COLS], JEDEC row [6], uniforms [T, N]) with
     module rows adds the [T, P, S, NC] int32 counters.  `chan` =
     (n_channels, n_ranks, t_burst) with the [P] interleave codes
-    `ileave` (None: all 0) is the channel geometry (variant d)."""
+    `ileave` (None: all 0) is the channel geometry (variant d);
+    `block_lanes` as in `replay_blocks`."""
     if timings.dim() not in (2, 3):
         raise ValueError(f"timings must be [S, 6] or [S, banks, 6], got "
                          f"{tuple(timings.shape)}")
@@ -661,7 +691,8 @@ def replay_grid(arrival, bank, row, is_write, valid, timings, closed,
         *cells, tile, n_banks, mlp_window, validated=validated,
         region_map=(None if region_map is None
                     else ref.map_tile(region_map, dev)), fault=fault,
-        chan=chan, ileave=ref.cell_codes(ileave, t, p, dev))
+        chan=chan, ileave=ref.cell_codes(ileave, t, p, dev),
+        block_lanes=block_lanes)
     return ref.from_cells(*out[:2], t, p, *out[2:])
 
 
@@ -669,7 +700,7 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
                          bins, scns, tcfg, closed, n_banks: int = 8,
                          mlp_window: int = 8, emit_raw: bool = False,
                          validated: bool = False, region_map=None,
-                         fault=None):
+                         fault=None, block_lanes=None):
     """Adaptive campaign: arrival/bank/row/is_write [T, P, N]; valid
     [T, N]; tables [K, S+1, 6] or per-bank [K, S+1, n_banks, 6] (JEDEC
     row last), or with `region_map` ([banks * R] shared or [K, banks *
@@ -681,7 +712,8 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
     [T, P, K, C], reduced inside the launch).  `fault` = (fault rows
     [F, F_COLS], uniforms [T, N]) rides the lanes innermost, l = (k*C +
     c)*F + f: every grid gains F after C, and the return the
-    [T, P, K, C, F, NC] int32 counters."""
+    [T, P, K, C, F, NC] int32 counters.  `block_lanes` as in
+    `replay_blocks`."""
     dev = arrival.device
     tables = torch.as_tensor(tables, dtype=torch.float32, device=dev)
     scns = torch.as_tensor(scns, dtype=torch.float32, device=dev)
@@ -709,5 +741,6 @@ def replay_grid_adaptive(arrival, bank, row, is_write, valid, tables,
         torch.as_tensor(tcfg, dtype=torch.float32, device=dev).contiguous(),
         n_banks, mlp_window, emit_raw=emit_raw, validated=validated,
         region_map=(None if region_map is None else ref.map_tile(
-            ref.lane_stack_map(region_map, reps, dev), dev)), fault=fault)
+            ref.lane_stack_map(region_map, reps, dev), dev)), fault=fault,
+        block_lanes=block_lanes)
     return ref.from_lanes(out, t, p, k, c, nf)

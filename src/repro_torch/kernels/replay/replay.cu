@@ -557,8 +557,16 @@ replay_kernel(const float* __restrict__ closed,
   }
 }
 
-int block_lanes(int s_rows) {
-  return s_rows < kMaxLanes ? ((s_rows + 31) / 32) * 32 : kMaxLanes;
+// Chain lanes of a block: the lanes rounded up to a warp, at most
+// kMaxLanes or the caller's cap (32, 64 or 128; 0 keeps kMaxLanes).  Lanes
+// are independent, so the block size changes no output.
+int block_lanes(int s_rows, int cap) {
+  const int top = cap > 0 ? cap : kMaxLanes;
+  return s_rows < top ? ((s_rows + 31) / 32) * 32 : top;
+}
+
+bool valid_cap(int cap) {
+  return cap == 0 || cap == 32 || cap == 64 || cap == kMaxLanes;
 }
 
 // The launch plan: the chunk of requests per buffer and whether the
@@ -576,8 +584,8 @@ long long smem_bytes(int bs, int n_slots, int ring_words, int bus_words,
 }
 
 Plan plan(int s_rows, int n_slots, int n_cols, int mlp_window, int n_bus,
-          bool two_words) {
-  const int bs = block_lanes(s_rows);
+          bool two_words, int cap) {
+  const int bs = block_lanes(s_rows, cap);
   const int ring = mlp_window == kGroup ? 0 : mlp_window;
   for (int stage = n_cols > 0 ? 1 : 0; stage >= 0; --stage)
     for (int k = kMaxChunk; k >= (stage ? kMinStagedChunk : kMinChunk);
@@ -615,11 +623,12 @@ auto pick(bool faulted, int tim, bool lane_map, bool ring8) {
 // the ring and bus rows and two buffers of the least chunk, no staged
 // tile.  A geometry over the card's 227 KB cannot launch.
 extern "C" int replay_smem_bytes(int s_rows, int n_banks, int mlp_window,
-                                 int faulted, int n_channels, int n_ranks) {
+                                 int faulted, int n_channels, int n_ranks,
+                                 int max_lanes) {
   (void)faulted;
   const bool multi = n_channels * n_ranks > 1;
   const long long b = smem_bytes(
-      block_lanes(s_rows),
+      block_lanes(s_rows, max_lanes),
       multi ? n_channels * n_ranks * n_banks : n_banks,
       mlp_window == kGroup ? 0 : mlp_window, multi ? n_channels : 0,
       kMinChunk, true, 0);
@@ -633,6 +642,8 @@ extern "C" int replay_smem_bytes(int s_rows, int n_banks, int mlp_window,
 // may be NULL when n_regions is 0 (variants a, b and e); fault, jedec,
 // uniforms and counters are all NULL or all given (module rows only);
 // ileave is read only when n_channels * n_ranks > 1 (variant d).
+// max_lanes caps the chain lanes of a block (32, 64 or 128; 0 keeps the
+// default, block_lanes).
 extern "C" int replay_launch(const float* closed, const float* arrival,
                              const int* bank, const int* row,
                              const int* is_write, const int* valid,
@@ -643,7 +654,7 @@ extern "C" int replay_launch(const float* closed, const float* arrival,
                              int n, int s_rows, int n_banks, int mlp_window,
                              int n_cols, int n_regions, int map_per_lane,
                              int n_channels, int n_ranks, float t_burst,
-                             void* stream) {
+                             int max_lanes, void* stream) {
   const bool faulted = fault != nullptr;
   const bool multi = n_channels * n_ranks > 1;
   const bool gathered = n_cols > 0;
@@ -654,12 +665,14 @@ extern "C" int replay_launch(const float* closed, const float* arrival,
                    counters == nullptr)) ||
       n_channels <= 0 || n_ranks <= 0 || (multi && ileave == nullptr) ||
       (long long)n_cols * 6 * s_rows > 0x7fffffffLL ||
-      (long long)mlp_window * kMaxLanes * 4 > 0x7fffffffLL)
+      (long long)mlp_window * kMaxLanes * 4 > 0x7fffffffLL ||
+      !valid_cap(max_lanes))
     return (int)cudaErrorInvalidValue;
-  const int bs = block_lanes(s_rows);
+  const int bs = block_lanes(s_rows, max_lanes);
   const int n_slots = multi ? n_channels * n_ranks * n_banks : n_banks;
   const Plan pl = plan(s_rows, n_slots, n_cols, mlp_window,
-                       multi ? n_channels : 0, gathered || faulted || multi);
+                       multi ? n_channels : 0, gathered || faulted || multi,
+                       max_lanes);
   if (pl.chunk == 0) return (int)cudaErrorInvalidValue;
   const int tim = !gathered ? 0 : pl.staged ? 1 : 2;
   const bool lane_map = n_regions > 0 && map_per_lane;
@@ -684,16 +697,18 @@ extern "C" int replay_launch(const float* closed, const float* arrival,
 
 // The launch plan of `replay_launch` for these sizes: out[0] chunk
 // length (0: no plan fits), out[1] tile staged, out[2] shared bytes,
-// out[3] threads per block.
+// out[3] threads per block, out[4] chain lanes per block.
 extern "C" void replay_plan(int s_rows, int n_banks, int mlp_window,
                             int n_cols, int faulted, int n_channels,
-                            int n_ranks, int* out) {
+                            int n_ranks, int max_lanes, int* out) {
   const bool multi = n_channels * n_ranks > 1;
   const Plan pl = plan(
       s_rows, multi ? n_channels * n_ranks * n_banks : n_banks, n_cols,
-      mlp_window, multi ? n_channels : 0, n_cols > 0 || faulted || multi);
+      mlp_window, multi ? n_channels : 0, n_cols > 0 || faulted || multi,
+      max_lanes);
   out[0] = pl.chunk;
   out[1] = pl.staged;
   out[2] = (int)pl.smem;
-  out[3] = block_lanes(s_rows) + kProducers;
+  out[3] = block_lanes(s_rows, max_lanes) + kProducers;
+  out[4] = block_lanes(s_rows, max_lanes);
 }

@@ -11,7 +11,7 @@ as are the cache leaves (K/V [R, B, S, Hkv, Dh]; Mamba {conv, h}; RWKV6
 {x_prev, wkv}), so `repro_torch.convert.model_params` carries the
 reference's params across one to one.  Attention, Mamba and RWKV6
 mixers with dense FFNs are ported; MoE FFNs raise NotImplementedError
-(ROADMAP queue A, item 8).
+(ROADMAP queue A, "LLM scaffold, what PR 16-17 left").
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ def _check_spec(spec: LayerSpec) -> None:
     if spec.ffn != "dense":
         raise NotImplementedError(
             f"layer {spec}: only dense FFNs are ported; MoE FFNs "
-            "(models/moe.py) are ROADMAP queue A, item 8")
+            "(models/moe.py) wait for ROADMAP queue A, \"LLM scaffold, "
+            "what PR 16-17 left\"")
 
 
 def _tree_map(fn, tree):

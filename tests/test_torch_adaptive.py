@@ -339,8 +339,9 @@ def test_sim_spec_thermal_validation():
                                      ({"n_ranks": 2}, "10")])
 def test_unported_adaptive_axes_raise(kw, item):
     """The multi-channel closed loop is ported (its parity is in
-    tests/test_torch_traffic.py): it runs on C*R*8 bank slots; only a
-    sharded campaign still raises (ROADMAP item 10b)."""
+    tests/test_torch_traffic.py): it runs on C*R*8 bank slots.  Sharded
+    campaigns are ported too (tests/test_torch_engine.py): a mesh is
+    accepted, and a mesh with host reordering raises."""
     z = torch.zeros(4)
     zi = torch.zeros(4, dtype=torch.int32)
     out = tdram.replay_adaptive(z, zi, zi, z.bool(), z.bool(),
@@ -350,5 +351,9 @@ def test_unported_adaptive_axes_raise(kw, item):
                                 torch.tensor(TTH.ThermalConfig().as_row()),
                                 False, **kw)
     assert out[4].shape == (16,)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tsim.SimEngine(device="cpu", mesh=object())
+    from repro_torch.launch.mesh import make_campaign_mesh
+    mesh = make_campaign_mesh(devices=["cpu"] * 2)
+    assert tsim.SimEngine(device="cpu", mesh=mesh).mesh.shape == \
+        {"campaign": 2}
+    with pytest.raises(ValueError, match="reorder"):
+        tsim.SimEngine(device="cpu", mesh=mesh, reorder="host")

@@ -836,11 +836,15 @@ def test_multi_channel_wrapper_refuses_oversized_and_bad_inputs(cuda):
     a request, with 8 padding entries each; mlp_window 8 keeps its ring
     in registers); a misshapen code column is refused."""
     lib = replay_ops._replay_lib()
-    assert lib.replay_smem_bytes(128, 8, 8, 0, 4, 1) == \
+    assert lib.replay_smem_bytes(128, 8, 8, 0, 4, 1, 0) == \
         32 * 128 * 16 + 2 * 2 * (64 + 8) * 16 + 4 * 128 * 4
-    assert lib.replay_smem_bytes(128, 8, 3, 0, 4, 1) == \
+    assert lib.replay_smem_bytes(128, 8, 3, 0, 4, 1, 0) == \
         32 * 128 * 16 + 2 * 2 * (64 + 8) * 16 + (3 + 4) * 128 * 4
-    assert lib.replay_smem_bytes(128, 8, 8, 0, 16, 4) > replay_ops.SMEM_LIMIT
+    assert lib.replay_smem_bytes(128, 8, 8, 0, 16, 4, 0) > \
+        replay_ops.SMEM_LIMIT
+    # a 32-lane block holds a quarter of the bank state
+    assert lib.replay_smem_bytes(128, 8, 8, 0, 4, 1, 32) == \
+        32 * 32 * 16 + 2 * 2 * (64 + 8) * 16 + 4 * 32 * 4
     ins, tile, _, _, codes = _multi_inputs("module", 128, cuda, n=50)
     with pytest.raises(ValueError, match="shared memory"):
         replay_ops.replay_blocks(*ins, tile, chan=(16, 4, 5.0),
@@ -1000,6 +1004,92 @@ def test_multi_channel_edge_streams_bitwise_equal_plain(cuda, chan, faulted,
         assert int(out[2][0].sum()) > 0
 
 
+# the lanes-per-block cap (the replay tuner's lever) and what each
+# layout runs: 130 lanes are two blocks at the default 128, five at 32
+BLOCKS = [32, 64, 128]
+
+
+def _replay_block_case(layout: str):
+    """(streams, tile, region map, fault, chan, codes) of one
+    replay_blocks variant at 130 lanes."""
+    ins = _edge_streams("repeat", seed=26)
+    if layout == "multi":
+        tile, rmap, fault = _edge_tile("module", 130)
+        return ins, tile, rmap, fault, (4, 1, 5.0), torch.tensor(
+            [0, 1, 2, 0], dtype=torch.int32)
+    tile, rmap, fault = _edge_tile(layout, 130)
+    return ins, tile, rmap, fault, (1, 1, 5.0), None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("layout", ["module", "bank", "region-shared",
+                                    "multi", "faulted"],
+                         ids=["a", "b", "c", "d", "e"])
+def test_replay_block_lanes_bitwise_equal_default(cuda, layout, block):
+    """replay_blocks (a)-(e) with 32, 64 and 128 chain lanes a block:
+    every output bitwise the default block's, and the plan reports the
+    block used."""
+    ins, tile, rmap, fault, chan, codes = _replay_block_case(layout)
+    ins = [x.to(cuda) for x in ins]
+    tile = tile.to(cuda)
+    rmap = None if rmap is None else rmap.to(cuda)
+    fault = None if fault is None else tuple(x.to(cuda) for x in fault)
+    codes = None if codes is None else codes.to(cuda)
+
+    def launch(b):
+        return replay_ops.replay_blocks(*ins, tile, region_map=rmap,
+                                        fault=fault, chan=chan, ileave=codes,
+                                        block_lanes=b)
+
+    base, out = launch(None), launch(block)
+    torch.cuda.synchronize()
+    assert len(base) == len(out)
+    for a, b in zip(base, out):
+        assert _bitwise(a, b)
+    n_cols = 0 if tile.dim() == 2 else tile.shape[0]
+    plan = replay_ops.replay_plan(130, 8, 8, n_cols, fault is not None,
+                                  chan[0], chan[1], block_lanes=block)
+    assert plan["lanes"] == block and plan["threads"] == block + 64
+    assert replay_ops.replay_plan(130, 8, 8, n_cols, fault is not None,
+                                  chan[0], chan[1])["lanes"] == 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("layout", ["module", "bank", "region", "faulted"],
+                         ids=["a", "b", "c", "d"])
+def test_adaptive_block_lanes_bitwise_equal_default(cuda, layout, block):
+    """adaptive_blocks (a)-(d) at 130 lanes with 32, 64 and 128 chain
+    lanes a block, raw temperatures and bins emitted: every output
+    bitwise the default block's, and the plan reports the block used."""
+    ins = [x.to(cuda) for x in _streams(5, 900, seed=27)]
+    rmap = fault = None
+    if layout == "region":
+        tabs, rmap, scn, bins, tcfg = (x.to(cuda) for x in _region_tables(
+            130, 7, 4, True))
+    else:
+        tabs, scn, bins, tcfg = (x.to(cuda) for x in _adaptive_inputs(
+            130, layout == "bank"))
+    if layout == "faulted":
+        fault = tuple(x.to(cuda) for x in _fault_inputs(130, 5, 900))
+
+    def launch(b):
+        return replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                          emit_raw=True, region_map=rmap,
+                                          fault=fault, block_lanes=b)
+
+    base, out = launch(None), launch(block)
+    torch.cuda.synchronize()
+    assert len(base) == len(out)
+    for a, b in zip(base, out):
+        assert _bitwise(a, b)
+    plan = replay_ops.adaptive_plan(130, 3, 4, 8, 8, tabs.dim() == 4,
+                                    rmap is not None, fault is not None,
+                                    block_lanes=block)
+    assert plan["lanes"] == block and plan["threads"] == block + 256
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mlp_window", [1, 8])
 def test_faulted_replay_lanes_trip_probe_and_recover(cuda, mlp_window):
@@ -1121,6 +1211,50 @@ def test_margin_grid_key_flops_count_the_factored_work():
     keyed = charge_ops.margin_grid_key_flops(n, 450, 495, m)
     assert keyed == n * (240 * 450 + 54 * 495 + 5 * m)
     assert 3.0e10 < keyed < 3.2e10 and per_elem / keyed > 15
+
+
+@pytest.mark.parametrize("bad", [0, 16, 48, 96, 256, True, 64.5])
+def test_block_lanes_refuses_other_values_on_every_device(bad):
+    """`block_lanes` takes None, 32, 64 or 128; anything else raises,
+    on CPU tensors too (where the plain version has no blocks)."""
+    ins = _streams(2, 40, seed=28)
+    tim = torch.tensor(ROWS).T.contiguous()
+    with pytest.raises(ValueError, match="block_lanes"):
+        replay_ops.replay_blocks(*ins, tim, block_lanes=bad)
+    tabs, scn, bins, tcfg = _adaptive_inputs(3, False)
+    with pytest.raises(ValueError, match="block_lanes"):
+        replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                   block_lanes=bad)
+    with pytest.raises(ValueError, match="block_lanes"):
+        replay_ops.check_block_lanes("x", bad)
+
+
+@pytest.mark.parametrize("block", [None, 32, 64, 128])
+def test_block_lanes_on_the_cpu_runs_the_plain_version(block):
+    """On CPU tensors every allowed `block_lanes` runs the same plain
+    version (no launch counted), bitwise; the grid wrappers pass it on."""
+    ins = _streams(3, 60, seed=29)
+    tim = torch.tensor(ROWS).T.contiguous()
+    before = (replay_ops.replay_blocks.launches,
+              replay_ops.adaptive_blocks.launches)
+    base = replay_ops.replay_blocks(*ins, tim)
+    out = replay_ops.replay_blocks(*ins, tim, block_lanes=block)
+    for a, b in zip(base, out):
+        assert _bitwise(a, b)
+    tabs, scn, bins, tcfg = _adaptive_inputs(3, True)
+    base = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg)
+    out = replay_ops.adaptive_blocks(*ins, tabs, scn, bins, tcfg,
+                                     block_lanes=block)
+    for a, b in zip(base[:6], out[:6]):
+        assert _bitwise(a, b)
+    assert (replay_ops.replay_blocks.launches,
+            replay_ops.adaptive_blocks.launches) == before
+    arr = torch.tensor(np.cumsum(np.ones((2, 1, 30)), -1), dtype=torch.float32)
+    zi = torch.zeros((2, 1, 30), dtype=torch.int32)
+    lat, total = replay_ops.replay_grid(
+        arr, zi, zi, zi.bool(), torch.ones((2, 30), dtype=torch.bool),
+        torch.tensor(ROWS), torch.tensor([False]), block_lanes=block)
+    assert lat.shape == (2, 1, 3, 30) and total.shape == (2, 1, 3)
 
 
 def test_replay_blocks_cpu_runs_plain_version():

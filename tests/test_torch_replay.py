@@ -225,19 +225,26 @@ class TestNotPorted:
                                     {"traces": object()},
                                     {"n_channels": 2}])
     def test_unported_sim_axes_raise(self, kw):
-        """Declarative trace axes raise (ROADMAP item 7); multi-channel
-        campaigns are ported, and only their sharding raises (item
-        10b)."""
+        """Declarative trace axes and campaign meshes are ported: an
+        unknown trace object raises TypeError; a multi-channel campaign
+        runs on a mesh, which refuses host statistics and anything but a
+        `CampaignMesh`."""
+        from repro_torch.launch.mesh import make_campaign_mesh
         tr = tdram.Trace(torch.zeros(4), torch.zeros(4, dtype=torch.int32),
                          torch.zeros(4, dtype=torch.int32),
                          torch.zeros(4, dtype=torch.bool))
         if "traces" in kw:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(TypeError, match="traces"):
                 tsim.SimSpec(**{"timings": ROWS[:1], **kw})
             return
         spec = tsim.SimSpec(**{"traces": (tr,), "timings": ROWS[:1], **kw})
         assert spec.multi
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mesh = make_campaign_mesh(devices=["cpu"])
+        res = tsim.SimEngine(device="cpu", mesh=mesh).run(spec)
+        assert res.mean_latency_ns.shape == (1, 1, 1)
+        with pytest.raises(ValueError, match="stats"):
+            tsim.SimEngine(device="cpu", mesh=mesh, stats="host")
+        with pytest.raises(TypeError, match="CampaignMesh"):
             tsim.SimEngine(device="cpu", mesh=object())
 
     def test_banked_timings_raise(self):

@@ -305,9 +305,9 @@ def test_prefill_decode_apply_match_the_reference(arch, s):
                                   "jamba-1.5-large-398b"])
 def test_unported_mixers_and_ffns_raise(arch):
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="LLM scaffold"):
         TF.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="LLM scaffold"):
         TF.init_cache(cfg, 1, 16, device="cpu")
 
 

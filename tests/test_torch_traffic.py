@@ -533,11 +533,22 @@ def test_engine_refusals_name_their_items():
     spec = tsim.SimSpec(traces=ttr, timings=ROWS, policies=tpol,
                         n_channels=2, n_ranks=2)        # no longer raises
     assert spec.multi and spec.chan == (2, 2, 5.0)
-    with pytest.raises(NotImplementedError, match="10b"):
-        tsim.SimEngine(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsim.SimSpec(traces=tpm.tenant_spec(n=16, n_streams=2),
-                     timings=ROWS)
+    from repro_torch.core import faults as TF_
+    from repro_torch.launch.mesh import make_campaign_mesh
+    mesh = make_campaign_mesh(devices=["cpu"])
+    with pytest.raises(ValueError, match="stats"):
+        tsim.SimEngine(device="cpu", mesh=mesh, stats="host")
+    faulted = tsim.SimSpec(traces=ttr, timings=ROWS, n_channels=2,
+                           faults=TF_.FaultSpec(scenarios=(
+                               TF_.FaultScenario(name="err", err_scale=0.8,
+                                                 err_free_red=0.0),)))
+    with pytest.raises(ValueError, match="single-device"):
+        tsim.SimEngine(device="cpu", mesh=mesh).run(faulted)
+    declared = tsim.SimSpec(traces=tpm.tenant_spec(n=16, n_streams=2),
+                            timings=ROWS)      # a declarative axis
+    assert declared.synth is not None and declared.shape == (2, 1, 3)
+    with pytest.raises(TypeError, match="traces"):
+        tsim.SimSpec(traces=object(), timings=ROWS)
     with pytest.raises(ValueError, match="reorder"):
         tsim.SimEngine(device="cpu", reorder="both")
     with pytest.raises(ValueError, match="interleave"):
@@ -601,6 +612,7 @@ def test_port_traffic_bench_matches_reference():
         assert d["replays"] == 2 and d["prepass_s"] > 0
     p99 = [out["per_channel"][str(c)]["p99_ns"] for c in B.CHANNEL_SWEEP]
     assert p99[0] > p99[1] >= p99[2]
+    assert out["sharded_rel"] == 0.0
 
 
 def test_replay_blocks_cpu_multi_runs_plain_version():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region,
-fault-injection and multi-channel traffic paths, and its LLM serving
-path (dense attention, RWKV6 and the Mamba hybrid), on one NVIDIA card.
+fault-injection, multi-channel traffic and fleet recalibration paths,
+and its LLM serving path (dense attention, RWKV6 and the Mamba hybrid),
+on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -113,13 +114,40 @@ Phases (any failure exits non-zero and prints no result line):
      shape (S = 2), at 66 and 128 rows, at the thermal campaign's 8
      lanes and at 72 and 128 lanes: bitwise the default block, with
      paired, interleaved CUDA-event times beside each chain bound;
-  7. margin_grid at every shape below the key search that the main and
-     region paths gave it, on the inputs of its first call there: the
-     wrapper (the per-element kernel) against the plain version (rtol =
-     atol = 2e-4), the key kernel against it bit for bit, and both
-     times; then replay_blocks (a) at both Fig. 4 shapes (bitwise),
-     replay_blocks (b) and adaptive_blocks (module and per-bank tables,
-     raw temps and bins emitted) against their plain versions on the
+  6e. the fleet recalibration service at full width on the main path's
+     population, launch counts reset just before and read just after:
+     `FleetEngine.autotune_epoch` records the epoch campaign's CUDA
+     candidate first (not counted), then `examples/aldram_fleet.py`'s
+     fleet-month (30 epochs at 48C, the chiller failing (+9C) at epoch
+     15, module 3 dead at epoch 10, rows (0, 17, 19) x 1,024 requests)
+     under the static, error and periodic policies through a
+     `backend="auto"` engine: exactly one launch of replay_blocks (b) an
+     epoch and one margin_grid launch per probe chunk and two per
+     profile (asserted), the error policy's uncorrectable events exactly 0
+     (asserted); each policy's summary, seconds per epoch and frontier;
+     then the error policy's first 10 epochs under `torch.profiler` for
+     the busy share;
+  6f. `fleet_bench`'s --fast fleet-month (8 modules x 4 cells, rows (0,
+     19) x 512, the three policies), a 10-epoch regions=4 fleet
+     (replay_blocks (c)) and a 10-epoch faulted fleet (replay_blocks
+     (e)) on the card, launch counts reset just before and read just
+     after, and on the CPU from the same cells, pool and error
+     uniforms: every telemetry field equal, or a divergence that only
+     cells within 2e-4 of zero explain (`port_fleet_bench.compare`: the
+     first differing scrub or profile re-run on both devices, its
+     sign-differing cells printed with both margins); the bench's
+     bracket asserted on the card;
+  7. margin_grid at every shape below the key search that the main,
+     region and fleet paths gave it (the fleet's scrub chunks: 38,400 x
+     200 and 23,040 x 120 with per-cell tREFI overrides), on the inputs
+     of its first call there: the wrapper (the per-element kernel)
+     against the plain version (rtol = atol = 2e-4), the key kernel
+     against it bit for bit, and both times; then replay_blocks (a) at
+     both Fig. 4 shapes (bitwise), replay_blocks (b) at the thermal
+     path's shape and on the fleet path's first epoch (its [116, 8, 6]
+     per-bank tile at the tuned block, bitwise), and adaptive_blocks
+     (module and per-bank tables, raw temps and bins emitted) against
+     their plain versions on the
      card at the thermal path's full shapes (bins identical on every
      request, latencies within rtol 1e-5, temperatures / heat /
      diagnostics within rtol 1e-5, atol 1e-4; the per-bank replay
@@ -609,7 +637,7 @@ def path_launches(env, kernel: str) -> dict:
     and per path."""
     by_path = {path: env[f"launches_{path}"][kernel]
                for path in ("main", "thermal", "region", "fault",
-                            "traffic", "campaign")
+                            "traffic", "campaign", "fleet", "fleet_fast")
                if f"launches_{path}" in env}
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -622,12 +650,13 @@ def margin_log(log: list):
     """Record every `margin_sweep` call made inside (each makes one
     `margin_grid` call; `MarginEngine` reaches the kernel through it): its
     (n, m), a pair of CUDA events around it (no synchronize), for the
-    launches by shape, and its arguments by name.  The wrapper's own count
-    is untouched."""
+    launches by shape, and, for the first call at each (n, m), its
+    arguments by name.  The wrapper's own count is untouched."""
     import torch
     from repro_torch.kernels.charge_sim import ops
     orig = ops.margin_sweep
     sig = inspect.signature(orig)
+    seen = set()
 
     def logged(cells, combos, *args, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -635,10 +664,13 @@ def margin_log(log: list):
         e0.record()
         out = orig(cells, combos, *args, **kw)
         e1.record()
-        bound = sig.bind(cells, combos, *args, **kw)
-        bound.apply_defaults()
-        log.append((cells.shape[0], combos.shape[0], e0, e1,
-                    bound.arguments))
+        shape, named = (cells.shape[0], combos.shape[0]), None
+        if shape not in seen:       # holding every call's inputs would
+            seen.add(shape)         # keep each epoch's cells on the card
+            bound = sig.bind(cells, combos, *args, **kw)
+            bound.apply_defaults()
+            named = bound.arguments
+        log.append((*shape, e0, e1, named))
         return out
 
     ops.margin_sweep = logged
@@ -646,6 +678,29 @@ def margin_log(log: list):
         yield log
     finally:
         ops.margin_sweep = orig
+
+
+@contextlib.contextmanager
+def first_call(module, name: str, log: dict):
+    """Record the arguments (by name, defaults applied, tensors cloned)
+    of the first call of `module.name` made inside."""
+    import torch
+    orig = getattr(module, name)
+    sig = inspect.signature(orig)
+
+    def logged(*args, **kw):
+        if not log:
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            log.update({k: v.clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in bound.arguments.items()})
+        return orig(*args, **kw)
+
+    setattr(module, name, logged)
+    try:
+        yield log
+    finally:
+        setattr(module, name, orig)
 
 
 def margin_shapes(log: list) -> dict:
@@ -784,7 +839,8 @@ def kernel_margin_grid(env) -> dict:
 
 def kernel_margin_small(env) -> dict:
     """Phase 7: margin_grid at every shape below the key search that the
-    main and region paths gave it, on the inputs of its first call there:
+    main, region and fleet paths gave it, on the inputs of its first
+    call there:
     the wrapper (the per-element kernel) vs the plain version, the key
     kernel vs the per-element kernel bit for bit, and both times (CUDA
     events; the key kernel's with its host key search)."""
@@ -792,7 +848,7 @@ def kernel_margin_small(env) -> dict:
     from repro_torch.kernels.charge_sim import ops, ref
 
     grids, worst = [], 0.0
-    for path in ("main", "region"):
+    for path in ("main", "region", "fleet"):
         for (n, m), (ct, mt, consts, calls) in env[
                 f"margin_small_{path}"].items():
             check(n * m < ops.SEARCH_MIN_ELEMS, f"{n} x {m} takes the keys")
@@ -1066,7 +1122,8 @@ def kernel_adaptive(env) -> list:
 
 def kernel_replay_banked(env) -> dict:
     """Phase 5b: replay_blocks (b), the per-bank tile, against its plain
-    version at `evaluate_bank_system`'s shape, and its times."""
+    version at `evaluate_bank_system`'s shape, and its times; then on
+    the fleet path's first epoch at the tuned block, bitwise."""
     import torch
     from repro_torch.core import dram_sim
     from repro_torch.kernels.replay import ops, ref
@@ -1098,11 +1155,36 @@ def kernel_replay_banked(env) -> dict:
           f"{n_bytes / 1e6:.2f} MB)")
     chain = chain_bound("2b", n, ms)
     check(n_bad == 0, f"replay_blocks (b): {n_bad} lanes differ")
+
+    # the fleet path's first epoch: the [S = 116, 8, 6] tile of 115
+    # module envelopes and JEDEC, at the tuner's block
+    fr = env["fleet_replay"]
+    f_cells = ref.to_cells(fr["arrival"], fr["bank"], fr["row"],
+                           fr["is_write"], fr["valid"], fr["closed"])
+    f_tim = torch.as_tensor(fr["timings"], device=arr.device)
+    f_lat, f_total = ops.replay_blocks(
+        *f_cells, ref.timing_tile(f_tim), fr["n_banks"], fr["mlp_window"],
+        block_lanes=fr["block_lanes"])
+    fc, fa, fb, frow, fw, fv = f_cells
+    f_lat2, f_total2 = dram_sim.replay_cells(
+        fa, fb, frow, fw.bool(), fv.bool(), f_tim, fc > 0.5, fr["n_banks"],
+        fr["mlp_window"])
+    f_bad = int(((f_lat.view(torch.int32) != f_lat2.view(torch.int32)).any(1)
+                 | (f_total.view(torch.int32)
+                    != f_total2.view(torch.int32))).sum())
+    f_err = max((f_lat - f_lat2).abs().max().item(),
+                (f_total - f_total2).abs().max().item())
+    print(f"replay_blocks (b) on the fleet's first epoch G={fa.shape[0]} "
+          f"N={fa.shape[1]} tile {list(f_tim.shape)} block_lanes "
+          f"{fr['block_lanes']}: {f_bad} of {fa.shape[0] * f_tim.shape[0]} "
+          f"lanes not bitwise equal to plain (max abs {f_err:.3e})")
+    check(f_bad == 0, f"replay_blocks (b): {f_bad} fleet lanes differ")
     return {"name": "replay_blocks", "variant": "b", "route": "cuda",
             "source": "src/repro_torch/kernels/replay/replay.cu",
             "replaces": "src/repro/kernels/replay/replay.py:640",
             **path_launches(env, "replay_blocks (b)"),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "max_abs_err": max(err, f_err), "max_abs_err_fleet": f_err,
+            "ms": ms, "plain_ms": plain_s * 1e3,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **chain}
 
 
@@ -2702,6 +2784,189 @@ def cross_device_engine() -> None:
           "card and CPU campaign engines differ")
 
 
+# ------------------------------------------------------------ fleet path
+
+FLEET_POLICIES = ("static", "error", "periodic")
+
+
+def _fleet_spec():
+    """`examples/aldram_fleet.py`'s fleet-month at full width: 30 daily
+    epochs at 48C, the chiller failing (+9C) at epoch 15, module 3 dead
+    at epoch 10, workload rows (0, 17, 19) x 1,024 requests."""
+    from repro_torch.core.thermal import cooling_failure
+    from repro_torch.fleet.recal import FleetSpec
+    return FleetSpec(n_epochs=30,
+                     ambient=cooling_failure(48.0, 9.0, at_ns=15 * 1.0e4),
+                     ambient_step_ns=1.0e4, workload_rows=(0, 17, 19),
+                     n_requests=1024, module_failures=((10, 3),), seed=SEED)
+
+
+def fleet_path(env) -> None:
+    """Phase 6e: the fleet recalibration service at full width on the
+    main path's population (115 modules, 176,640 cells, the 1.25 ns
+    grid, five bins), launch counts reset just before and read just
+    after: `autotune_epoch` records the epoch campaign's CUDA candidate
+    first (not counted), then one fleet-month per policy through a
+    `backend="auto"` engine — the profile, 30 epochs of drift, scrub
+    (`ErrorMonitor.probe`: margin_grid), policy reaction and ONE replay
+    (replay_blocks (b)) each; then the error policy's first 10 epochs
+    once more under `torch.profiler` for the busy share."""
+    from repro_torch.core.autotune import ReplayTuner
+    from repro_torch.core.calibration import (CALIBRATED_CONSTANTS,
+                                              CALIBRATED_VARIATION)
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.core.sim_engine import SimEngine
+    from repro_torch.fleet.recal import FleetEngine, frontier
+    from repro_torch.kernels.replay import ops as replay_ops
+
+    pop, spec = env["pop"], _fleet_spec()
+    prof = Profiler(CALIBRATED_CONSTANTS, grid_step=1.25, device="cuda")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    tuner = ReplayTuner(platform="cuda",
+                        path=str(out_dir / "fleet_tune_cuda.json"))
+    sim = SimEngine(device="cuda", backend="auto", tuner=tuner)
+
+    def engine(policy, **kw):
+        return FleetEngine(pop, dataclasses.replace(spec, policy=policy, **kw),
+                           var_cfg=CALIBRATED_VARIATION, profiler=prof,
+                           sim=sim, device="cuda")
+
+    winner, t_tune = wall(lambda: engine("static").autotune_epoch(reps=3))
+    print(f"fleet autotune_epoch: winner {winner} ({t_tune:.3f} s; table "
+          f"{json.dumps({f'{u},{b}': int(v) for (u, b), v in tuner.table._table.items()})})")
+    reset_counts()
+    res, secs, mlog, replay = {}, {}, [], {}
+    with margin_log(mlog), first_call(replay_ops, "replay_grid", replay):
+        for p in FLEET_POLICIES:
+            res[p], secs[p] = wall(engine(p).run)
+    launches = read_counts()
+    shapes = margin_shapes(mlog)
+    fr = frontier(res)
+    for p, r in res.items():
+        s = r.summary()
+        print(f"fleet {p}: {secs[p]:.3f} s = {secs[p] / spec.n_epochs:.4f} "
+              f"s/epoch; " + json.dumps(
+                  {k: v for k, v in s.items() if k != "policy"}))
+        print(f"  recal epochs {r.recal_epochs} relax {r.relax_epochs} "
+              f"rejected {r.relax_rejected}; frontier "
+              f"{json.dumps(fr['policies'][p])}")
+    print("fleet path kernels: " + json.dumps(launches))
+    print(f"fleet margin_grid calls by shape (margin_sweep calls, CUDA "
+          f"events): {json.dumps(shapes)}; first replay: timings "
+          f"{list(replay['timings'].shape)}, streams "
+          f"{list(replay['arrival'].shape)}, block_lanes "
+          f"{replay['block_lanes']}")
+    n_margin = sum(r.margin_dispatches for r in res.values())
+    check(all(r.replay_dispatches == spec.n_epochs for r in res.values()),
+          f"replays per epoch: "
+          f"{[r.replay_dispatches for r in res.values()]}")
+    check(res["error"].summary()["total_unc"] == 0.0,
+          f"error policy served {res['error'].summary()['total_unc']} "
+          "uncorrectable events")
+    check(launches["replay_blocks (b)"] == spec.n_epochs * len(res)
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("margin_grid", "replay_blocks (b)")),
+          f"replay launches {launches}")
+    # `margin_dispatches` counts from after each month's first profile
+    # (one refresh and one timing launch)
+    check(launches["margin_grid"] == n_margin + 2 * len(res) > 2 * len(res),
+          f"margin_grid launches {launches['margin_grid']} vs "
+          f"{n_margin} dispatches + {2 * len(res)} first profiles")
+    check(shapes["campaign"]["launches"] + shapes["other"]["launches"]
+          == launches["margin_grid"],
+          f"margin shapes {shapes}, launches {launches['margin_grid']}")
+    env.update(launches_fleet=launches, fleet_seconds=secs,
+               margin_shapes_fleet=shapes,
+               margin_small_fleet=small_grid_inputs(mlog),
+               fleet_replay=replay)
+
+    short = engine("error", n_epochs=10)
+    busy_share("fleet path (error policy, 10 epochs)", short.run)
+
+
+def cross_device_fleet(env) -> None:
+    """Phase 6f: `fleet_bench`'s --fast configuration (8 modules x 4
+    cells, the 2.5 ns grid, rows (0, 19) x 512, 30 epochs, three
+    policies), a 10-epoch regions=4 fleet and a 10-epoch faulted fleet,
+    on the card (launch counts reset just before and read just after)
+    and on the CPU from the same cells, trace pool and error uniforms:
+    equal telemetry, or a divergence that only cells within 2e-4 of
+    zero explain (`port_fleet_bench.compare`, printed with both
+    margins); the bench's bracket on the card."""
+    from benchmarks import port_fleet_bench as PFB
+    from benchmarks.port_common import profiler
+    from repro_torch.core import faults as F
+    from repro_torch.core import perf_model
+    from repro_torch.fleet.recal import frontier
+
+    var_cfg, spec = PFB.config(True)
+    base = dict(pop=PFB.population(var_cfg, device="cpu"), var_cfg=var_cfg,
+                profiler=profiler(True, "cpu"),
+                traces=perf_model.trace_batch(spec.n_requests, spec.seed,
+                                              device="cpu"))
+    fa = F.FaultSpec(scenarios=(F.FaultScenario(
+        name="err", err_scale=1.0, err_free_red=0.0, detect_frac=0.9,
+        retry_ns=60.0),), seed=5)
+    short = dataclasses.replace(spec, n_epochs=10)
+    cases = {"--fast": dict(base, spec=spec),
+             "regions=4": dict(base, spec=dataclasses.replace(short,
+                                                              regions=4)),
+             "faulted": dict(base, spec=dataclasses.replace(short, faults=fa),
+                             fault_uniforms=F.fault_uniforms(
+                                 5, len(spec.workload_rows),
+                                 spec.n_requests, device="cpu"))}
+    reset_counts()
+    card = PFB.fleet_runs(cases, "cuda")
+    launches = read_counts()
+    out = PFB.cross_device(cases, card=card)
+    bad = []
+    for name, o in out.items():
+        for p, rep in o["reports"].items():
+            g, c = o["card"][p].summary(), o["cpu"][p].summary()
+            dv = rep["divergence"]
+            print(f"cross-device fleet {name} {p}: "
+                  + ("no differing scrub or profile" if dv is None else
+                     f"first differing {dv['kind']} at epoch {dv['epoch']} "
+                     f"(call {dv['call']}): {dv['why']}")
+                  + f"; {rep['compared_epochs']} epochs compared, differing "
+                  f"fields {rep['differing_fields']}; unc {g['total_unc']} / "
+                  f"{c['total_unc']}, detected {g['total_served_detected']}"
+                  f" / {c['total_served_detected']}")
+            for cell in (dv or {}).get("cells", []):
+                print(f"  sign differs: {json.dumps(cell)}")
+            if not rep["ok"]:
+                bad.append((name, p))
+        print(f"cross-device fleet {name}: card {o['seconds']['cuda']:.2f} "
+              f"s, CPU {o['seconds']['cpu']:.2f} s")
+    fr = frontier(out["--fast"]["card"])["policies"]
+    print("cross-device fleet path kernels (card): " + json.dumps(launches))
+    print("fleet_bench bracket on the card: " + json.dumps(
+        {p: {k: fr[p][k] for k in ("eff_reduction", "total_unc")}
+         for p in fr}))
+    check(not bad, f"card and CPU fleets differ beyond the near-zero rule: "
+          f"{bad}")
+    check(all(r.replay_dispatches == r.spec.n_epochs
+              for o in out.values() for r in o["card"].values()),
+          "a card fleet served more or less than one replay an epoch")
+    check(fr["error"]["total_unc"] == 0.0 and fr["static"]["total_unc"] > 0.0
+          and fr["error"]["eff_reduction"] > fr["static"]["eff_reduction"],
+          f"fleet_bench bracket on the card: {fr}")
+    # one launch of the case's variant per epoch and policy; one
+    # margin_grid launch per dispatch after each month's first profile,
+    # two for that profile (a refresh and a timing launch)
+    months = [r for o in out.values() for r in o["card"].values()]
+    want = {f"replay_blocks ({v})": sum(r.spec.n_epochs
+                                        for r in out[c]["card"].values())
+            for v, c in (("b", "--fast"), ("c", "regions=4"),
+                         ("e", "faulted"))}
+    want["margin_grid"] = sum(r.margin_dispatches + 2 for r in months)
+    check(all(v > 0 for v in want.values())
+          and all(launches[k] == want.get(k, 0) for k in launches),
+          f"fleet launches {launches}, expected {want} and 0 elsewhere")
+    env.update(launches_fleet_fast=launches)
+
+
 # ------------------------------------------------------------ serve path
 
 SERVE_ARCH = "glm4-9b"
@@ -3392,13 +3657,14 @@ def main() -> int:
         k1 = phase(kernel_margin_grid, env)
         for fn in (thermal_path, thermal_breakdown, region_path,
                    region_breakdown, fault_path, fault_breakdown,
-                   traffic_path, campaign_engine):
+                   traffic_path, campaign_engine, fleet_path,
+                   cross_device_fleet):
             phase(fn, env)
         k1.update(path_launches(env, "margin_grid"))
         k1.update(phase(kernel_margin_small, env))
         k1["max_abs_err"] = max(k1["max_abs_err"], k1["max_abs_err_small"])
         k1["launches_by_shape"] = {p: env[f"margin_shapes_{p}"]
-                                   for p in ("main", "region")}
+                                   for p in ("main", "region", "fleet")}
         k2, k3, k4, k5, k6, k7, k8, k9 = (phase(fn, env) for fn in (
             kernel_replay, kernel_replay_banked, kernel_adaptive,
             kernel_replay_regioned, kernel_adaptive_regioned,

@@ -385,6 +385,28 @@ class TimingTable:
         return param_reductions(self.module_params[:, bi, :], std)
 
 
+def cell_diagonal(grid: torch.Tensor, n: int, lo: int, hi: int, ch: int,
+                  bk: int, rg: int, b: int) -> torch.Tensor:
+    """Each cell's margins under the rows of ITS module, rank-level bank
+    and subarray region, extracted on the grid's device.
+
+    `grid` is a dense [n * cpm, n * cols] margin grid of n modules (cells
+    module-major, laid out (chips, banks, regions, cells per region);
+    columns module-major); each module's columns lo:hi hold b rows per
+    (bank, region), laid out (b, banks, regions).  Returns [bk, rg, n,
+    ch, kc // rg, b]: the module diagonal, then each cell's (bank,
+    row-position group) paired with its combo's (bank, region)."""
+    cpm, cols = grid.shape[0] // n, grid.shape[1] // n
+    kc = cpm // (ch * bk)
+    dev = grid.device
+    mi = torch.arange(n, device=dev)
+    g = grid.view(n, cpm, n, cols)[mi, :, mi, lo:hi].reshape(
+        n, ch, bk, rg, kc // rg, b, bk, rg)
+    bj = torch.arange(bk, device=dev)[:, None]
+    rj = torch.arange(rg, device=dev)[None, :]
+    return g[:, :, bj, rj, :, :, bj, rj]
+
+
 class ALDRAMController:
     """Profile once; select per (module, temperature) at runtime.
 
@@ -577,27 +599,16 @@ class ALDRAMController:
                 trefi_write=np.repeat(trefi_w[sl], cpm))
             mi = torch.arange(n, device=dev)
             for grid in (read_m, write_m):
-                grid = grid.view(n, cpm, n, cols)
                 # module-diagonal of the envelope block: [mods, cpm, b]
-                if bool(grid[mi, :, mi, :b].min() < 0.0):
+                if bool(grid.view(n, cpm, n, cols)[mi, :, mi, :b].min()
+                        < 0.0):
                     return False
-                if banks:
-                    # bank block: module-diagonal, then pair each cell's
-                    # bank with its combo's bank
-                    gb = grid[mi, :, mi, b:b * (1 + banks)].reshape(
-                        n, ch, bk, kc, b, banks)
-                    bj = torch.arange(banks, device=dev)
-                    if bool(gb[:, :, bj, :, :, bj].min() < 0.0):
-                        return False
-                if rg:
-                    # region block: module-diagonal, then pair each cell's
-                    # (bank, row-position group) with its combo's (bank,
-                    # region)
-                    gr = grid[mi, :, mi, b * (1 + banks):].reshape(
-                        n, ch, bk, rg, kc // rg, b, banks, rg)
-                    bj = torch.arange(banks, device=dev)[:, None]
-                    rj = torch.arange(rg, device=dev)[None, :]
-                    if bool(gr[:, :, bj, rj, :, :, bj, rj].min() < 0.0):
+                # bank block (one region a bank), then the region block
+                blocks = ([(b, b * (1 + banks), 1)] if banks else []) + (
+                    [(b * (1 + banks), cols, rg)] if rg else [])
+                for lo_c, hi_c, r in blocks:
+                    if bool(cell_diagonal(grid, n, lo_c, hi_c, ch, bk, r,
+                                          b).min() < 0.0):
                         return False
         return True
 

@@ -1,1 +1,3 @@
-"""Runtime utilities of the port (counterpart of `repro.runtime`)."""
+"""Runtime utilities of the port (counterpart of `repro.runtime`): the
+region-table compressor, straggler detection, heartbeats and the
+fault-tolerant checkpoint loop."""

@@ -32,6 +32,42 @@ def profiler(fast: bool = False, device: str | torch.device = "cuda"):
                     device=device)
 
 
+def spatial_campaign(fast: bool, evaluate, regions: int = 1, *, pop=None,
+                     traces=None, ctrl=None, device="cuda"):
+    """The ONE spatial-table campaign assembly `port_fig_bank` and
+    `port_fig_region` share: profile the population with a per-bank
+    (optionally subarray-region) controller, run one system evaluation
+    through a fresh `SimEngine`, and count every dispatch the comparison
+    cost (replays + synthesis draws of the pool).
+
+    `evaluate(ctrl, pop, engine, n, traces)` runs the whole comparison
+    through `engine` with `n` requests per workload.  `pop` and
+    `traces` are the population and the [70, N] pool (or None: sampled
+    and drawn here); `ctrl` an ALDRAMController that already profiled
+    `pop` at `regions` (it is not profiled again).  Returns
+    (controller, result, dispatches {"replay", "synth", "total"},
+    wall_us)."""
+    from repro_torch.core import perf_model
+    from repro_torch.core.aldram import ALDRAMController
+    from repro_torch.core.sim_engine import SimEngine
+
+    pop = population(fast, device=device) if pop is None else pop
+    if ctrl is not None and (ctrl.regions != regions or ctrl.table is None):
+        raise ValueError(f"ctrl must have profiled at regions={regions}")
+    fresh = ctrl is None
+    ctrl = ctrl or ALDRAMController(profiler(fast, device), regions=regions,
+                                    device=device)
+    engine = SimEngine(device=ctrl.device)
+    with perf_model.synth_dispatch_scope() as scope:
+        with timed(ctrl.device) as t:
+            if fresh:
+                ctrl.profile(pop)
+            res = evaluate(ctrl, pop, engine, 1024 if fast else 4096, traces)
+    dispatches = {"replay": engine.dispatch_count, "synth": scope.count}
+    dispatches["total"] = dispatches["replay"] + dispatches["synth"]
+    return ctrl, res, dispatches, t.us
+
+
 class timed:
     """Wall time of a section in microseconds; on a card, up to the end
     of the work it queued."""

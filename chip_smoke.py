@@ -38,7 +38,10 @@ Phases (any failure exits non-zero and prints no result line):
      each through the two-launch path and `fused=True` (`run_bracket`),
      which must agree (worst_bin equal, gmeans within 1e-5 relative);
      adaptive >= static_worst - 1e-9 for every scenario and policy; then
-     `evaluate_bank_system(n=4096)`; then the same path under
+     `evaluate_bank_system(n=4096)`; the `fused=True` runs are
+     `benchmarks/port_thermal_bench.py`'s (per-module and per-bank) and
+     `evaluate_bank_system` is `port_fig_bank.py`'s, each through its
+     driver (its CSV line and its assertions); then the same path under
      `torch.profiler` for the device busy share;
   5. the subarray-region path at full width on the same population,
      launch counts reset just before and read just after: a regions=8
@@ -47,7 +50,9 @@ Phases (any failure exits non-zero and prints no result line):
      4, 8))` must be monotone module <= bank <= r2 <= r4 <= r8, the
      8-region store under 0.5 of dense; `evaluate_region_system(n=4096)`
      replays 70 traces x 26 rows (JEDEC, 5 module, 5 bank, 3 x 5 region
-     rows) over <= 64 unique columns in ONE launch of replay_blocks (c);
+     rows) over <= 64 unique columns in ONE launch of replay_blocks (c),
+     through `benchmarks/port_fig_region.py` (its CSV line and its
+     assertions);
      the deployed `safe_stack_regions()` (5 bins + JEDEC, a [64] map)
      runs in closed loop through `SimEngine` under the default 4 + 4
      scenarios in ONE launch of adaptive_blocks (c), and its gmean must
@@ -84,10 +89,13 @@ Phases (any failure exits non-zero and prints no result line):
      the 8 default thermal lanes on the deployed module stack, 16
      streams x n = 2048), which runs the plain step loop on the card
      (the adaptive kernel is single-channel, as the reference's); then
-     one 4-channel run on the first 4096 requests of each stream under
+     one 4-channel run on the first 2048 requests of each stream under
      `torch.profiler` for the busy share, after phases 7 and 9-11 (its
-     ~131k kernel records, ~262k at 8192, once left the next profiler
-     session of a kernel timing with no record);
+     ~66k kernel records, ~262k at 8192, once left the next profiler
+     session of a kernel timing with no record); the profile is cut to
+     a quarter of each stream to keep the run near half its time limit
+     (the share swings with the host: 5.9-12.5 % at 2048, 9.3 % at
+     4096 on an H100 80GB HBM3 at 700 W);
   6d. the campaign engine, launch counts reset just before and read
      just after: the Fig. 4 pool (70 traces x 8192, DDR3-1600 and the
      55C set) unsharded, on `make_campaign_mesh(1)` and on a 3-entry
@@ -137,13 +145,36 @@ Phases (any failure exits non-zero and prints no result line):
      first differing scrub or profile re-run on both devices, its
      sign-differing cells printed with both margins); the bench's
      bracket asserted on the card;
+  6g. the paper-figure drivers at full width on the main path's
+     population, launch counts reset just before and read just after:
+     `port_fig2_refresh`, `port_fig2_timing`, `port_multi_timing` (its
+     frontier in ONE replay launch over an 8,192-request trace),
+     `port_repeatability` (176,640 x 1 margins, noise from
+     `np.random.default_rng(0)`), `port_power_bench`, `port_sim_bench
+     --fast` (the full 8,192 is a `benchmarks/port_run.py` run: its
+     reference pipeline is a pure-Python FR-FCFS loop) and
+     `calibration.evaluate(fast=False)` on the population (its
+     statistics, residuals and loss printed): each driver's CSV line
+     with its own assertions, 8 margin_grid launches (asserted), the
+     launches by kernel variant of this phase and, with the drivers
+     phases 4 and 5 ran, of all nine figure drivers (margin_grid,
+     replay_blocks (a), (b), (c) and adaptive_blocks (a), (b) each > 0);
+     every margin_sweep call and the first replay_grid call
+     (multi_timing's) recorded for phase 7;
   7. margin_grid at every shape below the key search that the main,
-     region and fleet paths gave it (the fleet's scrub chunks: 38,400 x
-     200 and 23,040 x 120 with per-cell tREFI overrides), on the inputs
-     of its first call there: the wrapper (the per-element kernel)
-     against the plain version (rtol = atol = 2e-4), the key kernel
-     against it bit for bit, and both times; then replay_blocks (a) at
-     both Fig. 4 shapes (bitwise), replay_blocks (b) at the thermal
+     region, fleet and figure paths gave it (the fleet's scrub chunks:
+     38,400 x 200 and 23,040 x 120 with per-cell tREFI overrides;
+     repeatability's 176,640 x 1 stress combo), on the inputs of its
+     first call there: the wrapper (the per-element kernel) against the
+     plain version (rtol = atol = 2e-4), the key kernel against it bit
+     for bit, and both times; margin_grid at every key-kernel shape of
+     the figure path (fig2_timing's, multi_timing's and
+     `calibration.evaluate`'s campaigns), on a row slice of its first
+     call's inputs above the key search's threshold: the wrapper (the
+     key kernel) against the plain version (rtol = atol = 2e-4), the
+     per-element kernel against it bit for bit; then replay_blocks (a)
+     at both Fig. 4 shapes and on multi_timing's frontier replay
+     (bitwise), replay_blocks (b) at the thermal
      path's shape and on the fleet path's first epoch (its [116, 8, 6]
      per-bank tile at the tuned block, bitwise), and adaptive_blocks
      (module and per-bank tables, raw temps and bins emitted) against
@@ -276,6 +307,7 @@ import contextlib
 import dataclasses
 import inspect
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -495,6 +527,21 @@ def wall(fn):
 
 # ---------------------------------------------------------------- phases
 
+def driver_run(env, name: str, fn):
+    """Run one figure driver inside a phase: (its result, its seconds,
+    its launches by kernel variant), the launches also kept in
+    `env["figure_drivers"]` for phase 6g's totals.  The counts are read
+    around the call, not reset."""
+    before = read_counts()
+    out, t = wall(fn)
+    after = read_counts()
+    launches = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    env.setdefault("figure_drivers", {})[name] = {"seconds": round(t, 3),
+                                                  "launches": launches}
+    return out, t, launches
+
+
 def main_path(env) -> dict:
     """Phase 2: the full-width main path through the kernels."""
     import torch
@@ -637,7 +684,8 @@ def path_launches(env, kernel: str) -> dict:
     and per path."""
     by_path = {path: env[f"launches_{path}"][kernel]
                for path in ("main", "thermal", "region", "fault",
-                            "traffic", "campaign", "fleet", "fleet_fast")
+                            "traffic", "campaign", "fleet", "fleet_fast",
+                            "figures")
                if f"launches_{path}" in env}
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -717,14 +765,15 @@ def margin_shapes(log: list) -> dict:
             for k, (c, t) in out.items()}
 
 
-def small_grid_inputs(log: list) -> dict:
+def small_grid_inputs(log: list, skip=(CAMPAIGN_GRID,)) -> dict:
     """(n, m) -> [cells_t, combos_t, constants, calls]: the packed inputs
-    of the first `margin_sweep` call at each shape other than the
-    campaign grid, and the number of calls at that shape."""
+    of the first `margin_sweep` call at each shape not in `skip` (by
+    default the campaign grid, which phase 3 holds), and the number of
+    calls at that shape."""
     from repro_torch.kernels.charge_sim import ops
     out = {}
     for n, m, _, _, a in log:
-        if (n, m) == CAMPAIGN_GRID:
+        if (n, m) in skip:
             continue
         if (n, m) not in out:
             out[(n, m)] = [*ops.pack_inputs(
@@ -839,8 +888,8 @@ def kernel_margin_grid(env) -> dict:
 
 def kernel_margin_small(env) -> dict:
     """Phase 7: margin_grid at every shape below the key search that the
-    main, region and fleet paths gave it, on the inputs of its first
-    call there:
+    main, region, fleet and figure paths gave it, on the inputs of its
+    first call there:
     the wrapper (the per-element kernel) vs the plain version, the key
     kernel vs the per-element kernel bit for bit, and both times (CUDA
     events; the key kernel's with its host key search)."""
@@ -848,7 +897,7 @@ def kernel_margin_small(env) -> dict:
     from repro_torch.kernels.charge_sim import ops, ref
 
     grids, worst = [], 0.0
-    for path in ("main", "region", "fleet"):
+    for path in ("main", "region", "fleet", "figures"):
         for (n, m), (ct, mt, consts, calls) in env[
                 f"margin_small_{path}"].items():
             check(n * m < ops.SEARCH_MIN_ELEMS, f"{n} x {m} takes the keys")
@@ -882,9 +931,82 @@ def kernel_margin_small(env) -> dict:
     return {"max_abs_err_small": worst, "small_grids": grids}
 
 
+def kernel_margin_keyed(env) -> dict:
+    """Phase 7: margin_grid at every key-kernel shape of the figure path
+    (its campaigns' column sets differ from the main campaign's, which
+    phase 3 holds), on a row slice of its first call's inputs that keeps
+    the slice above `SEARCH_MIN_ELEMS`: the wrapper (the key kernel)
+    against the plain version (rtol = atol = 2e-4), and the per-element
+    kernel against it bit for bit."""
+    import torch
+    from repro_torch.kernels.charge_sim import ops, ref
+
+    grids, worst = [], 0.0
+    for (n, m), (ct, mt, consts, calls) in env["margin_keyed_figures"].items():
+        check(n * m >= ops.SEARCH_MIN_ELEMS, f"{n} x {m} skips the keys")
+        n_slice = min(n, -(-ops.SEARCH_MIN_ELEMS // m))
+        sl = ct[:, :n_slice].contiguous()
+        k_out = ops.margin_grid(sl, mt, consts)
+        err_abs, err_rel, viol, nonbit = vs_plain(
+            k_out, ref.margin_grid(sl, mt, consts))
+        out = [torch.empty((n_slice, m), device=ct.device) for _ in range(2)]
+        ops.launch(sl, mt, consts, *out, by_key=False)
+        differ = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                     for x, y in zip(out, k_out))
+        print(f"margin_grid figures {n} x {m} ({calls} calls) on rows "
+              f"0..{n_slice}: vs plain max abs {err_abs:.3e}, max rel "
+              f"{err_rel:.3e}, {viol} beyond rtol=atol={TOL:g}, {nonbit} not "
+              f"bitwise equal; per-element kernel vs key: {differ} differ")
+        check(viol == 0, f"margin_grid disagrees with its plain version "
+                         f"at {viol} elements of {n_slice} x {m}")
+        check(differ == 0, f"the key and per-element kernels differ at "
+                           f"{differ} elements of {n_slice} x {m}")
+        worst = max(worst, err_abs)
+        grids.append({"path": "figures", "shape": [n, m], "rows": n_slice,
+                      "calls": calls, "max_abs_err": err_abs,
+                      "not_bitwise": nonbit})
+    check(grids, "no key-kernel margin grid on the figure path")
+    return {"max_abs_err_keyed": worst, "keyed_grids": grids}
+
+
+def recorded_replay(fr: dict, label: str) -> tuple[int, float]:
+    """A `replay_grid` call recorded by `first_call`, launched again on
+    its cells and timing tile (at its block) and held against
+    `dram_sim.replay_cells` on the same inputs: (lanes not bitwise
+    equal, max abs error), printed."""
+    import torch
+    from repro_torch.core import dram_sim
+    from repro_torch.kernels.replay import ops, ref
+
+    check(fr["region_map"] is None and fr["fault"] is None
+          and fr["chan"][0] == 1, f"{label}: not a static one-channel "
+          "replay")
+    cells = ref.to_cells(fr["arrival"], fr["bank"], fr["row"],
+                         fr["is_write"], fr["valid"], fr["closed"])
+    closed, arr, bank, row, wr, valid = cells
+    tim = torch.as_tensor(fr["timings"], device=arr.device)
+    lat, total = ops.replay_blocks(
+        *cells, ref.timing_tile(tim), fr["n_banks"], fr["mlp_window"],
+        block_lanes=fr["block_lanes"])
+    lat2, total2 = dram_sim.replay_cells(
+        arr, bank, row, wr.bool(), valid.bool(), tim, closed > 0.5,
+        fr["n_banks"], fr["mlp_window"])
+    n_bad = int(((lat.view(torch.int32) != lat2.view(torch.int32)).any(1)
+                 | (total.view(torch.int32)
+                    != total2.view(torch.int32))).sum())
+    err = max((lat - lat2).abs().max().item(),
+              (total - total2).abs().max().item())
+    print(f"{label} G={arr.shape[0]} N={arr.shape[1]} tile "
+          f"{list(tim.shape)} block_lanes {fr['block_lanes']}: {n_bad} of "
+          f"{arr.shape[0] * tim.shape[0]} lanes not bitwise equal to plain "
+          f"(max abs {err:.3e})")
+    return n_bad, err
+
+
 def kernel_replay(env) -> dict:
     """Phase 5a: replay_blocks (a) vs its plain version at both Fig. 4
-    shapes, and its times."""
+    shapes, and its times; then on multi_timing's frontier replay,
+    bitwise."""
     import torch
     from repro_torch.core import dram_sim, perf_model
     from repro_torch.core import timing as T
@@ -937,6 +1059,12 @@ def kernel_replay(env) -> dict:
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      **chain}
+    m_bad, m_err = recorded_replay(env["figures_replay"],
+                                   "replay_blocks (a) on multi_timing's "
+                                   "frontier")
+    check(m_bad == 0, f"replay_blocks (a): {m_bad} frontier lanes differ")
+    entry["max_abs_err"] = max(entry["max_abs_err"], m_err)
+    entry["max_abs_err_frontier"] = m_err
     return entry
 
 
@@ -947,17 +1075,30 @@ def thermal_path(env) -> None:
     import numpy as np
     from repro_torch.core.sim_engine import SimEngine
 
+    from benchmarks import port_fig_bank, port_thermal_bench
+
     pop, ctrl = env["pop"], env["ctrl"]
     runs, secs, calls = {}, {}, {}
     reset_counts()
     for per_bank in (False, True):
         for fused in (False, True):
-            eng = SimEngine(device="cuda")
             key = (per_bank, fused)
+            if fused:
+                # the thermal bench's campaign: its driver, with its
+                # CSV line and its bracket asserted
+                runs[key], secs[key], _ = driver_run(
+                    env, "thermal_bench" + (" per-bank" if per_bank else ""),
+                    lambda: port_thermal_bench.run(pop=pop, ctrl=ctrl,
+                                                   per_bank=per_bank))
+                calls[key] = runs[key]["dispatches"]["replay"]
+                continue
+            eng = SimEngine(device="cuda")
             runs[key], secs[key] = wall(lambda: ctrl.evaluate_dynamic(
                 pop, n=4096, per_bank=per_bank, fused=fused, engine=eng))
             calls[key] = eng.dispatch_count
-    bank, t_bank = wall(lambda: ctrl.evaluate_bank_system(pop, n=4096))
+    # `evaluate_bank_system` through the per-bank tables' driver
+    bank, t_bank, _ = driver_run(env, "fig_bank", lambda: port_fig_bank.run(
+        pop=pop, ctrl=ctrl))
     launches = read_counts()
 
     for key, res in runs.items():
@@ -1158,26 +1299,9 @@ def kernel_replay_banked(env) -> dict:
 
     # the fleet path's first epoch: the [S = 116, 8, 6] tile of 115
     # module envelopes and JEDEC, at the tuner's block
-    fr = env["fleet_replay"]
-    f_cells = ref.to_cells(fr["arrival"], fr["bank"], fr["row"],
-                           fr["is_write"], fr["valid"], fr["closed"])
-    f_tim = torch.as_tensor(fr["timings"], device=arr.device)
-    f_lat, f_total = ops.replay_blocks(
-        *f_cells, ref.timing_tile(f_tim), fr["n_banks"], fr["mlp_window"],
-        block_lanes=fr["block_lanes"])
-    fc, fa, fb, frow, fw, fv = f_cells
-    f_lat2, f_total2 = dram_sim.replay_cells(
-        fa, fb, frow, fw.bool(), fv.bool(), f_tim, fc > 0.5, fr["n_banks"],
-        fr["mlp_window"])
-    f_bad = int(((f_lat.view(torch.int32) != f_lat2.view(torch.int32)).any(1)
-                 | (f_total.view(torch.int32)
-                    != f_total2.view(torch.int32))).sum())
-    f_err = max((f_lat - f_lat2).abs().max().item(),
-                (f_total - f_total2).abs().max().item())
-    print(f"replay_blocks (b) on the fleet's first epoch G={fa.shape[0]} "
-          f"N={fa.shape[1]} tile {list(f_tim.shape)} block_lanes "
-          f"{fr['block_lanes']}: {f_bad} of {fa.shape[0] * f_tim.shape[0]} "
-          f"lanes not bitwise equal to plain (max abs {f_err:.3e})")
+    f_bad, f_err = recorded_replay(env["fleet_replay"],
+                                   "replay_blocks (b) on the fleet's first "
+                                   "epoch")
     check(f_bad == 0, f"replay_blocks (b): {f_bad} fleet lanes differ")
     return {"name": "replay_blocks", "variant": "b", "route": "cuda",
             "source": "src/repro_torch/kernels/replay/replay.cu",
@@ -1378,6 +1502,7 @@ def region_path(env) -> None:
     path's population, kernel launch counts reset just before and read
     just after."""
     import numpy as np
+    from benchmarks import port_fig_region
     from repro_torch.core import perf_model
     from repro_torch.core.aldram import ALDRAMController
     from repro_torch.core.calibration import CALIBRATED_CONSTANTS
@@ -1397,9 +1522,11 @@ def region_path(env) -> None:
     shapes = margin_shapes(mlog)
     red, t_red = wall(lambda: ctrl.region_reductions(LEVELS))
     ratios = {lv: ctrl.region_table(lv).compression_ratio() for lv in LEVELS}
-    eng_sys = SimEngine(device="cuda")
-    sys_res, t_sys = wall(lambda: ctrl.evaluate_region_system(
-        pop, n=4096, levels=LEVELS, engine=eng_sys))
+    # `evaluate_region_system` through the region figure's driver (its
+    # monotonicity, compression and one-launch assertions in force)
+    sys_res, t_sys, _ = driver_run(env, "fig_region",
+                                   lambda: port_fig_region.run(pop=pop,
+                                                               ctrl=ctrl))
     before = read_counts()
     (rows_u, edges, idx), t_stack = wall(table.safe_stack_regions)
     eng_dyn = SimEngine(device="cuda")
@@ -1422,8 +1549,8 @@ def region_path(env) -> None:
         f"r{lv} {v:.4f}" for lv, v in ratios.items())
         + f" (region_reductions {t_red:.3f} s)")
     print(f"evaluate_region_system: rows {sys_res['rows'].shape}, map "
-          f"{sys_res['region_map'].shape}, {eng_sys.dispatch_count} engine "
-          f"call ({t_sys:.3f} s)")
+          f"{sys_res['region_map'].shape}, "
+          f"{sys_res['dispatches']['replay']} engine call ({t_sys:.3f} s)")
     for t, d in sys_res["per_temp"].items():
         print(f"  @{t:.0f}C: " + " ".join(f"{k} {v:.3%}"
                                           for k, v in d.items()))
@@ -1447,7 +1574,7 @@ def region_path(env) -> None:
         check(all(b >= a - 1e-9 for a, b in zip(seq, seq[1:])),
               f"{op} reductions not monotone: {seq}")
     check(ratios[REGIONS] < 0.5, f"8-region store ratio {ratios}")
-    check(eng_sys.dispatch_count == 1
+    check(sys_res["dispatches"]["replay"] == 1
           and sys_res["rows"].shape[0] == 26
           and sys_res["rows"].shape[1] <= 64
           and sys_res["region_map"].shape == (64,),
@@ -2236,10 +2363,13 @@ def traffic_path(env) -> None:
                traffic_bench=bench)
 
 
-# requests per stream of the traffic profile: the first half of each
-# stream, so the profile's ~131k kernel records (the FR-FCFS prepass's
-# steps) take half the time 8192 took (PR 22: the run near its 600 s aim)
-TRAFFIC_PROFILE_N = 4096
+# requests per stream of the traffic profile: the first quarter of each
+# stream, cut for time only.  The profile exists only for the busy
+# share; its kernel records (~66k here) and its seconds shrink with the
+# length (8,192 took 152.7 s, 4,096 took 64-82 s, 2,048 31-50 s).  The
+# share swings with the host: 5.9-12.5 % in three runs at 2,048, 9.3 %
+# in one at 4,096 (NVIDIA H100 80GB HBM3, 700 W)
+TRAFFIC_PROFILE_N = 2048
 
 
 def traffic_breakdown(env) -> None:
@@ -2967,6 +3097,97 @@ def cross_device_fleet(env) -> None:
     env.update(launches_fleet_fast=launches)
 
 
+# --------------------------------------------------------- figure drivers
+
+# margin_grid launches of phase 6g's drivers: fig2_refresh 1 (refresh),
+# fig2_timing 2 and multi_timing 2 (refresh + one campaign), repeatability
+# 1, calibration.evaluate 2
+FIGURES_MARGIN_LAUNCHES = 8
+
+
+def figures_path(env) -> None:
+    """Phase 6g: the paper-figure drivers at full width on the main
+    path's population (nothing sampled or profiled again), launch counts
+    reset just before and read just after; the totals add the drivers
+    phases 4 and 5 ran on their campaigns (thermal_bench per-module and
+    per-bank, fig_bank, fig_region), which are not run twice."""
+    from benchmarks import (port_fig2_refresh, port_fig2_timing,
+                            port_multi_timing, port_power_bench,
+                            port_repeatability, port_sim_bench)
+    from repro_torch.core import calibration as C
+    from repro_torch.kernels.charge_sim import ops as margin_ops
+    from repro_torch.kernels.replay import ops as replay_ops
+
+    pop = env["pop"]
+    earlier = dict(env.get("figure_drivers", {}))
+    reset_counts()
+    runs, mlog, replay = {}, [], {}
+    # multi_timing makes the path's first replay_grid call
+    with margin_log(mlog), first_call(replay_ops, "replay_grid", replay):
+        for name, fn in (
+                ("fig2_refresh", lambda: port_fig2_refresh.run(pop=pop)),
+                ("fig2_timing", lambda: port_fig2_timing.run(pop=pop)),
+                ("multi_timing", lambda: port_multi_timing.run(pop=pop)),
+                ("repeatability", lambda: port_repeatability.run(pop=pop)),
+                ("power", port_power_bench.run),
+                # its reference pipeline is a pure-Python FR-FCFS loop over
+                # 70 x N requests: the full 8,192 is a port_run.py run
+                ("sim_bench --fast", lambda: port_sim_bench.run(True)),
+                ("calibration", lambda: C.evaluate(
+                    C.CALIBRATED_CONSTANTS, C.CALIBRATED_VARIATION, fast=False,
+                    pop=pop))):
+            runs[name], _, _ = driver_run(env, name, fn)
+    launches = read_counts()
+    shapes = margin_shapes(mlog)
+    grids = small_grid_inputs(mlog, skip=())
+    small = {k: v for k, v in grids.items()
+             if k[0] * k[1] < margin_ops.SEARCH_MIN_ELEMS}
+    drivers = env["figure_drivers"]
+    total: dict = {}
+    for d in drivers.values():
+        for k, v in d["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    stats = runs["calibration"]
+    print("calibration.evaluate (115 modules, 1.25 ns grid): " + json.dumps(
+        {"stats": stats, "residuals": C.residuals(stats),
+         "loss": C.loss(stats)}))
+    for name, d in drivers.items():
+        where = "phase 4/5" if name in earlier else "6g"
+        print(f"figures {name} ({where}): {d['seconds']:.3f} s, launches "
+              f"{json.dumps(d['launches'])}")
+    print("figures path kernels (6g): " + json.dumps(launches))
+    by_shape = {f"{n} x {m}": c for (n, m), (*_, c) in grids.items()}
+    print(f"figures margin_grid calls by shape: {json.dumps(by_shape)}; "
+          f"first replay: timings {list(replay['timings'].shape)}, streams "
+          f"{list(replay['arrival'].shape)}")
+    print("figures path kernels (6g + the drivers of phases 4-5): "
+          + json.dumps(total))
+
+    check(all(math.isfinite(v) for v in stats.values()), str(stats))
+    check(math.isfinite(C.loss(stats)), "calibration loss not finite")
+    check(runs["multi_timing"]["dispatches"] == {"replay": 1},
+          str(runs["multi_timing"]["dispatches"]))
+    check(runs["repeatability"]["dispatches"] == {"margin": 1},
+          str(runs["repeatability"]["dispatches"]))
+    check(launches["margin_grid"] == FIGURES_MARGIN_LAUNCHES,
+          f"margin_grid launches {launches['margin_grid']}")
+    check(set(earlier) == {"thermal_bench", "thermal_bench per-bank",
+                           "fig_bank", "fig_region"},
+          f"phases 4-5 drivers {sorted(earlier)}")
+    check(all(total.get(k, 0) > 0 for k in (
+        "margin_grid", "replay_blocks (a)", "replay_blocks (b)",
+        "replay_blocks (c)", "adaptive_blocks (a)", "adaptive_blocks (b)")),
+          f"a kernel of the figure drivers never launched: {total}")
+    check(sum(c for *_, c in grids.values()) == launches["margin_grid"],
+          f"margin shapes {shapes}, launches {launches['margin_grid']}")
+    env.update(launches_figures=launches, margin_shapes_figures=shapes,
+               margin_small_figures=small,
+               margin_keyed_figures={k: v for k, v in grids.items()
+                                     if k not in small},
+               figures_replay=replay)
+
+
 # ------------------------------------------------------------ serve path
 
 SERVE_ARCH = "glm4-9b"
@@ -3658,13 +3879,16 @@ def main() -> int:
         for fn in (thermal_path, thermal_breakdown, region_path,
                    region_breakdown, fault_path, fault_breakdown,
                    traffic_path, campaign_engine, fleet_path,
-                   cross_device_fleet):
+                   cross_device_fleet, figures_path):
             phase(fn, env)
         k1.update(path_launches(env, "margin_grid"))
         k1.update(phase(kernel_margin_small, env))
-        k1["max_abs_err"] = max(k1["max_abs_err"], k1["max_abs_err_small"])
+        k1.update(phase(kernel_margin_keyed, env))
+        k1["max_abs_err"] = max(k1["max_abs_err"], k1["max_abs_err_small"],
+                                k1["max_abs_err_keyed"])
         k1["launches_by_shape"] = {p: env[f"margin_shapes_{p}"]
-                                   for p in ("main", "region", "fleet")}
+                                   for p in ("main", "region", "fleet",
+                                             "figures")}
         k2, k3, k4, k5, k6, k7, k8, k9 = (phase(fn, env) for fn in (
             kernel_replay, kernel_replay_banked, kernel_adaptive,
             kernel_replay_regioned, kernel_adaptive_regioned,

@@ -18,7 +18,7 @@ from repro_torch.core.charge import ChargeConstants
 from repro_torch.core.dram_sim import Trace
 from repro_torch.core.faults import FaultScenario, FaultSpec
 from repro_torch.core.thermal import SCN_COLS, ThermalScenario
-from repro_torch.core.variation import Population
+from repro_torch.core.variation import Population, VariationConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as TF
 
@@ -48,6 +48,16 @@ def charge_constants(fields: Mapping[str, float]) -> ChargeConstants:
     """`ChargeConstants` from the reference's field values (e.g.
     `dataclasses.asdict(constants)`); every field must be given."""
     return ChargeConstants(**{k: float(v) for k, v in fields.items()})
+
+
+def variation_config(fields: Mapping[str, float]) -> VariationConfig:
+    """`VariationConfig` from the reference's field values (e.g.
+    `dataclasses.asdict(config)`); every field must be given, the
+    population sizes stay integers."""
+    ints = {f.name for f in dataclasses.fields(VariationConfig)
+            if f.type in (int, "int")}
+    return VariationConfig(**{k: (int(v) if k in ints else float(v))
+                              for k, v in fields.items()})
 
 
 def timing_table(temp_bins, params: np.ndarray, safe_trefi_read: np.ndarray,

@@ -201,6 +201,23 @@ def margin_sweep(cell_stack: torch.Tensor, combos: torch.Tensor,
             write_margin(cell, cm, t, c, tw))
 
 
+def combo_margins(cell_stack: torch.Tensor, combos: torch.Tensor,
+                  temp_c: float,
+                  c: ChargeConstants = DEFAULT_CONSTANTS,
+                  trefi_cells: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense (cells x combos) margin grids for read and write tests at a
+    single temperature — the scalar-temperature case of `margin_sweep`.
+
+    cell_stack: [n, 5] stacked CellParams; combos: [m, 5];
+    trefi_cells: optional [n] per-cell refresh interval override for
+    both tests.  Returns (read_margins, write_margins), each [n, m], in
+    ONE `margin_grid` call: the CUDA kernel on a card, its plain
+    version on the CPU."""
+    from repro_torch.kernels.charge_sim import ops
+    return ops.combo_margins(cell_stack, combos, temp_c, c, trefi_cells)
+
+
 def row_positions(n_cells: int) -> torch.Tensor:
     """[n_cells] normalized row position of each sampled tail cell
     within its bank: 0 = next to the sense amplifiers / wordline

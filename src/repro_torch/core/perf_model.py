@@ -101,6 +101,28 @@ def _knobs(w: Workload, multi_core: bool) -> tuple[float, float, float]:
     return row_hit, w.write_frac, inter
 
 
+def workload_speedup(w: Workload, std: TimingParams, fast: TimingParams,
+                     trace, n: int = 8192, multi_core: bool = True,
+                     device: str | torch.device = "cuda") -> float:
+    """Per-trace reference path: two `dram_sim.simulate` calls (host
+    statistics, host reordering) on one trace of workload `w`, the CPI
+    speedup of `fast` over `std`.  `trace` is the trace itself (an [n]
+    `dram_sim.Trace`) or a `torch.Generator` to draw it from, with
+    `w`'s knobs for the core mode."""
+    if isinstance(trace, torch.Generator):
+        row_hit, write_frac, inter = _knobs(w, multi_core)
+        trace = dram_sim.synth_trace(trace, n, row_hit=row_hit,
+                                     write_frac=write_frac,
+                                     inter_arrival_ns=inter, device=device)
+    lat_std = float(dram_sim.simulate(trace, std,
+                                      device=device)["mean_latency_ns"])
+    lat_fast = float(dram_sim.simulate(trace, fast,
+                                       device=device)["mean_latency_ns"])
+    cpi_std = w.cpi_exe + w.mpki / 1000.0 * lat_std * (1 - w.overlap)
+    cpi_fast = w.cpi_exe + w.mpki / 1000.0 * lat_fast * (1 - w.overlap)
+    return cpi_std / cpi_fast - 1.0
+
+
 def _pool_knobs():
     """(offsets, row_hits, write_fracs, inter_arrivals) of the full
     70-trace pool — single-core block then multi-core block, each in

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region,
 fault-injection, multi-channel traffic and fleet recalibration paths,
-and its LLM serving path (dense attention, RWKV6 and the Mamba hybrid),
-on one NVIDIA card.
+its LLM serving path (dense attention, RWKV6 and the Mamba hybrid) and
+its training path (RWKV6), on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -89,13 +89,13 @@ Phases (any failure exits non-zero and prints no result line):
      the 8 default thermal lanes on the deployed module stack, 16
      streams x n = 2048), which runs the plain step loop on the card
      (the adaptive kernel is single-channel, as the reference's); then
-     one 4-channel run on the first 2048 requests of each stream under
+     one 4-channel run on the first 512 requests of each stream under
      `torch.profiler` for the busy share, after phases 7 and 9-11 (its
-     ~66k kernel records, ~262k at 8192, once left the next profiler
+     kernel records, ~262k at 8192, once left the next profiler
      session of a kernel timing with no record); the profile is cut to
-     a quarter of each stream to keep the run near half its time limit
+     the first 512 requests to keep the run near half its time limit
      (the share swings with the host: 5.9-12.5 % at 2048, 9.3 % at
-     4096 on an H100 80GB HBM3 at 700 W);
+     4096, 7.6 % at 512 on an H100 80GB HBM3 at 700 W);
   6d. the campaign engine, launch counts reset just before and read
      just after: the Fig. 4 pool (70 traces x 8192, DDR3-1600 and the
      55C set) unsharded, on `make_campaign_mesh(1)` and on a 3-entry
@@ -242,8 +242,8 @@ Phases (any failure exits non-zero and prints no result line):
      and decode tick, tokens per second; one short request under
      `torch.profiler` for the busy share;
   10. `python -m repro_torch.launch.serve --arch glm4-9b --device cuda`
-     and `--arch rwkv6-3b` as subprocesses: exit 0 and 4 requests
-     printed by each;
+     and `--arch rwkv6-3b` as subprocesses, with phase 20: exit 0 and 4
+     requests printed by each;
   11. flash_attention's ptxas report per instantiation (registers,
      spills, stack, dynamic shared memory) from the build log; the
      kernel against its plain version in float32 and bfloat16
@@ -293,8 +293,38 @@ Phases (any failure exits non-zero and prints no result line):
      launches by shape (prefill, decode at T = 1) and each shape's
      launch plan.
 
-Phases 13-16 run after phase 11; glm4-9b's weights are freed before
-rwkv6-3b's are drawn, and those before jamba's.
+  17. rwkv6-3b trained at full width and depth (`Trainer`, bf16
+     compute, float32 parameters and AdamW moments, remat, accum 2, 2 x
+     4096 tokens of `SyntheticLM(seed=0)` a step, 3 steps), launch
+     counts reset just before and read just after: exactly 128 wkv and
+     64 wkv_bwd launches a step and nothing else; seconds per step split
+     into forward + backward and the optimizer, tokens per second, peak
+     memory; a fourth step under `torch.profiler`; the same steps with
+     the WKV wrapper swapped for its plain version (losses within 1e-3;
+     grad-norm gaps printed); float32 gradients of one 4096-token
+     microbatch through both at 2 and 32 layers: losses within 1e-3,
+     grad norms within max(1e-2, twice the largest move of either
+     path's under one float32 ulp of parameter noise, three draws
+     each), and each path's distance to a float64 witness (the plain
+     version in float64) printed;
+  18. the WKV backward kernel against autograd through its plain
+     version at (1, 4096, 40, 64), a ragged 1300, D = 32 with B = 2 and
+     from a nonzero state with a nonzero final-state gradient, every
+     gradient within rtol = atol = 1e-3; its time at the full shape
+     beside its bound and the plain version's;
+  19. flash_attention and mamba_scan refuse grad-requiring inputs;
+  20. `python -m repro_torch.launch.train --arch rwkv6-3b|glm4-9b
+     --device cuda --steps 3` and phase 10's serving launchers, all in
+     the background during the cross-device phases: exit 0 and the loss
+     line (training) or the 4 requests (serving);
+  21. (with phase 12) reduced rwkv6-3b trained 3 steps on the card and
+     on the CPU: losses within 1e-5, grad norms within 1e-5 (or twice
+     the CPU's own 1-ulp spread), parameters within atol 1e-6 + rtol
+     1e-4.
+
+Phases 13-19 run after phase 11; glm4-9b's weights are freed before
+rwkv6-3b's are drawn, those before jamba's, and jamba's before
+training.
 
 Before them a `phase seconds:` line gives each phase's host seconds.
 The last lines are the card (`nvidia-smi` name and power limit), one
@@ -472,12 +502,14 @@ def _replay_fns():
 
 
 def _serve_fns():
-    """The serve path's kernel wrappers by kernel name."""
+    """The LLM paths' kernel wrappers by kernel name (the WKV backward
+    launches only in training)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     return {"flash_attention": flash_ops.flash_attention,
-            "wkv": wkv_ops.wkv, "mamba_scan": scan_ops.mamba_scan}
+            "wkv": wkv_ops.wkv, "wkv_bwd": wkv_ops.wkv_backward,
+            "mamba_scan": scan_ops.mamba_scan}
 
 
 def reset_counts() -> None:
@@ -2363,13 +2395,13 @@ def traffic_path(env) -> None:
                traffic_bench=bench)
 
 
-# requests per stream of the traffic profile: the first quarter of each
-# stream, cut for time only.  The profile exists only for the busy
-# share; its kernel records (~66k here) and its seconds shrink with the
-# length (8,192 took 152.7 s, 4,096 took 64-82 s, 2,048 31-50 s).  The
-# share swings with the host: 5.9-12.5 % in three runs at 2,048, 9.3 %
-# in one at 4,096 (NVIDIA H100 80GB HBM3, 700 W)
-TRAFFIC_PROFILE_N = 2048
+# requests per stream of the traffic profile: the first sixteenth of
+# each stream, cut for time only.  The profile exists only for the busy
+# share; its kernel records and its seconds shrink with the length
+# (8,192 took 152.7 s, 4,096 took 64-82 s, 2,048 31-50 s, 512 7.6 s).
+# The share swings with the host: 5.9-12.5 % in three runs at 2,048,
+# 9.3 % in one at 4,096, 7.6 % at 512 (NVIDIA H100 80GB HBM3, 700 W)
+TRAFFIC_PROFILE_N = 512
 
 
 def traffic_breakdown(env) -> None:
@@ -3452,26 +3484,6 @@ def _serve_short(params, cfg, prompt) -> None:
     eng.run_until_drained()
 
 
-def serve_launcher() -> None:
-    """Phase 10: the port's serving launcher on the card, as a user runs
-    it (reduced glm4-9b and rwkv6-3b, float32, kernel prefill)."""
-    import os
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    for arch in (SERVE_ARCH, "rwkv6-3b"):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-               arch, "--device", "cuda"]
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
-        lines = proc.stdout.splitlines()
-        print(f"launcher `{' '.join(cmd[1:])}`: rc {proc.returncode}")
-        for line in lines:
-            print(f"  {line}")
-        check(proc.returncode == 0,
-              f"the launcher failed:\n{proc.stderr[-3000:]}")
-        check(sum(line.startswith("req ") for line in lines) == 4,
-              "the launcher did not print its 4 requests")
-
-
 def _flash_inputs(shape, dtype, seed):
     import torch
     b, s, hq, hkv, d, _ = shape
@@ -3807,6 +3819,476 @@ def kernel_mamba(serve) -> dict:
     return entry
 
 
+# --------------------------------------------------------- training path
+
+TRAIN_ARCH = "rwkv6-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_ACCUM = 2, 4096, 3, 2
+TRAIN_LOSS_TOL = 1e-3        # kernels vs plain, relative, per step
+TRAIN_GNORM_TOL = 1e-2       # the same for grad_norm (bf16 compute)
+WKV_BWD_TOL = 1e-3           # rtol = atol: the backward vs its plain version
+# (b, t, h, d, initial state and final-state gradient): rwkv6-3b's
+# training shape, the ragged 1300-token prompt, D = 32 with B = 2, and a
+# nonzero initial state with a nonzero final-state gradient
+WKV_BWD_SHAPES = {"rwkv6-3b 4096": (1, 4096, 40, 64, False),
+                  "ragged 1300": (1, 1300, 40, 64, False),
+                  "reduced d32 b2": (2, 700, 4, 32, False),
+                  "from a state": (2, 1300, 40, 64, True)}
+
+
+def _train_config():
+    from repro_torch.train.step import TrainConfig
+    from repro_torch.train.trainer import TrainerConfig
+    return TrainerConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, seed=SEED,
+                         train=TrainConfig(accum_steps=TRAIN_ACCUM))
+
+
+def _train_run(cfg, plain: bool) -> dict:
+    """`Trainer.run` at full width: per step the seconds of its
+    gradients and of its optimizer (`train_step`'s `times`, each half
+    between two synchronizations), the metrics, the peak memory; with
+    `plain`, the WKV wrapper swapped for its plain version (chunk 16,
+    which autograd differentiates: `plain_serve`)."""
+    import gc
+
+    import torch
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, init_s = wall(lambda: Trainer(cfg, _train_config(),
+                                           device="cuda"))
+    times = []
+    reset_counts()
+    with plain_serve() if plain else contextlib.nullcontext():
+        trainer.run(times=times)
+    launches = read_counts()
+    return {"trainer": trainer, "init_s": init_s,
+            "step_s": [t["grads_s"] + t["update_s"] for t in times],
+            "opt_s": [t["update_s"] for t in times],
+            "metrics": trainer.metrics, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def train_path() -> dict:
+    """Phase 17: rwkv6-3b trained at full width and depth on the card
+    (`Trainer`, bf16 compute, float32 parameters and moments, remat,
+    accum 2, 2 x 4096 tokens of `SyntheticLM(seed=0)` a step, 3 steps):
+    exactly 2 x 32 x 2 = 128 WKV forward and 32 x 2 = 64 backward
+    launches a step and nothing else; seconds per step split into forward
+    + backward and the optimizer, tokens per second, peak memory; one more
+    step under `torch.profiler`; then the same steps with the WKV wrapper
+    swapped for its plain version: losses within 1e-3 relative, and the
+    grad norms' gaps printed.  At this initialisation the model's
+    gradient at full depth is not resolved by float32, let alone bf16
+    (`_train_grad_check` measures how far from a float64 witness each
+    path lies), so the grad norms are held in float32 at two layers and
+    at 32 (`_train_grad_check`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matrix products are on: float32 would not mean float32")
+    cfg = get_config(TRAIN_ARCH)
+    n_tree = sum(t.numel() for t in _tree_leaves(TF.init_params(
+        torch.Generator(), cfg, device="meta")))
+    fast = _train_run(cfg, plain=False)
+    tr = fast["trainer"]
+    n_params = sum(t.numel() for t in _tree_leaves(tr.params))
+    check(n_params == n_tree, f"{n_params} parameters, the tree {n_tree}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train {cfg.name}: {n_params / 1e9:.3f} B parameters, float32 "
+          f"parameters + gradients + AdamW moments "
+          f"{16 * n_params / 1e9:.1f} GB, drawn on the card in "
+          f"{fast['init_s']:.2f} s; bf16 compute, remat, accum "
+          f"{TRAIN_ACCUM}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; peak "
+          f"memory allocated {fast['peak_gb']:.2f} GB")
+    for m, st, ot in zip(fast["metrics"], fast["step_s"], fast["opt_s"]):
+        print(f"train {cfg.name} kernels step {m['step']}: loss "
+              f"{m['loss']:.6f} grad_norm {m['grad_norm']:.6f} lr "
+              f"{m['lr']:.3e}; {st:.3f} s = forward + backward "
+              f"{st - ot:.3f} s + optimizer {ot:.3f} s; {tokens / st:.0f} "
+              "tokens/s")
+    n = fast["launches"]
+    layers = _mixer_layers(cfg)["rwkv6"]
+    want = {"wkv": 2 * layers * TRAIN_ACCUM * TRAIN_STEPS,
+            "wkv_bwd": layers * TRAIN_ACCUM * TRAIN_STEPS}
+    print(f"train path kernels ({TRAIN_STEPS} steps): wkv {n['wkv']} "
+          f"(expected {want['wkv']}: forward and remat recompute, per layer "
+          f"and microbatch), wkv_bwd {n['wkv_bwd']} (expected "
+          f"{want['wkv_bwd']}), others "
+          f"{ {k: v for k, v in n.items() if k not in want and v} }")
+    for k, w in want.items():
+        check(n[k] == w, f"train path: {k} launched {n[k]} times, "
+              f"expected {w}")
+    check(all(v == 0 for k, v in n.items() if k not in want),
+          f"the training path launched another kernel: {n}")
+
+    def one_more():
+        tr.tcfg.steps = TRAIN_STEPS + 1
+        tr.run(start_step=TRAIN_STEPS)
+    busy_share(f"train path {cfg.name} (one step)", one_more)
+    del tr, fast["trainer"], one_more
+
+    plain = _train_run(cfg, plain=True)
+    del plain["trainer"]
+    check(not any(plain["launches"].values()),
+          f"the plain training run launched a kernel: {plain['launches']}")
+    gaps = {"loss": [], "grad_norm": []}
+    for a, b in zip(fast["metrics"], plain["metrics"]):
+        for key in gaps:
+            gaps[key].append(abs(a[key] - b[key]) / abs(b[key]))
+    for m, st in zip(plain["metrics"], plain["step_s"]):
+        print(f"train {cfg.name} plain step {m['step']}: loss "
+              f"{m['loss']:.6f} grad_norm {m['grad_norm']:.6f}; {st:.3f} s")
+    print(f"train {cfg.name} kernels vs plain (bf16): loss gaps "
+          f"{[f'{g:.3e}' for g in gaps['loss']]} (bound {TRAIN_LOSS_TOL:g}),"
+          f" grad_norm gaps {[f'{g:.3e}' for g in gaps['grad_norm']]} "
+          "(not bounded in bf16: rounding rules its gradients), relative")
+    check(max(gaps["loss"]) <= TRAIN_LOSS_TOL, f"losses differ: {gaps}")
+    _train_grad_check(cfg)
+    torch.cuda.empty_cache()
+    return {"launches_train": n, "step_s": fast["step_s"]}
+
+
+# layers of the float32 gradient checks at full width: two, where
+# float32 resolves the gradient (kernels and plain within 2.2e-6 of each
+# other), and the full 32, where it does not: at this initialisation
+# both float32 paths lie 3-10x their own norm from the float64 witness,
+# and one ulp of parameter noise moves either path's grad norm by 0.1-0.7
+TRAIN_CHECK_LAYERS = (2, 32)
+NOISE_SEEDS = (100, 101, 102)    # the 1-ulp parameter-noise draws
+
+
+def grad_norm_noise(params, batch, cfg, tcfg, seeds=NOISE_SEEDS,
+                    base: float | None = None) -> list:
+    """How far one float32 ulp of noise on the parameters moves the
+    gradient norm: for each seed, the relative move of the norm with
+    every parameter times 1 + 2^-23 * {-1, 0, 1} (drawn on the
+    parameters' device).  Two implementations whose norms differ by
+    less cannot be told apart on these inputs."""
+    import torch
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.step import accumulate_grads, global_grad_norm
+
+    def norm(p):
+        return float(global_grad_norm(accumulate_grads(p, batch, cfg,
+                                                       tcfg)[0]))
+    base = norm(params) if base is None else base
+    moves = []
+    for seed in seeds:
+        gen = torch.Generator(batch["tokens"].device).manual_seed(seed)
+        noisy = tree_map(lambda p: p * (1 + 2.0 ** -23 * torch.randint(
+            -1, 2, p.shape, generator=gen, device=p.device)), params)
+        moves.append(norm(noisy) / base - 1)
+        del noisy
+    return moves
+
+
+def _train_grad_check(cfg) -> None:
+    """Phase 17b: rwkv6-3b's float32 gradients at full width, one
+    4096-token microbatch (`accumulate_grads`, remat) from seeded
+    weights, at each depth of `TRAIN_CHECK_LAYERS`: through the WKV
+    kernels, through the plain version, and through the plain version in
+    float64 (the witness: the model and the plain WKV computed in
+    float64).  Gates: the loss within 1e-3 relative; the grad norms of
+    the two float32 paths within max(1e-2, twice the spread), the spread
+    being the largest move of either path's norm under one float32 ulp
+    of parameter noise (three draws each).  Printed: each path's
+    distance to the witness."""
+    import gc
+
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.step import (TrainConfig, accumulate_grads,
+                                        global_grad_norm)
+
+    batch = shard_batch(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, 1,
+                                    SEED).batch_at(0), "cuda")
+    tcfg = TrainConfig(dtype=torch.float32)
+    tcfg64 = TrainConfig(dtype=torch.float64, grad_dtype=torch.float64)
+
+    def init(cfg_l):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return TF.init_params(torch.Generator("cuda").manual_seed(SEED),
+                              cfg_l, device="cuda")
+
+    def dist(g, ref) -> float:
+        return float(torch.sqrt(sum(torch.sum(torch.square(
+            a.double() - b.double())) for a, b in zip(tree_leaves(g),
+                                                      tree_leaves(ref)))))
+
+    for n_layers in TRAIN_CHECK_LAYERS:
+        cfg_l = dataclasses.replace(cfg, n_layers=n_layers)
+        # the witness first, alone on the card (float64 weights and
+        # gradients: 16 bytes a parameter); kept as float32
+        p64 = tree_map(lambda p: p.double(), init(cfg_l))
+        torch.cuda.reset_peak_memory_stats()
+        with plain_serve():
+            (g64, l64), s64 = wall(lambda: accumulate_grads(
+                p64, batch, cfg_l, tcfg64))
+        peak64 = torch.cuda.max_memory_allocated() / 1e9
+        n64, l64 = float(global_grad_norm(g64)), float(l64)
+        witness = tree_map(lambda g: g.float(), g64)
+        del p64, g64
+        params = init(cfg_l)
+        out = {}
+        for plain in (False, True):
+            reset_counts()
+            with plain_serve() if plain else contextlib.nullcontext():
+                (grads, loss), secs = wall(lambda: accumulate_grads(
+                    params, batch, cfg_l, tcfg))
+            n = read_counts()
+            out[plain] = {"loss": float(loss), "s": secs,
+                          "norm": float(global_grad_norm(grads)),
+                          "launches": (n["wkv"], n["wkv_bwd"]),
+                          "dist": dist(grads, witness) / n64}
+            del grads
+        del witness
+        for plain in (False, True):
+            with plain_serve() if plain else contextlib.nullcontext():
+                out[plain]["moves"] = grad_norm_noise(
+                    params, batch, cfg_l, tcfg, base=out[plain]["norm"])
+        del params
+        k, p = out[False], out[True]
+        check((*k["launches"], *p["launches"]) == (2 * n_layers, n_layers,
+                                                   0, 0),
+              f"float32 check launches: kernels {k['launches']}, plain "
+              f"{p['launches']}")
+        gaps = (abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+                abs(k["norm"] - p["norm"]) / p["norm"])
+        spread = max(abs(x) for x in k["moves"] + p["moves"])
+        bound = max(TRAIN_GNORM_TOL, 2 * spread)
+        print(f"train {cfg.name} float32 gradients at {n_layers} layers "
+              f"(1 x {TRAIN_SEQ} tokens), kernels vs plain: loss "
+              f"{k['loss']:.6f} / {p['loss']:.6f} (gap {gaps[0]:.3e}), "
+              f"grad_norm {k['norm']:.6f} / {p['norm']:.6f} (gap "
+              f"{gaps[1]:.3e}, bound {bound:.3e} = max({TRAIN_GNORM_TOL:g},"
+              f" 2 x the spread {spread:.3e})); {k['s']:.2f} s / "
+              f"{p['s']:.2f} s")
+        print(f"  1-ulp parameter noise moves the grad norm by "
+              f"{[f'{x:+.3e}' for x in k['moves']]} (kernels), "
+              f"{[f'{x:+.3e}' for x in p['moves']]} (plain)")
+        print(f"  float64 witness (plain): loss {l64:.9f}, grad_norm "
+              f"{n64:.6f}, {s64:.2f} s, peak {peak64:.2f} GB; grad_norm "
+              f"gap to it {k['norm'] / n64 - 1:+.3e} (kernels), "
+              f"{p['norm'] / n64 - 1:+.3e} (plain); gradient distance "
+              f"|g - g64| / |g64| {k['dist']:.3e} (kernels), "
+              f"{p['dist']:.3e} (plain)")
+        check(gaps[0] <= TRAIN_LOSS_TOL, f"float32 losses differ: {gaps}")
+        check(gaps[1] <= bound, f"float32 grad norms differ at {n_layers} "
+              f"layers: {gaps[1]:.3e} > {bound:.3e}")
+
+
+def kernel_wkv_bwd(train) -> dict:
+    """Phase 18: the WKV backward kernel against its plain version
+    (`torch.autograd.grad` through the chunk-16 plain forward) on the
+    card at every `WKV_BWD_SHAPES` shape, every gradient within rtol =
+    atol = 1e-3; its time at the training shape (CUDA events, median of
+    10 calls of `wkv_backward` on the forward's saved chunk states)
+    beside its bound and the plain version's time."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops, ref
+
+    def make(shape, seed):
+        b, t, h, d, with_state = shape
+        g = torch.Generator("cuda").manual_seed(seed)
+
+        def n(*shp):
+            return torch.randn(shp, generator=g, device="cuda")
+        r, k, v = (0.5 * n(b, t, h, d) for _ in range(3))
+        w = -torch.exp(n(b, t, h, d) - 2.0)
+        return (r, k, v, w, 0.3 * n(h, d),
+                0.5 * n(b, h, d, d) if with_state else None, n(b, t, h, d),
+                n(b, h, d, d) if with_state else None)
+
+    worst, times = 0.0, None
+    for i, (label, shape) in enumerate(WKV_BWD_SHAPES.items()):
+        r, k, v, w, u, s0, d_o, d_s = make(shape, SEED + 40 + i)
+        _, _, chunks = ops._forward(r, k, v, w, u, s0)
+        got = ops.wkv_backward(r, k, v, w, u, chunks, d_o, d_s,
+                               need_state=s0 is not None)
+        ref.wkv_backward(r, k, v, w, u, d_o, state=s0, d_state=d_s)
+        want, plain_s = wall(lambda: ref.wkv_backward(
+            r, k, v, w, u, d_o, state=s0, d_state=d_s))
+        errs = {}
+        for name, a, b in zip(("r", "k", "v", "w_log", "u", "state"), got,
+                              want):
+            if b is None:
+                continue
+            diff = (a - b).abs()
+            errs[name] = diff.max().item()
+            check(bool((diff <= WKV_BWD_TOL + WKV_BWD_TOL * b.abs()).all()),
+                  f"wkv_bwd {label}: d{name} beyond rtol = atol = "
+                  f"{WKV_BWD_TOL:g} (max abs {errs[name]:.3e})")
+        worst = max(worst, *errs.values())
+        print(f"wkv_bwd {label} {shape}: max abs "
+              + ", ".join(f"d{k} {e:.3e}" for k, e in errs.items())
+              + f"; bound rtol = atol = {WKV_BWD_TOL:g}; plain "
+              f"{plain_s * 1e3:.1f} ms")
+        if i == 0:
+            b_, t_, h_, dd, _ = shape
+            ms = cuda_ms(lambda: ops.wkv_backward(r, k, v, w, u, chunks,
+                                                  d_o), reps=10)
+            n_bytes = ops.wkv_bwd_hbm_bytes(b_, t_, h_, dd)
+            n_ops = ops.wkv_bwd_flops(b_, t_, h_, dd)
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            print(f"  kernel {ms:.4f} ms (the wrapper call's CUDA-event "
+                  f"time), bound {b_ms:.4f} ms ({b_by}: {n_ops:.4e} "
+                  f"operations at 67 TFLOP/s, {n_bytes / 1e6:.1f} MB at "
+                  f"3.35 TB/s), {ms / b_ms:.2f}x the bound; plain "
+                  f"{plain_s * 1e3:.1f} ms; library none")
+            times = {"ms": ms, "ms_source": "cuda_events_call",
+                     "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+        del r, k, v, w, u, s0, d_o, d_s, chunks, got, want
+        torch.cuda.empty_cache()
+    n = train["launches_train"]["wkv_bwd"]
+    return {"name": "wkv_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/wkv_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:56",
+            "shape": "b 1, t 4096, h 40, d 64", "launches": n,
+            "launches_by_path": {"train": n}, "max_abs_err": worst, **times}
+
+
+def train_guards() -> None:
+    """Phase 19: the kernels without a backward refuse grad-requiring
+    inputs on the card (flash_attention, mamba_scan), and launch as
+    before under no_grad."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+
+    q = torch.randn((1, 128, 4, 64), device="cuda", requires_grad=True)
+    kv = torch.randn((1, 128, 2, 64), device="cuda")
+    x = torch.randn((1, 16, 64), device="cuda", requires_grad=True)
+    dt = torch.rand((1, 16, 64), device="cuda")
+    bm = torch.randn((1, 16, 16), device="cuda")
+    a = -torch.rand((64, 16), device="cuda")
+    for name, fn in (("flash_attention",
+                      lambda: flash_ops.flash_attention(q, kv, kv)),
+                     ("mamba_scan",
+                      lambda: scan_ops.mamba_scan(x, dt, bm, bm, a))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            print(f"train guard {name}: NotImplementedError ({e})")
+        else:
+            raise SmokeFailure(f"{name} took grad-requiring inputs")
+        with torch.no_grad():
+            fn()
+
+
+# the launchers phase 20 runs, with what each must print: the serving
+# launcher its 4 requests, the training launcher its loss line
+LAUNCHERS = (("serve", SERVE_ARCH), ("serve", "rwkv6-3b"),
+             ("train", TRAIN_ARCH), ("train", SERVE_ARCH))
+
+
+def launchers_start() -> list:
+    """Phase 20, started: the port's launchers on the card, as a user
+    runs them, all at once in the background while the cross-device
+    phases run: `python -m repro_torch.launch.serve --arch
+    glm4-9b|rwkv6-3b --device cuda` (reduced, float32, kernel prefill)
+    and `python -m repro_torch.launch.train --arch rwkv6-3b|glm4-9b
+    --device cuda --steps 3` (reduced, float32)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for kind, arch in LAUNCHERS:
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{kind}", "--arch",
+               arch, "--device", "cuda"] + (
+                   ["--steps", "3"] if kind == "train" else [])
+        procs.append((kind, arch, cmd, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def launchers_finish(procs) -> None:
+    """Phase 20, collected: each launcher exits 0; a serving launcher
+    prints its 4 requests, a training launcher its loss line."""
+    import re
+    for kind, arch, cmd, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = out.splitlines()
+        print(f"launcher `{' '.join(cmd[1:])}`: rc {proc.returncode}")
+        for line in lines:
+            print(f"  {line}")
+        check(proc.returncode == 0, f"the launcher failed:\n{err[-3000:]}")
+        if kind == "serve":
+            check(sum(line.startswith("req ") for line in lines) == 4,
+                  "the serving launcher did not print its 4 requests")
+        else:
+            check(any(re.match(rf"^{re.escape(arch)}: loss \d+\.\d{{3}} "
+                               r"-> \d+\.\d{3} in \d+s on 1 device\(s\)$",
+                               line) for line in lines),
+                  f"the {arch} training launcher printed no loss line")
+
+
+def cross_device_train() -> None:
+    """Phase 21: reduced rwkv6-3b (D = 32) trained 3 steps in float32 on
+    the card (the WKV kernels) and on the CPU (plain versions) from the
+    same weights and batches: losses within 1e-5 relative, grad norms
+    within 1e-5 relative or twice what one float32 ulp of parameter noise
+    moves the CPU's own (`grad_norm_noise`), every parameter within
+    atol 1e-6 + rtol 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import TrainConfig, train_step
+
+    cfg = reduced(get_config(TRAIN_ARCH))
+    tcfg = TrainConfig(accum_steps=2, dtype=torch.float32)
+    cpu = TF.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    params = {"cpu": cpu, "cuda": _tree_to(cpu, "cuda")}
+    opts = {d: adamw_init(p) for d, p in params.items()}
+    rng = np.random.default_rng(SEED)
+    batches = [rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+               for _ in range(3)]
+
+    def batch(toks, dev):
+        return {"tokens": torch.tensor(toks[:, :-1], device=dev),
+                "targets": torch.tensor(toks[:, 1:], device=dev)}
+
+    noise = max(abs(x) for x in grad_norm_noise(
+        cpu, batch(batches[0], "cpu"), cfg, tcfg))
+    gn_bound = max(1e-5, 2 * noise)
+    gaps = {"loss": [], "grad_norm": []}
+    for toks in batches:
+        m = {}
+        for dev in ("cuda", "cpu"):
+            params[dev], opts[dev], m[dev] = train_step(
+                params[dev], opts[dev], batch(toks, dev), cfg, tcfg,
+                inplace=True)
+        for key in gaps:
+            a, b = float(m["cuda"][key]), float(m["cpu"][key])
+            gaps[key].append(abs(a - b) / abs(b))
+    worst = max(((a.cpu() - b).abs() / (1e-6 + 1e-4 * b.abs())).max().item()
+                for a, b in zip(_tree_leaves(params["cuda"]),
+                                _tree_leaves(params["cpu"])))
+    print(f"cross-device train {cfg.name}: loss gaps "
+          f"{[f'{g:.2e}' for g in gaps['loss']]} (bound 1e-5), grad_norm "
+          f"gaps {[f'{g:.2e}' for g in gaps['grad_norm']]} (bound "
+          f"{gn_bound:.2e}: the CPU's own 1-ulp spread {noise:.2e}), "
+          f"parameters at {worst:.3f} of atol 1e-6 + rtol 1e-4")
+    check(max(gaps["loss"]) <= 1e-5, f"card and CPU losses differ: {gaps}")
+    check(max(gaps["grad_norm"]) <= gn_bound,
+          f"card and CPU grad norms differ: {gaps}")
+    check(worst <= 1.0, "card and CPU parameters differ")
+
+
 def cross_device_serve() -> None:
     """Phase 12: reduced glm4-9b, gemma3-12b, rwkv6-3b and expert-free
     jamba served on the card (kernel prefill, the selective scan in
@@ -3902,7 +4384,6 @@ def main() -> int:
         del env
         torch.cuda.empty_cache()
         serve = phase(serve_path)
-        phase(serve_launcher)
         k10 = phase(kernel_flash, serve)
         k11 = phase(kernel_wkv, phase(serve_rwkv6))
         serve_h = phase(serve_jamba)
@@ -3910,13 +4391,20 @@ def main() -> int:
         k10["launches_by_path"]["serve jamba"] = \
             serve_h["launches_serve"]["flash_attention"]
         k10["launches"] += k10["launches_by_path"]["serve jamba"]
+        train = phase(train_path)
+        k11["launches_by_path"]["train"] = train["launches_train"]["wkv"]
+        k11["launches"] += k11["launches_by_path"]["train"]
+        k13 = phase(kernel_wkv_bwd, train)
+        phase(train_guards)
         phase(traffic_breakdown, traffic)
         del traffic
+        launchers = phase(launchers_start)
         phase(cross_device_thermal, phase(cross_device))
         for fn in (cross_device_region, cross_device_fault,
                    cross_device_traffic, cross_device_engine,
-                   cross_device_serve):
+                   cross_device_serve, cross_device_train):
             phase(fn)
+        phase(launchers_finish, launchers)
         print("phase seconds: " + json.dumps(PHASE_SECONDS))
         print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
     except Exception:                       # report and fail the run
@@ -3924,7 +4412,7 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    kernels = [k1, k2, k3, *k4, k5, k6, k7, k8, k9, k10, k11, k12]
+    kernels = [k1, k2, k3, *k4, k5, k6, k7, k8, k9, k10, k11, k12, k13]
     for k in kernels:
         # `ms`: torch.profiler device time, unless the entry says that
         # it is a wrapper call's CUDA-event time

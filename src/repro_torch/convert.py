@@ -21,6 +21,8 @@ from repro_torch.core.thermal import SCN_COLS, ThermalScenario
 from repro_torch.core.variation import Population, VariationConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as TF
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.adamw8bit import AdamW8State, QTensor
 
 
 def population(cells: np.ndarray,
@@ -127,3 +129,34 @@ def model_params(tree: Mapping, cfg, dtype=torch.float32,
         return torch.tensor(arr, dtype=dt, device=dev)
 
     return conv(tree, want, "")
+
+
+def optimizer_state(state, device: str | torch.device = "cuda"):
+    """The port's `AdamWState` or `AdamW8State` from the reference's
+    (`jax.tree.map(np.asarray, state)`: a NamedTuple with `step`, `m` and
+    `v`, the moments nested dicts of arrays or of `QTensor`s): float32
+    moments, or int8 codes with their float32 scales, and an int32
+    step."""
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {k: conv(v) for k, v in tree.items()}
+        if hasattr(tree, "q") and hasattr(tree, "scale"):
+            return QTensor(torch.tensor(np.asarray(tree.q, np.int8),
+                                        device=dev),
+                           torch.tensor(np.asarray(tree.scale, np.float32),
+                                        device=dev))
+        return torch.tensor(np.asarray(tree, np.float32), device=dev)
+
+    m, v = conv(state.m), conv(state.v)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+
+    def quantised(tree):
+        if isinstance(tree, dict):
+            return any(quantised(x) for x in tree.values())
+        return isinstance(tree, QTensor)
+
+    cls = AdamW8State if quantised(m) else AdamWState
+    return cls(step=step, m=m, v=v)

@@ -39,6 +39,7 @@ SOURCES = {
     "adaptive_blocks": Path("replay") / "adaptive.cu",
     "flash_attention": Path("flash_attention") / "flash_attention.cu",
     "wkv": Path("rwkv6") / "wkv.cu",
+    "wkv_bwd": Path("rwkv6") / "wkv_bwd.cu",
     "mamba_scan": Path("mamba_scan") / "mamba_scan.cu",
 }
 

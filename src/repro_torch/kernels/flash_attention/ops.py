@@ -8,7 +8,10 @@ its strides (the last axis contiguous), handles ragged Sq and Sk itself
 (no padding copies: keys at kpos >= Sk are masked, as in the plain
 version) and takes head dims 32, 64, 128 and 256 in float32 (register
 tiles on the CUDA cores) or bfloat16 (wgmma fed by TMA; the library
-builds the TMA descriptors from the strides passed here).
+builds the TMA descriptors from the strides passed here).  The kernel
+has no backward: on the card, inputs that require grad (with grad
+enabled) raise NotImplementedError rather than give an output that
+carries no gradient; the CPU's plain version stays differentiable.
 """
 
 from __future__ import annotations
@@ -81,6 +84,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention: q, k and v must lie on one "
                          f"CUDA device, got {[str(d) for d in devs]}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the kernel has no backward yet, and its output "
+            "would carry no gradient (ROADMAP queue A, \"LLM scaffold, what "
+            "PR 16-17 left\": a flash attention backward kernel); train "
+            "without use_flash, or call it under torch.no_grad()")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: float32 or bfloat16 inputs of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -11,7 +11,10 @@ h0 from the cache.  `scan_plan` picks each launch's team of threads per
 channel, channels per block and steps per staged tile (`SCAN_PLANS`,
 measured on the card); `scan_thread_map` repeats the kernel's index
 arithmetic, so the CPU tests can check that a plan covers every state
-exactly once.
+exactly once.  The kernel has no backward: on the card, inputs that
+require grad (with grad enabled) raise NotImplementedError rather than
+give outputs that carry no gradient; the CPU's plain version stays
+differentiable.
 """
 
 from __future__ import annotations
@@ -139,6 +142,12 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     if len(devs) != 1 or x.device.type != "cuda":
         raise ValueError(f"mamba_scan: every input must lie on one CUDA "
                          f"device, got {sorted(str(d) for d in devs)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        raise NotImplementedError(
+            "mamba_scan: the kernel has no backward yet, and its outputs "
+            "would carry no gradient (ROADMAP queue A, \"LLM scaffold, what "
+            "PR 16-17 left\": a mamba_scan backward kernel, for training "
+            "the Jamba family); call it under torch.no_grad()")
     if any(t.dtype != torch.float32 for t in xs):
         raise ValueError(f"mamba_scan: float32 inputs only, got "
                          f"{sorted({str(t.dtype) for t in xs})}")

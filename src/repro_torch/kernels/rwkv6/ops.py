@@ -1,4 +1,4 @@
-"""Wrapper of the WKV kernel on the model layout [B, T, H, D].
+"""Wrappers of the WKV kernels on the model layout [B, T, H, D].
 
 CUDA tensors launch `wkv.cu` (counted in `wkv.launches`, one per call;
 a call runs three CUDA kernels: chunk summaries, the state scan and the
@@ -9,6 +9,13 @@ read r, k, v and w_log through their strides (the D axis contiguous),
 mask a ragged T themselves (no padding copy), take an optional initial
 state and write the final state (the decode cache's); head dims 32 and
 64, float32.
+
+On the card `wkv` is a `torch.autograd.Function`: its forward keeps the
+chunk-start states that the forward's state scan leaves in its scratch,
+and its backward launches `wkv_bwd.cu` (`wkv_backward`, counted in
+`wkv_backward.launches`), which returns the gradients of r, k, v, w_log,
+u and, when a state was passed in, of the state.  On the CPU autograd
+differentiates the plain version.
 """
 
 from __future__ import annotations
@@ -32,6 +39,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("wkv_bwd")
+    lib.wkv_bwd_launch.argtypes = [ctypes.c_void_p] * 16 \
+        + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 15 + [ctypes.c_void_p]
+    lib.wkv_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
 def _check(r, k, v, w_log, u, state) -> None:
     if r.dim() != 4 or any(x.shape != r.shape for x in (k, v, w_log)):
         raise ValueError(f"wkv: r, k, v and w_log [B, T, H, D] of one shape, "
@@ -45,28 +60,28 @@ def _check(r, k, v, w_log, u, state) -> None:
                          f"{tuple(state.shape)}")
 
 
-def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        w_log: torch.Tensor, u: torch.Tensor,
-        state: torch.Tensor | None = None):
-    """r/k/v/w_log: [B, T, H, D]; u: [H, D]; state [B, H, D, D] or None
-    (zeros) -> (o [B, T, H, D], final state [B, H, D, D]), float32.
-    w_log = log(decay) <= 0."""
-    _check(r, k, v, w_log, u, state)
-    xs = [r, k, v, w_log, u] + ([] if state is None else [state])
+def _check_cuda(name: str, xs) -> None:
     devs = {x.device for x in xs}
-    if devs == {torch.device("cpu")}:
-        return ref.wkv(r, k, v, w_log, u, state=state)
-    if len(devs) != 1 or r.device.type != "cuda":
-        raise ValueError(f"wkv: every input must lie on one CUDA device, "
+    if len(devs) != 1 or xs[0].device.type != "cuda":
+        raise ValueError(f"{name}: every input must lie on one CUDA device, "
                          f"got {sorted(str(d) for d in devs)}")
     if any(x.dtype != torch.float32 for x in xs):
-        raise ValueError(f"wkv: float32 inputs only, got "
+        raise ValueError(f"{name}: float32 inputs only, got "
                          f"{sorted({str(x.dtype) for x in xs})}")
+    if xs[0].shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {xs[0].shape[-1]} not in "
+                         f"{HEAD_DIMS}")
+
+
+def _d_contiguous(*xs):
+    return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in xs)
+
+
+def _forward(r, k, v, w_log, u, state):
+    """Launch the forward kernel: (o, final state, the states at the
+    start of every chunk [ceil(T / 64), B, H, D, D])."""
     b, t, h, d = r.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"wkv: head dim {d} not in {HEAD_DIMS}")
-    r, k, v, w_log = (x if x.stride(-1) == 1 else x.contiguous()
-                      for x in (r, k, v, w_log))
+    r, k, v, w_log = _d_contiguous(r, k, v, w_log)
     u = u.contiguous()
     if state is not None:
         state = state.contiguous()
@@ -88,10 +103,101 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"wkv: kernel launch failed (CUDA error {rc})")
     wkv.launches += 1
-    return o, s_out
+    return o, s_out, kv
+
+
+class _WKV(torch.autograd.Function):
+    """The WKV kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, state):
+        o, s_out, s_chunks = _forward(r, k, v, w_log, u, state)
+        ctx.save_for_backward(r, k, v, w_log, u, s_chunks)
+        ctx.has_state = state is not None
+        ctx.set_materialize_grads(False)
+        return o, s_out
+
+    @staticmethod
+    def backward(ctx, d_o, d_state):
+        r, k, v, w_log, u, s_chunks = ctx.saved_tensors
+        if d_o is None:                  # only the final state was used
+            d_o = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds = wkv_backward(
+            r, k, v, w_log, u, s_chunks, d_o, d_state,
+            need_state=ctx.has_state)
+        return dr, dk, dv, dw, du, ds
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        w_log: torch.Tensor, u: torch.Tensor,
+        state: torch.Tensor | None = None):
+    """r/k/v/w_log: [B, T, H, D]; u: [H, D]; state [B, H, D, D] or None
+    (zeros) -> (o [B, T, H, D], final state [B, H, D, D]), float32.
+    w_log = log(decay) <= 0.  Differentiable on both devices.  The CUDA
+    kernels take float32 only; on the CPU float64 inputs give float64."""
+    _check(r, k, v, w_log, u, state)
+    xs = [r, k, v, w_log, u] + ([] if state is None else [state])
+    if {x.device for x in xs} == {torch.device("cpu")}:
+        return ref.wkv(r, k, v, w_log, u, state=state)
+    _check_cuda("wkv", xs)
+    return _WKV.apply(r, k, v, w_log, u, state)
 
 
 wkv.launches = 0
+
+
+def wkv_backward(r, k, v, w_log, u, s_chunks, d_o, d_state=None,
+                 need_state: bool = False):
+    """The backward kernel on CUDA tensors: r/k/v/w_log and the output's
+    gradient d_o [B, T, H, D], u [H, D], the forward's chunk-start
+    states `s_chunks` [ceil(T / 64), B, H, D, D], the final state's
+    gradient [B, H, D, D] or None (zeros) -> (dr, dk, dv, dw_log
+    [B, T, H, D], du [H, D], the initial state's gradient [B, H, D, D]
+    or None unless `need_state`)."""
+    _check(r, k, v, w_log, u, None)
+    b, t, h, d = r.shape
+    xs = [r, k, v, w_log, u, s_chunks, d_o] \
+        + ([] if d_state is None else [d_state])
+    _check_cuda("wkv_backward", xs)
+    n_chunks = -(-t // CHUNK)
+    if tuple(d_o.shape) != (b, t, h, d) or tuple(s_chunks.shape) != (
+            n_chunks, b, h, d, d) or (d_state is not None and tuple(
+                d_state.shape) != (b, h, d, d)):
+        raise ValueError(f"wkv_backward: d_o {tuple(d_o.shape)}, chunk "
+                         f"states {tuple(s_chunks.shape)} or final state "
+                         f"gradient do not match r {tuple(r.shape)}")
+    r, k, v, w_log, d_o = _d_contiguous(r, k, v, w_log, d_o)
+    u, s_chunks = u.contiguous(), s_chunks.contiguous()
+    if d_state is not None:
+        d_state = d_state.contiguous()
+    dev = r.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dr, dk, dv, dw = (empty(b, t, h, d) for _ in range(4))
+    du, du_part = empty(h, d), empty(b, h, d)
+    ds = empty(b, h, d, d) if need_state else None
+    hist = empty(b * h, CHUNK, d, d)           # each block's S_{t-1}
+    strides = [s for x in (r, k, v, w_log, d_o) for s in x.stride()[:3]]
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    with torch.cuda.device(dev):
+        rc = _bwd_lib().wkv_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+            d_o.data_ptr(), u.data_ptr(), s_chunks.data_ptr(),
+            ptr(d_state), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dw.data_ptr(), du_part.data_ptr(), du.data_ptr(), ptr(ds),
+            hist.data_ptr(), b, t, h, d, *strides,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv_backward: kernel launch failed (CUDA "
+                           f"error {rc})")
+    wkv_backward.launches += 1
+    return dr, dk, dv, dw, du, ds
+
+
+wkv_backward.launches = 0
 
 
 def wkv_flops(b, t, h, d, chunk: int = CHUNK) -> int:
@@ -111,3 +217,23 @@ def wkv_hbm_bytes(b, t, h, d) -> int:
     """Bytes a call from a zero state must move: r, k, v, w_log and u read
     once, o and the final state written once."""
     return 4 * (5 * b * t * h * d + h * d + b * h * d * d)
+
+
+def wkv_bwd_flops(b, t, h, d) -> int:
+    """Operations the backward kernel does: per step and (batch row,
+    head) 14 D^2 — the state rebuilt from the chunk-start state (3 D^2),
+    S_{t-1} do_t, G_t v_t, G_t * S_{t-1} and G_t^T k_t (2 D^2 each), the
+    G update (3 D^2) — and 16 D for the u terms, the dot products and
+    dw_log's factor."""
+    return b * h * t * (14 * d * d + 16 * d)
+
+
+def wkv_bwd_hbm_bytes(b, t, h, d, d_state: bool = False,
+                      need_state: bool = False) -> int:
+    """Bytes a backward call must move: r, k, v, w_log, d_o, u and the
+    chunk-start states read once (and the final state's gradient when
+    given), dr, dk, dv, dw_log and du written once (and the initial
+    state's gradient when asked)."""
+    n_chunks = -(-t // CHUNK)
+    return 4 * (9 * b * t * h * d + 2 * h * d + n_chunks * b * h * d * d
+                + (b * h * d * d) * (int(d_state) + int(need_state)))

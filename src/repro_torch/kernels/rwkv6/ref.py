@@ -15,7 +15,7 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = RWKV_CHUNK,
     """Chunked WKV scan.  r/k/v/w_log: [B, T, H, D] with T % chunk == 0,
     u [H, D], w_log = log(decay) <= 0, state [B, H, D, D] (zeros when
     None).  Returns (out [B, T, H, D], final state [B, H, D, D]), both
-    float32.
+    float32 (float64 when r is).
 
     Within a chunk the pairwise decays are taken in log space (every
     exponent on the causal triangle is <= 0); across chunks the state
@@ -27,9 +27,10 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = RWKV_CHUNK,
         raise ValueError(f"wkv_chunked: T = {t} is not a multiple of the "
                          f"chunk {chunk}")
     n = t // chunk
+    dt = torch.promote_types(r.dtype, torch.float32)
 
     def resh(x):  # [B,T,H,D] -> [N, B, H, L, D]
-        return (x.float().reshape(b, n, chunk, h, dh)
+        return (x.to(dt).reshape(b, n, chunk, h, dh)
                 .permute(1, 0, 3, 2, 4))
 
     r_, k_, v_, wl = map(resh, (r, k, v, w_log))
@@ -50,15 +51,15 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = RWKV_CHUNK,
     o_intra = torch.einsum("nbhij,nbhjd->nbhid", amat, v_)
     # diagonal u bonus: o_i += (r_i . (u * k_i)) v_i
     o_diag = torch.einsum("nbhld,nbhld->nbhl", r_,
-                          u.float()[None, None, :, None, :] * k_)[..., None] \
+                          u.to(dt)[None, None, :, None, :] * k_)[..., None] \
         * v_
     rdec = r_ * torch.exp(lprev)
     # each chunk's state increment sum_j (k_j exp(lt - lc_j)) v_j
     kv = torch.einsum("nbhld,nbhle->nbhde", k_ * torch.exp(ltot - lcum), v_)
     decay = torch.exp(ltot)[..., 0, :, None]          # [N, B, H, D, 1]
 
-    s = (torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
-         if state is None else state.float())
+    s = (torch.zeros((b, h, dh, dh), dtype=dt, device=r.device)
+         if state is None else state.to(dt))
     o_inter = []
     for c in range(n):
         # inter-chunk: o_i += (r_i * exp(lp_i)) @ S;
@@ -73,9 +74,9 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = RWKV_CHUNK,
 def wkv(r, k, v, w_log, u, state: torch.Tensor | None = None,
         chunk: int = RWKV_CHUNK):
     """r/k/v/w_log: [B, T, H, D] (any T); u: [H, D]; state [B, H, D, D] or
-    None -> (o [B, T, H, D], final state [B, H, D, D]), float32.  T is
-    padded to the chunk with zeros: a padded step has log-decay 0 and
-    k = 0, so it leaves the state untouched."""
+    None -> (o [B, T, H, D], final state [B, H, D, D]), float32 (float64
+    when r is).  T is padded to the chunk with zeros: a padded step has
+    log-decay 0 and k = 0, so it leaves the state untouched."""
     t = r.shape[1]
     pad = (-t) % chunk
     if pad:
@@ -83,3 +84,24 @@ def wkv(r, k, v, w_log, u, state: torch.Tensor | None = None,
                           for x in (r, k, v, w_log))
     o, s = wkv_chunked(r, k, v, w_log, u, chunk=chunk, state=state)
     return o[:, :t], s
+
+
+def wkv_backward(r, k, v, w_log, u, d_o, state: torch.Tensor | None = None,
+                 d_state: torch.Tensor | None = None,
+                 chunk: int = RWKV_CHUNK):
+    """Plain version of the backward kernel: `torch.autograd.grad`
+    through `wkv` (chunk 16) on the same inputs, given the output's
+    gradient d_o [B, T, H, D] and the final state's [B, H, D, D] (None:
+    zeros).  Returns (dr, dk, dv, dw_log, du, the initial state's
+    gradient or None when no state is given)."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in (r, k, v, w_log, u)]
+        s0 = None if state is None else state.detach().requires_grad_()
+        o, s = wkv(*xs, state=s0, chunk=chunk)
+        outs, grads = [o], [d_o]
+        if d_state is not None:
+            outs.append(s)
+            grads.append(d_state)
+        g = torch.autograd.grad(outs, xs + ([] if s0 is None else [s0]),
+                                grads)
+    return (*g[:5], None if s0 is None else g[5])

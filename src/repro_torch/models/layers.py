@@ -52,9 +52,17 @@ def rmsnorm_init(d: int, lead=(), *, device) -> Params:
                                 device=device)}
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """`x` in float32 where the reference computes in float32, a
+    float64 `x` kept as it is: a model run in float64 (the norms, the
+    RWKV6 mixer, the logits and the loss) stays in float64, which is how
+    the float64 witness of the training checks is computed."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = widen(x)
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * p["scale"]).to(dt)
 

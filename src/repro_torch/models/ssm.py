@@ -79,14 +79,14 @@ def rwkv6_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     g = F.silu(L._proj(xg, p["wg"]))
     # data-dependent decay: log w = -exp(w0 + lora(xw))  (<= 0 always)
     lora = torch.tanh(xw @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
-    w_log = -torch.exp(torch.clamp(p["w0"].float() + lora.float(), -12.0,
-                                   2.0))
+    w_log = -torch.exp(torch.clamp(L.widen(p["w0"]) + L.widen(lora),
+                                   -12.0, 2.0))
     w_log = w_log.reshape(b, s, h, dh)
-    u = p["u"].float()
+    u = L.widen(p["u"])
 
     if s == 1 and state is not None:   # decode: single-step recurrence
         wkv = state["wkv"]                                  # [B,H,Dk,Dv]
-        rf, kf, vf = (a.float()[:, 0] for a in (r, k, v))
+        rf, kf, vf = (L.widen(a)[:, 0] for a in (r, k, v))
         o = torch.einsum("bhd,bhde->bhe", rf,
                          wkv + u[None, :, :, None]
                          * kf[..., None] * vf[:, :, None, :])
@@ -95,8 +95,8 @@ def rwkv6_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         out = o[:, None]                                    # [B,1,H,Dh]
     else:
         s0 = None if state is None else state["wkv"]
-        out, wkv = wkv_ops.wkv(r.float(), k.float(), v.float(), w_log, u,
-                               state=s0)
+        out, wkv = wkv_ops.wkv(L.widen(r), L.widen(k), L.widen(v), w_log,
+                               u, state=s0)
     new_state = {"x_prev": x[:, -1:], "wkv": wkv}
 
     # per-head group-norm, gate, head-merging output projection

@@ -2,7 +2,8 @@
 forward / prefill / decode over the stage structure from ModelConfig,
 a Python loop over the R stacked layers of each stage.
 
-    apply(params, tokens, cfg)                 -> logits, aux  (forward)
+    apply(params, tokens, cfg)                 -> logits, aux  (training)
+    loss_fn(params, tokens, targets, cfg)      -> loss
     prefill(params, tokens, cfg, max_len)      -> logits, cache
     decode_step(params, cache, tok, pos, cfg)  -> logits, cache (1 token)
 
@@ -20,6 +21,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -142,21 +144,47 @@ def layer_apply(p: Params, x, cfg, spec: LayerSpec, positions, cache, mode,
 
 
 # ------------------------------------------------------------- stage loop
-def _stage_scan(params, x, cfg, positions, caches, mode, use_flash):
+def _group_apply(group_p, x, cfg, positions, use_flash):
+    """One repeat of the layer group in training mode: (x, aux)."""
+    aux = 0.0
+    for i, spec in enumerate(cfg.group_spec()):
+        x, _, a = layer_apply(group_p[f"l{i}"], x, cfg, spec, positions,
+                              None, "train", use_flash)
+        aux = aux + a
+    return x, aux
+
+
+def _stage_scan(params, x, cfg, positions, caches, mode, use_flash,
+                remat: bool = False):
     """The reference's scan over the stacked layers as a Python loop.
     Decode updates `caches` in place and returns it; prefill returns the
-    new caches stacked [R, ...]."""
+    new caches stacked [R, ...].  In training mode with `remat` (and
+    grad enabled) each repeat of the layer group runs under
+    `torch.utils.checkpoint` (non-reentrant): its activations are
+    recomputed in the backward pass, as the reference's `jax.checkpoint`
+    of the scan body.  A stage leaf may also be a list of R per-layer
+    tensors (`repro_torch.train.step` trains through such views)."""
     group = cfg.group_spec()
     repeats = cfg.n_layers // len(group)
     aux = 0.0
     new_cs: dict[str, list] = {f"l{i}": [] for i in range(len(group))}
     for r in range(repeats):
+        group_p = {name: _tree_map(lambda t: t[r], params["stage"][name])
+                   for name in params["stage"]}
+        if mode == "train":
+            if remat and torch.is_grad_enabled():
+                x, a = torch.utils.checkpoint.checkpoint(
+                    _group_apply, group_p, x, cfg, positions, use_flash,
+                    use_reentrant=False)
+            else:
+                x, a = _group_apply(group_p, x, cfg, positions, use_flash)
+            aux = aux + a
+            continue
         for i, spec in enumerate(group):
             name = f"l{i}"
-            layer_p = _tree_map(lambda t: t[r], params["stage"][name])
             c = (None if caches is None
                  else _tree_map(lambda t: t[r], caches[name]))
-            x, nc, a = layer_apply(layer_p, x, cfg, spec, positions, c,
+            x, nc, a = layer_apply(group_p[name], x, cfg, spec, positions, c,
                                    mode, use_flash)
             aux = aux + a
             if mode == "prefill":
@@ -172,7 +200,7 @@ def _stage_scan(params, x, cfg, positions, caches, mode, use_flash):
 def _logits(params, x, cfg):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head.to(x.dtype)).float()
+    return L.widen(x @ head.to(x.dtype))
 
 
 def _embed(params, tokens, dtype):
@@ -181,15 +209,27 @@ def _embed(params, tokens, dtype):
 
 def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
           positions: torch.Tensor | None = None, use_flash: bool = False,
-          dtype=torch.bfloat16):
-    """Forward pass: tokens [B,S] -> (logits [B,S,V] float32, aux)."""
+          remat: bool = True, dtype=torch.bfloat16):
+    """Training forward: tokens [B,S] -> (logits [B,S,V] float32, aux).
+    `remat` recomputes each layer group's activations in the backward
+    pass (`_stage_scan`)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = _embed(params, tokens, dtype)
     x, aux, _ = _stage_scan(params, x, cfg, positions, None, "train",
-                            use_flash)
+                            use_flash, remat)
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params: Params, tokens, targets, cfg: ModelConfig,
+            aux_weight: float = 0.01, **kw):
+    """Mean next-token cross-entropy plus `aux_weight` times the
+    auxiliary loss; `kw` goes to `apply`."""
+    logits, aux = apply(params, tokens, cfg, **kw)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return nll.mean() + aux_weight * aux
 
 
 # ----- serving -----

@@ -1,15 +1,16 @@
-"""The redesigned replay kernels against the versions they replace, on
-one NVIDIA card, and the selective scan's launch plans side by side.
+"""The redesigned kernels against the versions they replace, on one
+NVIDIA card, and the selective scan's launch plans side by side.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C .archive/parent
     python3 -m benchmarks.port_kernel_redesign --parent .archive/parent
     python3 -m benchmarks.port_kernel_redesign --plans
 
 `--parent DIR` builds those of DIR's `replay/replay.cu`,
-`replay/adaptive.cu` and `mamba_scan/mamba_scan.cu` whose source or
-headers (`*.cuh` beside it) differ from this checkout's, with the same
-`nvcc` flags, calls both builds on the same inputs through their C
-interfaces, and counts the output elements that differ bit for bit.
+`replay/adaptive.cu`, `mamba_scan/mamba_scan.cu` and `rwkv6/wkv_bwd.cu`
+whose source or headers (`*.cuh` beside it) differ from this
+checkout's, with the same `nvcc` flags, calls both builds on the same
+inputs through their C interfaces, and counts the output elements that
+differ bit for bit.
 DIR is the parent's kernels, or a variant of this checkout's (a build
 whose scan takes a launch plan gets this checkout's plan; a replay
 build whose C interface takes the tile's column count gets it, an
@@ -30,10 +31,14 @@ older one the per-bank flag), for an A/B of two designs in one run:
   emitted;
 - mamba_scan at every `chip_smoke.SCAN_SHAPES` entry: the final state
   (bitwise) and y (max abs; its sum order changed);
+- wkv_bwd at every `chip_smoke.WKV_BWD_SHAPES` entry: each gradient's
+  max abs against the plain version for both builds (a variant may sum
+  in another order);
 
 with each kernel's time, the two builds in turns (old, new, new, old):
-the replay kernels by CUDA events around the C launch alone (median of
-5), mamba_scan by torch.profiler's device time (mean of 10 launches).
+the replay kernels and wkv_bwd by CUDA events around the C launch alone
+(median of 5), mamba_scan by torch.profiler's device time (mean of 10
+launches).
 
 `--clocks` samples the SM clock and power while each kernel runs back
 to back.  `--plans` times (device time) the selective scan under every team,
@@ -95,7 +100,8 @@ def _device_ms(fn, kernel: str, reps: int = 10) -> float:
 
 PARENT_SOURCES = {"replay_blocks": "replay/replay.cu",
                   "adaptive_blocks": "replay/adaptive.cu",
-                  "mamba_scan": "mamba_scan/mamba_scan.cu"}
+                  "mamba_scan": "mamba_scan/mamba_scan.cu",
+                  "wkv_bwd": "rwkv6/wkv_bwd.cu"}
 
 
 def _source_bytes(root: Path, src: str) -> list:
@@ -156,6 +162,11 @@ def _build_parent(parent: Path) -> dict:
             + [ctypes.c_int] * (7 if libs["scan_takes_plan"] else 4) \
             + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
         libs["mamba_scan"].mamba_scan_launch.restype = ctypes.c_int
+    if "wkv_bwd" in libs:
+        libs["wkv_bwd"].wkv_bwd_launch.argtypes = [ctypes.c_void_p] * 18 \
+            + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 15 \
+            + [ctypes.c_void_p]
+        libs["wkv_bwd"].wkv_bwd_launch.restype = ctypes.c_int
     return libs
 
 
@@ -562,6 +573,107 @@ def compare_mamba(old_lib, takes_plan: bool) -> list:
     return rows
 
 
+# ----------------------------------------------------------- wkv_bwd
+
+def _wkv_bwd_inputs(shape, seed):
+    """chip_smoke.py's phase-18 inputs and the forward kernel's chunk
+    states and final state."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops
+    b, t, h, d, with_state = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def n(*shp):
+        return torch.randn(shp, generator=g, device="cuda")
+    r, k, v = (0.5 * n(b, t, h, d) for _ in range(3))
+    w = -torch.exp(n(b, t, h, d) - 2.0)
+    ins = (r, k, v, w, 0.3 * n(h, d),
+           0.5 * n(b, h, d, d) if with_state else None, n(b, t, h, d),
+           n(b, h, d, d) if with_state else None)
+    _, s_out, chunks = ops._forward(*ins[:6])
+    return ins, chunks, s_out
+
+
+def _wkv_bwd_call(lib, ins, chunks, s_out):
+    """One call of a backward build through its C interface: (dr, dk,
+    dv, dw_log, du, the initial state's gradient or None)."""
+    import torch
+    r, k, v, w, u, s0, d_o, d_s = ins
+    b, t, h, d = r.shape
+    nc = chunks.shape[0]
+
+    def empty(*shape):
+        return torch.empty(shape, device="cuda")
+    outs = [empty(b, t, h, d) for _ in range(4)] + [empty(h, d)]
+    ds = empty(b, h, d, d) if s0 is not None else None
+    strides = [x for z in (r, k, v, w, d_o) for x in z.stride()[:3]]
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    scratch = [empty(nc, b, h, d), empty(nc, b, h, d, d), empty(nc, b, h, d)]
+    args = [ptr(x) for x in (r, k, v, w, d_o, u, chunks,
+                             s_out if d_s is not None else None, d_s,
+                             *outs[:4])]
+    args += [scratch[0].data_ptr(), outs[4].data_ptr(), ptr(ds),
+             scratch[1].data_ptr(), scratch[2].data_ptr()]
+    rc = lib.wkv_bwd_launch(*args, b, t, h, d, *strides,
+                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv_bwd_launch: cudaError {rc}")
+    return (*outs, ds)
+
+
+def compare_wkv_bwd(old_lib) -> list:
+    """Both builds against the plain version (`ref.wkv_backward`) and
+    each other at every `chip_smoke.WKV_BWD_SHAPES` shape, and both
+    timed in turns (CUDA events around the C launch, median of 5); at
+    the first shape each build's device time by CUDA kernel
+    (torch.profiler, mean of 10 calls)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.rwkv6 import ops, ref
+    rows = []
+    names = ("r", "k", "v", "w_log", "u", "state")
+    for i, (label, shape) in enumerate(cs.WKV_BWD_SHAPES.items()):
+        ins, chunks, s_out = _wkv_bwd_inputs(shape, cs.SEED + 40 + i)
+        new = ops.wkv_backward(*ins[:5], chunks, ins[6], ins[7],
+                               need_state=ins[5] is not None, s_out=s_out)
+        old = _wkv_bwd_call(old_lib, ins, chunks, s_out)
+        want = ref.wkv_backward(*ins[:5], ins[6], state=ins[5],
+                                d_state=ins[7])
+
+        def err(a, b):
+            return {f"d{nm}": float((x - y).abs().max())
+                    for nm, x, y in zip(names, a, b) if y is not None}
+        t = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            fn = ((lambda: _wkv_bwd_call(old_lib, ins, chunks, s_out))
+                  if who == "old" else (lambda: ops.wkv_backward(
+                      *ins[:5], chunks, ins[6], ins[7],
+                      need_state=ins[5] is not None, s_out=s_out)))
+            t[who].append(_events_ms(fn))
+        row = {"shape": label, "dims": list(shape[:4]),
+               "new_vs_plain": err(new, want), "old_vs_plain": err(old, want),
+               "new_vs_old": err(new, old), "old_ms": t["old"],
+               "new_ms": t["new"]}
+        if i == 0:                     # device time by CUDA kernel
+            row["new_pass_ms"] = {p: _device_ms(lambda: ops.wkv_backward(
+                *ins[:5], chunks, ins[6], ins[7], s_out=s_out), p)
+                for p in cs.WKV_BWD_PASSES}
+            row["old_pass_ms"] = {p: _device_ms(lambda: _wkv_bwd_call(
+                old_lib, ins, chunks, s_out), p) for p in cs.WKV_BWD_PASSES}
+            print(f"  device ms by CUDA kernel: new "
+                  f"{json.dumps(row['new_pass_ms'])}, previous "
+                  f"{json.dumps(row['old_pass_ms'])}")
+        print(f"wkv_bwd {label} {shape[:4]}: max abs against the plain "
+              f"version new {json.dumps(row['new_vs_plain'])}, previous "
+              f"{json.dumps(row['old_vs_plain'])}; previous "
+              f"{t['old'][0]:.4f} / {t['old'][1]:.4f} ms, new "
+              f"{t['new'][0]:.4f} / {t['new'][1]:.4f} ms")
+        rows.append(row)
+        del ins, chunks, s_out, new, old, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def sweep_plans() -> list:
     """Every team x block x tile at the prefill and decode shapes."""
     import torch
@@ -679,6 +791,8 @@ def main(argv=None) -> int:
         if "mamba_scan" in libs:
             res["mamba"] = compare_mamba(libs["mamba_scan"],
                                          libs["scan_takes_plan"])
+        if "wkv_bwd" in libs:
+            res["wkv_bwd"] = compare_wkv_bwd(libs["wkv_bwd"])
     if args.plans:
         res["plans"] = sweep_plans()
     if args.clocks:

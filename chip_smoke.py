@@ -299,8 +299,9 @@ Phases (any failure exits non-zero and prints no result line):
      counts reset just before and read just after: exactly 128 wkv and
      64 wkv_bwd launches a step and nothing else; seconds per step split
      into forward + backward and the optimizer, tokens per second, peak
-     memory; a fourth step under `torch.profiler`; the same steps with
-     the WKV wrapper swapped for its plain version (losses within 1e-3;
+     memory; a fourth step under `torch.profiler` (device time by
+     kernel, the WKV kernels' among it); the same steps with the WKV
+     wrapper swapped for its plain version (losses within 1e-3;
      grad-norm gaps printed); float32 gradients of one 4096-token
      microbatch through both at 2 and 32 layers: losses within 1e-3,
      grad norms within max(1e-2, twice the largest move of either
@@ -310,8 +311,10 @@ Phases (any failure exits non-zero and prints no result line):
   18. the WKV backward kernel against autograd through its plain
      version at (1, 4096, 40, 64), a ragged 1300, D = 32 with B = 2 and
      from a nonzero state with a nonzero final-state gradient, every
-     gradient within rtol = atol = 1e-3; its time at the full shape
-     beside its bound and the plain version's;
+     gradient within rtol = atol = 1e-3 (each max abs beside the first
+     backward kernel's on the same inputs); its time at the full shape
+     beside its bound and the plain version's, and the device time of
+     each of its four CUDA kernels (torch.profiler);
   19. flash_attention and mamba_scan refuse grad-requiring inputs;
   20. `python -m repro_torch.launch.train --arch rwkv6-3b|glm4-9b
      --device cuda --steps 3` and phase 10's serving launchers, all in
@@ -327,7 +330,9 @@ rwkv6-3b's are drawn, those before jamba's, and jamba's before
 training.
 
 Before them a `phase seconds:` line gives each phase's host seconds.
-The last lines are the card (`nvidia-smi` name and power limit), one
+A `host probe:` line before phase 1 and another after the total time
+give the seconds of a fixed host workload (`host_probe`), so that runs
+on different hosts can be compared.  The last lines are the card (`nvidia-smi` name and power limit), one
 JSON object of per-kernel numbers, and the result object.
 """
 
@@ -548,6 +553,36 @@ def phase(fn, *args):
     return out
 
 
+HOST_PROBE_REPS = 3
+
+
+def host_probe() -> str:
+    """A fixed host workload, timed (median of 3): a pure-Python loop
+    (the interpreter, as in the phases' host loops) and a float64 numpy
+    sort of 2^22 seeded values (memory and one core).  Printed at the
+    start and the end of a run, so that runs on different hosts can be
+    compared: the card plays no part in it."""
+    import numpy as np
+    vals = np.random.default_rng(SEED).random(1 << 22)
+
+    def loop():
+        acc = 0
+        for i in range(2_000_000):
+            acc += i * i
+        return acc
+
+    out = []
+    for fn in (loop, lambda: np.sort(vals)):
+        ts = []
+        for _ in range(HOST_PROBE_REPS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        out.append(sorted(ts)[HOST_PROBE_REPS // 2])
+    return (f"host probe: python loop {out[0]:.4f} s, numpy sort "
+            f"{out[1]:.4f} s (median of {HOST_PROBE_REPS})")
+
+
 def wall(fn):
     import torch
     torch.cuda.synchronize()
@@ -670,9 +705,10 @@ def main_path(env) -> dict:
     return env
 
 
-def busy_share(label: str, fn) -> None:
+def busy_share(label: str, fn, watch: tuple = ()) -> None:
     """Run `fn` once under `torch.profiler`: wall time, device busy and
-    idle share, device time by name.  A measurement only: if the
+    idle share, device time by name (the six largest, and every record
+    whose name contains one of `watch`).  A measurement only: if the
     profiler records no device time it reports "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -689,7 +725,9 @@ def busy_share(label: str, fn) -> None:
         print(f"{label}: device busy share not measured (the profiler "
               "recorded no device time)")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    top = ranked[:6] + [e for e in ranked[6:]
+                        if any(w in e.key for w in watch)]
     print(f"{label} under torch.profiler: {t:.3f} s wall, device busy "
           f"{dev_us / 1e6:.3f} s = {dev_us / 1e6 / t:.1%} (idle "
           f"{1 - dev_us / 1e6 / t:.1%})")
@@ -3929,7 +3967,8 @@ def train_path() -> dict:
     def one_more():
         tr.tcfg.steps = TRAIN_STEPS + 1
         tr.run(start_step=TRAIN_STEPS)
-    busy_share(f"train path {cfg.name} (one step)", one_more)
+    busy_share(f"train path {cfg.name} (one step)", one_more,
+               watch=("wkv_",))
     del tr, fast["trainer"], one_more
 
     plain = _train_run(cfg, plain=True)
@@ -4085,13 +4124,33 @@ def _train_grad_check(cfg) -> None:
               f"layers: {gaps[1]:.3e} > {bound:.3e}")
 
 
+# max abs of each gradient of the first backward kernel (a block per
+# head and batch row walking the steps) against the plain version on
+# phase 18's inputs (NVIDIA H100 80GB HBM3, 700 W), printed beside the
+# current kernel's
+WALK_KERNEL_ERR = {
+    "rwkv6-3b 4096": {"r": 2.861e-05, "k": 1.335e-05, "v": 9.537e-06,
+                      "w_log": 2.098e-05, "u": 4.425e-04},
+    "ragged 1300": {"r": 2.289e-05, "k": 1.526e-05, "v": 8.583e-06,
+                    "w_log": 1.907e-05, "u": 1.717e-04},
+    "reduced d32 b2": {"r": 1.335e-05, "k": 4.768e-06, "v": 3.815e-06,
+                       "w_log": 9.537e-06, "u": 4.196e-05},
+    "from a state": {"r": 2.098e-05, "k": 1.431e-05, "v": 9.537e-06,
+                     "w_log": 2.098e-05, "u": 1.678e-04,
+                     "state": 1.907e-06}}
+# the backward's CUDA kernels, in launch order
+WKV_BWD_PASSES = ("wkv_bwd_chunk_kernel", "wkv_bwd_scan_kernel",
+                  "wkv_bwd_out_kernel", "wkv_bwd_du_kernel")
+
+
 def kernel_wkv_bwd(train) -> dict:
     """Phase 18: the WKV backward kernel against its plain version
     (`torch.autograd.grad` through the chunk-16 plain forward) on the
     card at every `WKV_BWD_SHAPES` shape, every gradient within rtol =
-    atol = 1e-3; its time at the training shape (CUDA events, median of
-    10 calls of `wkv_backward` on the forward's saved chunk states)
-    beside its bound and the plain version's time."""
+    atol = 1e-3, each max abs beside `WALK_KERNEL_ERR`; its time at the
+    training shape (CUDA events, median of 10 calls of `wkv_backward` on
+    the forward's saved chunk states) beside its bound and the plain
+    version's time, and the device time of each of its CUDA kernels."""
     import torch
     from repro_torch.kernels.rwkv6 import ops, ref
 
@@ -4110,9 +4169,9 @@ def kernel_wkv_bwd(train) -> dict:
     worst, times = 0.0, None
     for i, (label, shape) in enumerate(WKV_BWD_SHAPES.items()):
         r, k, v, w, u, s0, d_o, d_s = make(shape, SEED + 40 + i)
-        _, _, chunks = ops._forward(r, k, v, w, u, s0)
+        _, s_out, chunks = ops._forward(r, k, v, w, u, s0)
         got = ops.wkv_backward(r, k, v, w, u, chunks, d_o, d_s,
-                               need_state=s0 is not None)
+                               need_state=s0 is not None, s_out=s_out)
         ref.wkv_backward(r, k, v, w, u, d_o, state=s0, d_state=d_s)
         want, plain_s = wall(lambda: ref.wkv_backward(
             r, k, v, w, u, d_o, state=s0, d_state=d_s))
@@ -4128,13 +4187,23 @@ def kernel_wkv_bwd(train) -> dict:
                   f"{WKV_BWD_TOL:g} (max abs {errs[name]:.3e})")
         worst = max(worst, *errs.values())
         print(f"wkv_bwd {label} {shape}: max abs "
-              + ", ".join(f"d{k} {e:.3e}" for k, e in errs.items())
+              + ", ".join(f"d{k} {e:.3e} (walk "
+                          f"{WALK_KERNEL_ERR[label][k]:.3e})"
+                          for k, e in errs.items())
               + f"; bound rtol = atol = {WKV_BWD_TOL:g}; plain "
               f"{plain_s * 1e3:.1f} ms")
         if i == 0:
             b_, t_, h_, dd, _ = shape
-            ms = cuda_ms(lambda: ops.wkv_backward(r, k, v, w, u, chunks,
-                                                  d_o), reps=10)
+
+            def call():
+                return ops.wkv_backward(r, k, v, w, u, chunks, d_o)
+            ms = cuda_ms(call, reps=10)
+            passes = {}
+            for p in WKV_BWD_PASSES:
+                try:
+                    passes[p] = kernel_ms(call, p)
+                except NoProfilerRecord:    # a measurement only
+                    passes[p] = None
             n_bytes = ops.wkv_bwd_hbm_bytes(b_, t_, h_, dd)
             n_ops = ops.wkv_bwd_flops(b_, t_, h_, dd)
             b_ms, b_by = bound_ms(n_bytes, n_ops)
@@ -4143,10 +4212,16 @@ def kernel_wkv_bwd(train) -> dict:
                   f"operations at 67 TFLOP/s, {n_bytes / 1e6:.1f} MB at "
                   f"3.35 TB/s), {ms / b_ms:.2f}x the bound; plain "
                   f"{plain_s * 1e3:.1f} ms; library none")
+            print("  device time a call by CUDA kernel (torch.profiler, "
+                  "mean of 5 launches): " + ", ".join(
+                      f"{p} " + ("not recorded" if m is None
+                                 else f"{m:.4f} ms")
+                      for p, m in passes.items()))
             times = {"ms": ms, "ms_source": "cuda_events_call",
                      "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None}
-        del r, k, v, w, u, s0, d_o, d_s, chunks, got, want
+                     "bound_by": b_by, "library_ms": None,
+                     "pass_ms": passes}
+        del r, k, v, w, u, s0, d_o, d_s, chunks, s_out, got, want
         torch.cuda.empty_cache()
     n = train["launches_train"]["wkv_bwd"]
     return {"name": "wkv_bwd", "route": "cuda",
@@ -4348,6 +4423,7 @@ def main() -> int:
         card = card_line()
         print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
               f"{torch.cuda.get_device_name(0)} ({card})")
+        print(host_probe())
         t0 = time.perf_counter()
         build.build_all()
         print(f"build: {time.perf_counter() - t0:.2f} s")
@@ -4407,6 +4483,7 @@ def main() -> int:
         phase(launchers_finish, launchers)
         print("phase seconds: " + json.dumps(PHASE_SECONDS))
         print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
+        print(host_probe())
     except Exception:                       # report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

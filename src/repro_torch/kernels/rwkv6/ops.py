@@ -11,11 +11,14 @@ state and write the final state (the decode cache's); head dims 32 and
 64, float32.
 
 On the card `wkv` is a `torch.autograd.Function`: its forward keeps the
-chunk-start states that the forward's state scan leaves in its scratch,
-and its backward launches `wkv_bwd.cu` (`wkv_backward`, counted in
-`wkv_backward.launches`), which returns the gradients of r, k, v, w_log,
-u and, when a state was passed in, of the state.  On the CPU autograd
-differentiates the plain version.
+chunk-start states that the forward's state scan leaves in its scratch
+and the final state, and its backward launches `wkv_bwd.cu`
+(`wkv_backward`, counted in `wkv_backward.launches`, one per call; a
+call runs four CUDA kernels: chunk sums of the state gradient, the
+reverse scan over chunks, each chunk's gradients, and du's sum), which
+returns the gradients of r, k, v, w_log, u and, when a state was passed
+in, of the state.  On the CPU autograd differentiates the plain
+version.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def _lib() -> ctypes.CDLL:
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("wkv_bwd")
-    lib.wkv_bwd_launch.argtypes = [ctypes.c_void_p] * 16 \
+    lib.wkv_bwd_launch.argtypes = [ctypes.c_void_p] * 18 \
         + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 15 + [ctypes.c_void_p]
     lib.wkv_bwd_launch.restype = ctypes.c_int
     return lib
@@ -112,19 +115,19 @@ class _WKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w_log, u, state):
         o, s_out, s_chunks = _forward(r, k, v, w_log, u, state)
-        ctx.save_for_backward(r, k, v, w_log, u, s_chunks)
+        ctx.save_for_backward(r, k, v, w_log, u, s_chunks, s_out)
         ctx.has_state = state is not None
         ctx.set_materialize_grads(False)
         return o, s_out
 
     @staticmethod
     def backward(ctx, d_o, d_state):
-        r, k, v, w_log, u, s_chunks = ctx.saved_tensors
+        r, k, v, w_log, u, s_chunks, s_out = ctx.saved_tensors
         if d_o is None:                  # only the final state was used
             d_o = torch.zeros_like(r)
         dr, dk, dv, dw, du, ds = wkv_backward(
             r, k, v, w_log, u, s_chunks, d_o, d_state,
-            need_state=ctx.has_state)
+            need_state=ctx.has_state, s_out=s_out)
         return dr, dk, dv, dw, du, ds
 
 
@@ -147,37 +150,44 @@ wkv.launches = 0
 
 
 def wkv_backward(r, k, v, w_log, u, s_chunks, d_o, d_state=None,
-                 need_state: bool = False):
+                 need_state: bool = False, s_out=None):
     """The backward kernel on CUDA tensors: r/k/v/w_log and the output's
     gradient d_o [B, T, H, D], u [H, D], the forward's chunk-start
     states `s_chunks` [ceil(T / 64), B, H, D, D], the final state's
-    gradient [B, H, D, D] or None (zeros) -> (dr, dk, dv, dw_log
+    gradient [B, H, D, D] or None (zeros) and, when that is given, the
+    forward's final state `s_out` [B, H, D, D] -> (dr, dk, dv, dw_log
     [B, T, H, D], du [H, D], the initial state's gradient [B, H, D, D]
     or None unless `need_state`)."""
     _check(r, k, v, w_log, u, None)
     b, t, h, d = r.shape
-    xs = [r, k, v, w_log, u, s_chunks, d_o] \
-        + ([] if d_state is None else [d_state])
+    if d_state is None:
+        s_out = None                  # the last chunk's end term is 0
+    elif s_out is None:
+        raise ValueError("wkv_backward: a final state's gradient needs the "
+                         "final state s_out")
+    given = [] if d_state is None else [d_state, s_out]
+    xs = [r, k, v, w_log, u, s_chunks, d_o] + given
     _check_cuda("wkv_backward", xs)
     n_chunks = -(-t // CHUNK)
     if tuple(d_o.shape) != (b, t, h, d) or tuple(s_chunks.shape) != (
-            n_chunks, b, h, d, d) or (d_state is not None and tuple(
-                d_state.shape) != (b, h, d, d)):
+            n_chunks, b, h, d, d) or any(tuple(x.shape) != (b, h, d, d)
+                                         for x in given):
         raise ValueError(f"wkv_backward: d_o {tuple(d_o.shape)}, chunk "
-                         f"states {tuple(s_chunks.shape)} or final state "
-                         f"gradient do not match r {tuple(r.shape)}")
+                         f"states {tuple(s_chunks.shape)}, final state or "
+                         f"its gradient do not match r {tuple(r.shape)}")
     r, k, v, w_log, d_o = _d_contiguous(r, k, v, w_log, d_o)
     u, s_chunks = u.contiguous(), s_chunks.contiguous()
     if d_state is not None:
-        d_state = d_state.contiguous()
+        d_state, s_out = d_state.contiguous(), s_out.contiguous()
     dev = r.device
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
     dr, dk, dv, dw = (empty(b, t, h, d) for _ in range(4))
-    du, du_part = empty(h, d), empty(b, h, d)
+    du = empty(h, d)
     ds = empty(b, h, d, d) if need_state else None
-    hist = empty(b * h, CHUNK, d, d)           # each block's S_{t-1}
+    g_end = empty(n_chunks, b, h, d, d)      # G at each chunk's end
+    dec, du_part = empty(n_chunks, b, h, d), empty(n_chunks, b, h, d)
     strides = [s for x in (r, k, v, w_log, d_o) for s in x.stride()[:3]]
 
     def ptr(x):
@@ -186,9 +196,10 @@ def wkv_backward(r, k, v, w_log, u, s_chunks, d_o, d_state=None,
         rc = _bwd_lib().wkv_bwd_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             d_o.data_ptr(), u.data_ptr(), s_chunks.data_ptr(),
-            ptr(d_state), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dw.data_ptr(), du_part.data_ptr(), du.data_ptr(), ptr(ds),
-            hist.data_ptr(), b, t, h, d, *strides,
+            ptr(s_out), ptr(d_state),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+            du_part.data_ptr(), du.data_ptr(), ptr(ds), g_end.data_ptr(),
+            dec.data_ptr(), b, t, h, d, *strides,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wkv_backward: kernel launch failed (CUDA "
@@ -220,20 +231,21 @@ def wkv_hbm_bytes(b, t, h, d) -> int:
 
 
 def wkv_bwd_flops(b, t, h, d) -> int:
-    """Operations the backward kernel does: per step and (batch row,
-    head) 14 D^2 — the state rebuilt from the chunk-start state (3 D^2),
-    S_{t-1} do_t, G_t v_t, G_t * S_{t-1} and G_t^T k_t (2 D^2 each), the
-    G update (3 D^2) — and 16 D for the u terms, the dot products and
-    dw_log's factor."""
+    """Operations of the sequential backward algorithm, the kernel's
+    yardstick (its chunk-parallel design does about as many): per step
+    and (batch row, head) 14 D^2 — the state rebuilt from the chunk-start
+    state (3 D^2), S_{t-1} do_t, G_t v_t, G_t * S_{t-1} and G_t^T k_t
+    (2 D^2 each), the G update (3 D^2) — and 16 D for the u terms, the
+    dot products and dw_log's factor."""
     return b * h * t * (14 * d * d + 16 * d)
 
 
 def wkv_bwd_hbm_bytes(b, t, h, d, d_state: bool = False,
                       need_state: bool = False) -> int:
     """Bytes a backward call must move: r, k, v, w_log, d_o, u and the
-    chunk-start states read once (and the final state's gradient when
-    given), dr, dk, dv, dw_log and du written once (and the initial
-    state's gradient when asked)."""
+    chunk-start states read once (and the final state's gradient and the
+    final state when the gradient is given), dr, dk, dv, dw_log and du
+    written once (and the initial state's gradient when asked)."""
     n_chunks = -(-t // CHUNK)
     return 4 * (9 * b * t * h * d + 2 * h * d + n_chunks * b * h * d * d
-                + (b * h * d * d) * (int(d_state) + int(need_state)))
+                + (b * h * d * d) * (2 * int(d_state) + int(need_state)))

@@ -3,13 +3,29 @@
 `test_torch_calibration.py`): the margin kernel's near-zero flip rule,
 device means within ceil(log2 N) float32 half-ulps, and the pass/fail
 flips of a whole profiling campaign (refresh sweep plus fused timing
-sweep) counted on both sides."""
+sweep) counted on both sides.  Also the one-thread fixture that every
+CPU port test file takes by import."""
 
 import dataclasses
 import math
 
 import numpy as np
 import pytest
+import torch
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a test module.  On some CPU hosts a
+    multi-threaded `torch.exp` returned values off in the fourth
+    significant digit in some processes, never with one thread (ROADMAP
+    queue C); and the suite runs in several worker processes at once
+    (`pytest -n`), where torch's default of a thread per core in each
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = 2e-4              # the margin kernel's tolerance against its plain
                         # version: a pass/fail flip is allowed only here

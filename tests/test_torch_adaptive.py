@@ -30,6 +30,8 @@ from repro_torch.core import sim_engine as tsim
 from repro_torch.core import thermal as TTH
 from repro_torch.kernels.replay import ops as trops
 from repro_torch.kernels.replay import ref as trref
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 N = 160
 BANKS = 8

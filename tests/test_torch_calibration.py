@@ -38,6 +38,8 @@ from repro.core import perf_model as jpm
 from repro.core.variation import sample_population as j_sample
 from repro_torch import convert
 from repro_torch.core import calibration as tcal
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 BINS = (45.0, 55.0, 65.0, 75.0, 85.0)

@@ -25,6 +25,8 @@ from repro_torch.core import charge as tcharge
 from repro_torch.core import timing as TT
 from repro_torch.core import variation as tvar
 from repro_torch.kernels.charge_sim import ops as tops
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 C_J = jcal.CALIBRATED_CONSTANTS

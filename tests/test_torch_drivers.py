@@ -21,6 +21,8 @@ from benchmarks import port_fig4_system as tfig4
 from repro.core import perf_model as jpm
 from repro.core.sweep import Op as JOp
 from repro_torch import convert
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 TOL = 2e-4
 

@@ -46,6 +46,8 @@ from repro_torch.core import timing as TT
 from repro_torch.kernels.replay import ops as trops
 from repro_torch.launch import sharding as tshard
 from repro_torch.launch.mesh import CampaignMesh, make_campaign_mesh
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 N = 96
 ROWS = JT.stack_timing([JT.DDR3_1600, JT.ALDRAM_55C_EVAL])

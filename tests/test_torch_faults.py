@@ -39,6 +39,8 @@ from repro_torch.core import faults as TF
 from repro_torch.core import sim_engine as tsim
 from repro_torch.core import thermal as TTH
 from repro_torch.kernels.replay import ops as trops
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 POLS_J = (jdram.OPEN_FCFS, jdram.Policy(page="closed"))
 POLS_T = (tdram.OPEN_FCFS, tdram.Policy(page="closed"))

@@ -31,6 +31,7 @@ from benchmarks import port_repeatability as trep
 from benchmarks import power_bench as jpower
 from benchmarks import repeatability as jrep
 from repro_torch import convert
+from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

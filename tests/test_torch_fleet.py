@@ -48,6 +48,8 @@ from repro_torch.fleet.monitor import (ECCConfig, ErrorMonitor, ecc_events,
                                        event_penalty_ns)
 from repro_torch.fleet.recal import (FleetEngine, FleetSpec, frontier,
                                      run_policies)
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 

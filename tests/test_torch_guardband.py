@@ -30,6 +30,8 @@ from repro_torch.core import timing as TT
 from repro_torch.core import variation as TV
 from repro_torch.core.calibration import CALIBRATED_CONSTANTS as T_CONST
 from repro_torch.core.calibration import CALIBRATED_VARIATION as T_VAR
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 STEP = 8.0 / 2 ** 24
 

@@ -46,6 +46,8 @@ from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.replay import ops as replay_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 C = CALIBRATED_CONSTANTS

@@ -34,19 +34,9 @@ from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.optim.adamw8bit import (QTensor, _dequant, _quant,
                                          adamw8_init, adamw8_update)
 from repro_torch.optim.schedules import warmup_cosine
+from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 F32_ULP = 2.0 ** -23
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: on some CPU hosts a multi-threaded
-    `torch.exp` returned values off in the fourth significant digit in
-    some processes, never with one thread (ROADMAP queue C)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(seed, scale=1.0):

@@ -25,6 +25,8 @@ from repro_torch.core import timing as TT
 from repro_torch.core.aldram import ALDRAMController as TController
 from repro_torch.core.profiler import Profiler as TProfiler
 from repro_torch.core.sim_engine import SimEngine
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 N_REQ = 256
 

@@ -51,6 +51,8 @@ from repro_torch.core.aldram import TimingTable
 from repro_torch.core.profiler import Profiler as TProfiler
 from repro_torch.kernels.replay import ops as trops
 from repro_torch.runtime import compression as tcomp
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 TOL = 2e-4
 BINS = (55.0, 70.0, 85.0)

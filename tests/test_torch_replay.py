@@ -22,6 +22,8 @@ from repro_torch.core import sim_engine as tsim
 from repro_torch.core import timing as TT
 from repro_torch.kernels.replay import ops as trops
 from repro_torch.kernels.replay import ref as trref
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 N = 160
 ROWS = JT.stack_timing([JT.DDR3_1600, JT.ALDRAM_55C_EVAL,

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     load_checkpoint, save_checkpoint)
+from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 
 class TestStraggler:

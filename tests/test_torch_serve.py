@@ -43,6 +43,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 

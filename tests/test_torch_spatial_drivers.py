@@ -26,6 +26,8 @@ from benchmarks import sim_bench as jsim
 from benchmarks import thermal_bench as jthermal
 from repro.core import perf_model as jpm
 from repro_torch import convert
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 BINS = (45.0, 55.0, 65.0, 75.0, 85.0)
 

@@ -36,6 +36,8 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as TF
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 PALLAS_TOL = 3e-4
 

@@ -20,6 +20,8 @@ from repro_torch import convert
 from repro_torch.core import sweep as tsweep
 from repro_torch.core import timing as TT
 from repro_torch.core.profiler import Profiler as TProfiler
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 TOL = 2e-4
 TEMPS = (55.0, 85.0)

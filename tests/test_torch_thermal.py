@@ -31,6 +31,8 @@ from repro_torch.core.aldram import ALDRAMController as TController
 from repro_torch.core.aldram import default_scenarios
 from repro_torch.core.profiler import Profiler as TProfiler
 from repro_torch.core.sim_engine import SimEngine
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 N_REQ = 128
 

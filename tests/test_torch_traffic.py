@@ -40,6 +40,8 @@ from repro_torch.core import sim_engine as tsim
 from repro_torch.core import thermal as TTH
 from repro_torch.kernels.replay import ops as trops
 from repro_torch.kernels.replay import ref as trref
+from _torch_parity import one_thread as _one_thread  # noqa: F401
+
 
 N = 160
 ROWS = JT.stack_timing([JT.DDR3_1600.scaled(0.8, 0.7, 0.6, 0.9),

@@ -43,6 +43,7 @@ from repro_torch.models import transformer as TF
 from repro_torch.optim import adamw_init
 from repro_torch.optim.adamw8bit import adamw8_init
 from repro_torch.train.step import TrainConfig, train_step
+from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 REL = 1e-5
 NO_EXPERTS = {"n_experts": 0, "top_k": 0}
@@ -50,17 +51,6 @@ NO_EXPERTS = {"n_experts": 0, "top_k": 0}
 ARCHS = {"glm4-9b": dict(n_layers=2, d_model=64, n_heads=2, d_ff=128,
                          vocab=128),
          "rwkv6-3b": {}, "jamba-1.5-large-398b": {}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: on some CPU hosts a multi-threaded
-    `torch.exp` returned values off in the fourth significant digit in
-    some processes, never with one thread (ROADMAP queue C)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch):
@@ -393,6 +383,72 @@ def test_trainer_checkpoint_resume(tmp_path):
     p_losses = port.run()["losses"]
     assert all(_rel(p, r) <= REL for p, r in zip(p_losses, r_losses)), (
         p_losses, r_losses)
+
+
+def test_trainer_adamw8bit_matches_reference_steps():
+    """The port's `Trainer` with `TrainConfig(optimizer="adamw8bit")` on
+    the 2-layer dense config builds `adamw8_init` state; from the
+    reference's parameters and `adamw8_init` state it takes the
+    reference's `train_step`, driven by hand on the same `SyntheticLM`
+    batches, for 3 steps.  (The reference's own `Trainer` always builds
+    AdamW state, so its 8-bit run raises in `_dequant`.)  Bounds, those
+    of `check_train_step`: loss and lr within 1e-5 relative, grad_norm
+    within 1e-5 or twice the reference's own 1-ulp spread, every
+    parameter within atol 1e-6 + rtol 1e-4; the moments' codes within
+    one code of the reference's, at most 2e-4 of them moved, the scales
+    within 2e-5 relative (about five times the 7 of 180,864 codes and
+    4.6e-6 measured on the CPU); the step counter 3."""
+    from repro_torch.optim.adamw8bit import AdamW8State, QTensor
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg, pcfg, params, spread = _model("glm4-9b")
+    tc = TrainerConfig(steps=3, global_batch=2, seq_len=16,
+                       train=TrainConfig(optimizer="adamw8bit",
+                                         dtype=torch.float32))
+    port = Trainer(pcfg, tc, device="cpu")
+    assert isinstance(port.opt, AdamW8State)
+    r_p, r_o = params, ref_adamw8_init(params)
+    port.params = convert.model_params(_port(r_p), pcfg, device="cpu")
+    port.opt = convert.optimizer_state(_port(r_o), "cpu")
+    rt = RS.TrainConfig(optimizer="adamw8bit", dtype=jnp.float32)
+    step = jax.jit(lambda p, o, b: RS.train_step(p, o, b, cfg, rt))
+    data = RefSyntheticLM(cfg.vocab_size, tc.seq_len, tc.global_batch,
+                          tc.seed)
+    want = []
+    for i in range(tc.steps):
+        batch = {k: jnp.asarray(v) for k, v in data.batch_at(i).items()}
+        r_p, r_o, rm = step(r_p, r_o, batch)
+        want.append({k: float(v) for k, v in rm.items()})
+    port.run()
+    gn_bound = max(REL, 2 * spread)
+    for pm, rm in zip(port.metrics, want, strict=True):
+        assert _rel(pm["loss"], rm["loss"]) <= REL, (pm, rm)
+        assert _rel(pm["lr"], rm["lr"]) <= REL, (pm, rm)
+        assert _rel(pm["grad_norm"], rm["grad_norm"]) <= gn_bound, (
+            pm, rm, gn_bound)
+    for name, got, wnt in _leaf_pairs(port.params, r_p):
+        np.testing.assert_allclose(got.numpy(), wnt, rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+    flips, n_codes, scale_gap = 0, 0, 0.0
+    for moment in ("m", "v"):
+        for path, rq in jax.tree_util.tree_leaves_with_path(
+                getattr(r_o, moment), is_leaf=lambda x: hasattr(x, "q")):
+            node = getattr(port.opt, moment)
+            for p in path:
+                node = node[p.key]
+            assert isinstance(node, QTensor)
+            d = node.q.numpy().astype(np.int32) - np.asarray(rq.q).astype(
+                np.int32)
+            assert np.abs(d).max() <= 1, (moment, path)
+            flips += int((d != 0).sum())
+            n_codes += d.size
+            rs = np.asarray(rq.scale)
+            scale_gap = max(scale_gap, float(np.max(
+                np.abs(node.scale.numpy() - rs) / np.maximum(rs, 1e-30))))
+    print(f"Trainer adamw8bit: {flips} of {n_codes} codes moved by one, "
+          f"scales within {scale_gap:.2e} relative after {tc.steps} steps")
+    assert flips <= 2e-4 * n_codes
+    assert scale_gap <= 2e-5
+    assert int(port.opt.step) == int(r_o.step) == tc.steps
 
 
 # ----------------------------------------------------------------- launcher

@@ -10,8 +10,8 @@ that has only PyTorch:
 Every test needs an NVIDIA card and skips without one (decided inside
 the `cuda` fixture, never at import).  Bounds: the backward kernel within
 rtol = atol = 1e-3 of `torch.autograd.grad` through the plain version
-(chunk 16; the kernel walks the steps one by one from the forward's
-64-step chunk states); the card's training step within 1e-5 relative of
+(chunk 16; the kernel works on the forward's 64-step chunks in
+parallel, from their saved start states); the card's training step within 1e-5 relative of
 the CPU's on the loss, on grad_norm within 1e-5 or twice what one
 float32 ulp of noise on the parameters moves the CPU's own
 (`_grad_norm_noise`; tests/test_torch_train.py says why), every

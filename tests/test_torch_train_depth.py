@@ -16,7 +16,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
@@ -29,20 +28,12 @@ from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.train.step import (TrainConfig, accumulate_grads,
                                     global_grad_norm)
+from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 ARCH, LAYERS = "rwkv6-3b", 32
 SEEDS = (100, 101, 102)
 F32 = TrainConfig(dtype=torch.float32)
 F64 = TrainConfig(dtype=torch.float64, grad_dtype=torch.float64)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread (tests/test_torch_train.py says why)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tokens(cfg):

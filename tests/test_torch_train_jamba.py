@@ -5,18 +5,9 @@ cases and bounds of tests/test_torch_train.py, in a file of their own
 these the slowest of the step-parity cases)."""
 
 import pytest
-import torch
 
 from test_torch_train import COMBOS, check_train_step
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread (tests/test_torch_train.py says why)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("accum,remat,opt", COMBOS)

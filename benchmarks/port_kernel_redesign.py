@@ -30,7 +30,9 @@ older one the per-bank flag), for an A/B of two designs in one run:
   under the `fault_bench` grid (72 lanes), raw temperatures and bins
   emitted;
 - mamba_scan at every `chip_smoke.SCAN_SHAPES` entry: the final state
-  (bitwise) and y (max abs; its sum order changed);
+  and y (elements that differ, and y's max abs), and the new build's
+  time with and without its chunk states saved (the training path's
+  launch);
 - wkv_bwd at every `chip_smoke.WKV_BWD_SHAPES` entry: each gradient's
   max abs against the plain version for both builds (a variant may sum
   in another order);
@@ -154,11 +156,13 @@ def _build_parent(parent: Path) -> dict:
         libs["adaptive_blocks"].adaptive_launch.restype = ctypes.c_int
     if "mamba_scan" in libs:
         # the first kernel's C interface has no launch plan; a build
-        # that takes one (int team, channels, steps) gets this checkout's
+        # that takes one (int team, channels, steps) gets this checkout's;
+        # one that writes the chunk states (void* h_chunks) gets null
         src = (root / "mamba_scan" / "mamba_scan.cu").read_text()
         libs["scan_takes_plan"] = "int team" in src
+        libs["scan_chunks"] = "void* h_chunks" in src
         libs["mamba_scan"].mamba_scan_launch.argtypes = \
-            [ctypes.c_void_p] * 8 \
+            [ctypes.c_void_p] * (9 if libs["scan_chunks"] else 8) \
             + [ctypes.c_int] * (7 if libs["scan_takes_plan"] else 4) \
             + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
         libs["mamba_scan"].mamba_scan_launch.restype = ctypes.c_int
@@ -521,7 +525,7 @@ def _scan_inputs(shape, seed):
             0.5 * n(b, di, ds) if with_state else None)
 
 
-def _old_scan(lib, takes_plan, x, dt, bm, cm, a, h0):
+def _old_scan(lib, takes_plan, chunks, x, dt, bm, cm, a, h0):
     import torch
     from repro_torch.kernels.mamba_scan import ops
     b, t, di = x.shape
@@ -533,7 +537,7 @@ def _old_scan(lib, takes_plan, x, dt, bm, cm, a, h0):
     rc = lib.mamba_scan_launch(
         x.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
         a.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h.data_ptr(), b, t, di, ds,
+        h.data_ptr(), *((None,) if chunks else ()), b, t, di, ds,
         *((plan.team, plan.channels, plan.steps) if takes_plan else ()),
         *strides, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -541,7 +545,7 @@ def _old_scan(lib, takes_plan, x, dt, bm, cm, a, h0):
     return y, h
 
 
-def compare_mamba(old_lib, takes_plan: bool) -> list:
+def compare_mamba(old_lib, takes_plan: bool, chunks: bool) -> list:
     import torch
     import chip_smoke as cs
     from repro_torch.kernels.mamba_scan import ops
@@ -549,24 +553,32 @@ def compare_mamba(old_lib, takes_plan: bool) -> list:
     for i, (label, shape) in enumerate(cs.SCAN_SHAPES.items()):
         ins = _scan_inputs(shape, SEED + i)
         y1, h1 = ops.mamba_scan(*ins[:5], h0=ins[5])
-        y0, h0 = _old_scan(old_lib, takes_plan, *ins)
+        y0, h0 = _old_scan(old_lib, takes_plan, chunks, *ins)
         n_h = _n_differing(h1, h0)
-        t = {"old": [], "new": []}
-        for who in ("old", "new", "new", "old"):
-            fn = ((lambda: _old_scan(old_lib, takes_plan, *ins))
-                  if who == "old"
-                  else (lambda: ops.mamba_scan(*ins[:5], h0=ins[5])))
+        t = {"old": [], "new": [], "new saving states": []}
+        for who in ("old", "new", "new saving states", "new",
+                    "new saving states", "old"):
+            fn = {"old": lambda: _old_scan(old_lib, takes_plan, chunks,
+                                           *ins),
+                  "new": lambda: ops.mamba_scan(*ins[:5], h0=ins[5]),
+                  "new saving states": lambda: ops._forward(
+                      *ins, None, save_chunks=True)}[who]
             t[who].append(_device_ms(fn, "mamba_scan_kernel"))
         row = {"shape": label, "dims": list(shape[:4]),
                "state_elements": h1.numel(), "state_differing": n_h,
+               "y_differing": _n_differing(y1, y0),
                "y_max_abs": float((y1 - y0).abs().max()),
                "plan": ops.scan_plan(shape[1], shape[3]).__dict__,
-               "old_ms": t["old"], "new_ms": t["new"]}
+               "old_ms": t["old"], "new_ms": t["new"],
+               "new_saving_states_ms": t["new saving states"]}
         print(f"mamba_scan {label} {shape[:4]}: {n_h} of {h1.numel()} "
-              f"final-state elements differ from the previous kernel, y "
+              f"final-state elements and {row['y_differing']} of "
+              f"{y1.numel()} outputs differ from the previous kernel, y "
               f"max abs {row['y_max_abs']:.3e}; previous {t['old'][0]:.4f}"
               f" / {t['old'][1]:.4f} ms, new {t['new'][0]:.4f} / "
-              f"{t['new'][1]:.4f} ms (plan {row['plan']})")
+              f"{t['new'][1]:.4f} ms, new saving its chunk states "
+              f"{t['new saving states'][0]:.4f} / "
+              f"{t['new saving states'][1]:.4f} ms (plan {row['plan']})")
         rows.append(row)
         del ins, y1, h1, y0, h0
         torch.cuda.empty_cache()
@@ -790,7 +802,8 @@ def main(argv=None) -> int:
             res["adaptive"] = compare_adaptive(libs["adaptive_blocks"])
         if "mamba_scan" in libs:
             res["mamba"] = compare_mamba(libs["mamba_scan"],
-                                         libs["scan_takes_plan"])
+                                         libs["scan_takes_plan"],
+                                         libs["scan_chunks"])
         if "wkv_bwd" in libs:
             res["wkv_bwd"] = compare_wkv_bwd(libs["wkv_bwd"])
     if args.plans:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's AL-DRAM main, thermal, subarray-region,
 fault-injection, multi-channel traffic and fleet recalibration paths,
-its LLM serving path (dense attention, RWKV6 and the Mamba hybrid) and
-its training path (RWKV6), on one NVIDIA card.
+its LLM serving path (dense attention, RWKV6, MoE and the Mamba hybrid)
+and its training path (RWKV6, MoE and the Mamba hybrid), on one NVIDIA
+card.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -258,10 +259,10 @@ Phases (any failure exits non-zero and prints no result line):
      (and its share of it), the plain version's and
      `scaled_dot_product_attention`'s under each backend that takes it
      (and the kernel's ratio to the fastest);
-  12. (with phase 8) reduced glm4-9b, gemma3-12b, rwkv6-3b and
-     expert-free jamba served on the card (kernels) and on the CPU from
-     the same seeded weights, the 6 requests of
-     `examples/port_serve_batch.py`: tokens equal;
+  12. (with phase 8) reduced glm4-9b, gemma3-12b, rwkv6-3b, jamba (with
+     its experts), granite (with its 32 experts) and arctic served on
+     the card (kernels) and on the CPU from the same seeded weights, the
+     6 requests of `examples/port_serve_batch.py`: tokens equal;
   13. rwkv6-3b at full width and depth (32 RWKV6 layers, 3.60 B
      parameters, 14.4 GB float32), served as in phase 9: exactly 32 x 4
      = 128 wkv launches, all in prefill, and no flash or mamba_scan
@@ -271,9 +272,10 @@ Phases (any failure exits non-zero and prints no result line):
      to the `init_params` tree on the meta device (the config's
      `param_count()` printed beside it: its RWKV6 and Mamba formulas are
      approximations); its busy share;
-  14. jamba-1.5-large at full width without its experts, cut to one
-     8-layer period (7 Mamba + 1 attention, 9.00 B parameters, 36.0 GB),
-     the same requests and checks: 4 flash launches and 7 x (4 prefills
+  14. jamba-1.5-large at full width without its experts (a full-width
+     period's four MoE layers would take 154 GB), cut to one 8-layer
+     period (7 Mamba + 1 attention, 9.00 B parameters, 36.0 GB), the
+     same requests and checks: 4 flash launches and 7 x (4 prefills
      + the decode ticks) mamba_scan launches; the plain path swaps the
      selective-scan wrapper for its step loop;
   15. wkv against its plain version at rwkv6-3b's prefill shape (1,
@@ -315,19 +317,44 @@ Phases (any failure exits non-zero and prints no result line):
      backward kernel's on the same inputs); its time at the full shape
      beside its bound and the plain version's, and the device time of
      each of its four CUDA kernels (torch.profiler);
-  19. flash_attention and mamba_scan refuse grad-requiring inputs;
-  20. `python -m repro_torch.launch.train --arch rwkv6-3b|glm4-9b
-     --device cuda --steps 3` and phase 10's serving launchers, all in
-     the background during the cross-device phases: exit 0 and the loss
-     line (training) or the 4 requests (serving);
-  21. (with phase 12) reduced rwkv6-3b trained 3 steps on the card and
+  19. flash_attention refuses grad-requiring inputs; mamba_scan returns
+     outputs with a grad_fn (its backward kernel);
+  20. `python -m repro_torch.launch.train --arch
+     rwkv6-3b|glm4-9b|granite-moe-1b-a400m --device cuda --steps 3` and
+     `python -m repro_torch.launch.serve --arch glm4-9b|rwkv6-3b|granite-
+     moe-1b-a400m --device cuda`, all in the background during the
+     cross-device phases: exit 0 and the loss line (training) or the 4
+     requests (serving);
+  21. (with phase 12) reduced rwkv6-3b, granite (32 experts) and one
+     period of Jamba with its experts (its Mamba layers through the scan
+     kernel and its backward) trained 3 steps in float32 on the card and
      on the CPU: losses within 1e-5, grad norms within 1e-5 (or twice
      the CPU's own 1-ulp spread), parameters within atol 1e-6 + rtol
-     1e-4.
+     1e-4, and exactly the expected kernel launches per model;
+  22. (after phase 16) granite-moe-1b-a400m at full width and depth (24
+     layers of 32 experts, top-8, 1.335 B parameters, float32) served as
+     in phase 9: exactly 24 x 4 = 96 flash launches and no other kernel,
+     the plain path's tokens, the routing choices in which the two
+     paths differ per request, the logits with the kernel path's routes
+     forced on the plain path, the parameter count; then one
+     4096-token prefill with the MoE's one-hot dispatch and combine
+     contractions timed beside its expert products (CUDA events);
+  23. (after phase 18) granite-moe-1b-a400m trained at full width and
+     depth with phase 17's recipe: no hand-written kernel launched, losses
+     finite, every MoE layer's aux in (0, 32], seconds per step, tokens
+     per second, peak memory, a fourth step under torch.profiler;
+  24. (last) the selective-scan backward kernel against autograd through
+     its plain version at jamba's (1, 4096, 16384, 16), a ragged T =
+     1300 with B = 2 and ds = 8, and from a nonzero state with a nonzero
+     final-state gradient, every gradient within rtol = atol = 1e-3; its
+     time beside its bound and the plain version's; then one full-width
+     Jamba Mamba mixer at T = 4096: every parameter gradient through the
+     kernels and through the plain scan within a relative norm gap of
+     1e-3.
 
 Phases 13-19 run after phase 11; glm4-9b's weights are freed before
-rwkv6-3b's are drawn, those before jamba's, and jamba's before
-training.
+rwkv6-3b's are drawn, those before jamba's, jamba's before granite's,
+and granite's before training.
 
 Before them a `phase seconds:` line gives each phase's host seconds.
 A `host probe:` line before phase 1 and another after the total time
@@ -507,14 +534,15 @@ def _replay_fns():
 
 
 def _serve_fns():
-    """The LLM paths' kernel wrappers by kernel name (the WKV backward
-    launches only in training)."""
+    """The LLM paths' kernel wrappers by kernel name (the two backward
+    kernels launch only in training)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     return {"flash_attention": flash_ops.flash_attention,
             "wkv": wkv_ops.wkv, "wkv_bwd": wkv_ops.wkv_backward,
-            "mamba_scan": scan_ops.mamba_scan}
+            "mamba_scan": scan_ops.mamba_scan,
+            "mamba_scan_bwd": scan_ops.mamba_scan_backward}
 
 
 def reset_counts() -> None:
@@ -709,17 +737,20 @@ def busy_share(label: str, fn, watch: tuple = ()) -> None:
     """Run `fn` once under `torch.profiler`: wall time, device busy and
     idle share, device time by name (the six largest, and every record
     whose name contains one of `watch`).  A measurement only: if the
-    profiler records no device time it reports "not measured"."""
+    profiler records no device time it reports "not measured".  The
+    profiler records the device's activity alone: host-side records
+    feed no number here and would only slow the run under it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, t = wall(fn)
     # device-side records only (kernels, copies, fills): a CPU op such as
     # aten::copy_ repeats its children's device time as its own
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
+    gather_s = time.perf_counter() - t0 - t
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us <= 0:
         print(f"{label}: device busy share not measured (the profiler "
@@ -730,7 +761,8 @@ def busy_share(label: str, fn, watch: tuple = ()) -> None:
                         if any(w in e.key for w in watch)]
     print(f"{label} under torch.profiler: {t:.3f} s wall, device busy "
           f"{dev_us / 1e6:.3f} s = {dev_us / 1e6 / t:.1%} (idle "
-          f"{1 - dev_us / 1e6 / t:.1%})")
+          f"{1 - dev_us / 1e6 / t:.1%}); gathering the records "
+          f"{gather_s:.1f} s more")
     for e in top:
         print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
@@ -3266,8 +3298,10 @@ SERVE_NEW_TOKENS = 16
 SERVE_MAX_LEN = 8192
 TIE_GAP = 1e-3        # a top-2 logit gap below this may flip a token
 LOGIT_TOL = 1e-3      # kernels vs plain last-token logits, max abs
-# jamba-1.5-large at full width without its experts (models/moe.py is
-# not ported), cut to one period of its 7 : 1 Mamba : attention pattern
+# jamba-1.5-large at full width, cut to one period of its 7 : 1 Mamba :
+# attention pattern, without its experts: a full-width period holds four
+# MoE layers of 38.6 GB each (16 experts of 3 x 8192 x 24576 float32
+# weights), which the card's 80 GB cannot hold
 JAMBA_CUT = {"n_layers": 8, "n_experts": 0, "top_k": 0}
 # (b, s, hq, hkv, d, window): glm4-9b's prefill, an unaligned prompt,
 # gemma3-12b's local and global layers, musicgen's MHA, a batched GQA
@@ -3319,16 +3353,21 @@ def plain_serve():
             setattr(mod, name, fn)
 
 
-def _serve(params, cfg, prompts, plain: bool) -> dict:
+def _serve(params, cfg, prompts, plain: bool, replay: dict | None = None
+           ) -> dict:
     """Serve `prompts` through `ServeEngine` (2 slots): per request its
     tokens and each token's top-2 logit gap, each prefill's last-token
     logits, wall seconds and launches per serve kernel, and each decode
-    tick's.  `plain=True` serves through the plain versions of the three
-    serve kernels (`plain_serve`)."""
+    tick's; for a config with experts, each prefill's routing
+    (`moe_routing`), which `replay` (another run's) forces.  `plain=True`
+    serves through the plain versions of the three serve kernels
+    (`plain_serve`)."""
     import torch
     from repro_torch.serve.engine import Request, ServeEngine
 
-    rec = {"prefill": [], "decode": [], "logits": {}, "gaps": {}}
+    rec = {"prefill": [], "decode": [], "logits": {}, "gaps": {},
+           "routes": {}}
+    cur = {"rid": None}
     fns = _serve_fns()
 
     def counts():
@@ -3340,8 +3379,10 @@ def _serve(params, cfg, prompts, plain: bool) -> dict:
     class Timed(ServeEngine):
         def _prefill_into(self, slot, req):
             self.current = req
+            cur["rid"] = req.rid
             c0 = counts()
             _, t = wall(lambda: ServeEngine._prefill_into(self, slot, req))
+            cur["rid"] = None
             rec["prefill"].append((req.rid, len(req.prompt), t, delta(c0)))
 
         def _decode(self, tokens, pos):
@@ -3369,7 +3410,9 @@ def _serve(params, cfg, prompts, plain: bool) -> dict:
     eng.sampler = sampler
     for i, pr in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=pr, max_new_tokens=SERVE_NEW_TOKENS))
-    with plain_serve() if plain else contextlib.nullcontext():
+    with (plain_serve() if plain else contextlib.nullcontext(),
+          moe_routing(cur, rec["routes"], replay) if cfg.n_experts
+          else contextlib.nullcontext()):
         done, secs = wall(eng.run_until_drained)
     rec["out"] = {r.rid: list(r.out) for r in done}
     rec["seconds"] = secs
@@ -3391,7 +3434,13 @@ def _serve_model(cfg) -> dict:
     TF32 off): `cfg` served through `ServeEngine` (its prefill through
     the kernels), launch counts reset just before and read just after;
     then the same requests through the plain path, compared token for
-    token, and one short run under `torch.profiler`.  Every serve kernel
+    token, and last-token logits within LOGIT_TOL where every prefill
+    token was routed alike; for a config with experts, the routing
+    choices that differ are counted per request and the plain path
+    serves once more with the kernel path's prefill routes forced, its
+    logits within LOGIT_TOL on every request (a flipped top-k choice
+    moves logits by a step, not by rounding); then one short run under
+    `torch.profiler`.  Every serve kernel
     must have been launched exactly as the config's layers say: flash
     once per attention layer and prefill, wkv once per RWKV6 layer and
     prefill, mamba_scan once per Mamba layer and prefill or decode tick,
@@ -3437,8 +3486,11 @@ def _serve_model(cfg) -> dict:
         print(f"  prefill seconds: " + json.dumps(
             {f"req {rid} ({n})": round(t, 4)
              for rid, n, t, _ in r["prefill"]}))
-    # served tokens equal, unless the plain path's top-2 gap is a near tie
-    near_ties, worst_logit = 0, 0.0
+    # served tokens equal, unless the plain path's top-2 gap is a near tie;
+    # last-token logits within LOGIT_TOL where both paths routed every
+    # prefill token alike (a flipped top-k choice moves them by a step)
+    flips = _route_flips(fast["routes"], plain["routes"], len(prompts))
+    near_ties, worst_logit, gaps_by_rid, alike = 0, 0.0, [], 0
     for rid in range(len(prompts)):
         a, b = fast["out"][rid], plain["out"][rid]
         gaps = plain["gaps"][rid]
@@ -3450,14 +3502,37 @@ def _serve_model(cfg) -> dict:
                 break
             check(a[t] == b[t], f"{cfg.name} req {rid} token {t}: kernels "
                   f"{a[t]} != plain {b[t]} (plain top-2 gap {gaps[t]:.3e})")
-        worst_logit = max(worst_logit, float(
+        gaps_by_rid.append(float(
             (fast["logits"][rid] - plain["logits"][rid]).abs().max()))
+        if not any(flips[rid]):
+            alike += 1
+            worst_logit = max(worst_logit, gaps_by_rid[-1])
     min_gap = min(min(g) for g in plain["gaps"].values())
     print(f"serve {cfg.name} kernels vs plain: tokens equal on "
           f"{len(prompts) - near_ties} of {len(prompts)} requests "
           f"({near_ties} not compared past a plain top-2 gap < {TIE_GAP:g}; "
-          f"smallest gap {min_gap:.3e}); last-token logits of each prefill "
-          f"within {worst_logit:.3e} (max abs)")
+          f"smallest gap {min_gap:.3e}); last-token logits within "
+          f"{worst_logit:.3e} (max abs) on the {alike} prefills whose "
+          "routes agree")
+    if cfg.n_experts:
+        # the plain path again, with the kernel path's prefill routes
+        # forced: what is left between the two is the kernels' rounding
+        forced = _serve(params, cfg, prompts, plain=True,
+                        replay=fast["routes"])
+        same = _route_flips(fast["routes"], forced["routes"], len(prompts))
+        check(not any(n for pair in same for n in pair), "the forced routes "
+              f"were not followed: {same}")
+        forced_gaps = [float((fast["logits"][rid] - forced["logits"][rid])
+                             .abs().max()) for rid in range(len(prompts))]
+        for rid, ((n_exp, n_adm), gap, fgap) in enumerate(zip(
+                flips, gaps_by_rid, forced_gaps)):
+            print(f"serve {cfg.name} req {rid} ({len(prompts[rid])} tokens, "
+                  f"{cfg.n_layers} MoE layers, top-{cfg.top_k}): kernels vs "
+                  f"plain differ in {n_exp} expert choices and {n_adm} "
+                  f"admitted (token, slot, expert, position) choices; "
+                  f"last-token logits {gap:.3e} apart, {fgap:.3e} with the "
+                  f"kernel path's routes forced on the plain path")
+        worst_logit = max(worst_logit, *forced_gaps)
     check(worst_logit <= LOGIT_TOL, f"prefill logits differ by {worst_logit}")
 
     layers = _mixer_layers(cfg)
@@ -3909,6 +3984,27 @@ def _train_run(cfg, plain: bool) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def _train_report(cfg, run: dict, n_tree: int) -> None:
+    """The training phases' lines: parameters (held to the `init_params`
+    tree), peak memory, and per step the metrics, its seconds split into
+    forward + backward and the optimizer, and tokens per second."""
+    n_params = sum(t.numel() for t in _tree_leaves(run["trainer"].params))
+    check(n_params == n_tree, f"{n_params} parameters, the tree {n_tree}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train {cfg.name}: {n_params / 1e9:.3f} B parameters, float32 "
+          f"parameters + gradients + AdamW moments "
+          f"{16 * n_params / 1e9:.1f} GB, drawn on the card in "
+          f"{run['init_s']:.2f} s; bf16 compute, remat, accum "
+          f"{TRAIN_ACCUM}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; peak "
+          f"memory allocated {run['peak_gb']:.2f} GB")
+    for m, st, ot in zip(run["metrics"], run["step_s"], run["opt_s"]):
+        print(f"train {cfg.name} kernels step {m['step']}: loss "
+              f"{m['loss']:.6f} grad_norm {m['grad_norm']:.6f} lr "
+              f"{m['lr']:.3e}; {st:.3f} s = forward + backward "
+              f"{st - ot:.3f} s + optimizer {ot:.3f} s; {tokens / st:.0f} "
+              "tokens/s")
+
+
 def train_path() -> dict:
     """Phase 17: rwkv6-3b trained at full width and depth on the card
     (`Trainer`, bf16 compute, float32 parameters and moments, remat,
@@ -3934,21 +4030,7 @@ def train_path() -> dict:
         torch.Generator(), cfg, device="meta")))
     fast = _train_run(cfg, plain=False)
     tr = fast["trainer"]
-    n_params = sum(t.numel() for t in _tree_leaves(tr.params))
-    check(n_params == n_tree, f"{n_params} parameters, the tree {n_tree}")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"train {cfg.name}: {n_params / 1e9:.3f} B parameters, float32 "
-          f"parameters + gradients + AdamW moments "
-          f"{16 * n_params / 1e9:.1f} GB, drawn on the card in "
-          f"{fast['init_s']:.2f} s; bf16 compute, remat, accum "
-          f"{TRAIN_ACCUM}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; peak "
-          f"memory allocated {fast['peak_gb']:.2f} GB")
-    for m, st, ot in zip(fast["metrics"], fast["step_s"], fast["opt_s"]):
-        print(f"train {cfg.name} kernels step {m['step']}: loss "
-              f"{m['loss']:.6f} grad_norm {m['grad_norm']:.6f} lr "
-              f"{m['lr']:.3e}; {st:.3f} s = forward + backward "
-              f"{st - ot:.3f} s + optimizer {ot:.3f} s; {tokens / st:.0f} "
-              "tokens/s")
+    _train_report(cfg, fast, n_tree)
     n = fast["launches"]
     layers = _mixer_layers(cfg)["rwkv6"]
     want = {"wkv": 2 * layers * TRAIN_ACCUM * TRAIN_STEPS,
@@ -4231,10 +4313,415 @@ def kernel_wkv_bwd(train) -> dict:
             "launches_by_path": {"train": n}, "max_abs_err": worst, **times}
 
 
+# ------------------------------------------------------------ MoE path
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# the MoE FFN's contractions by einsum spec: the one-hot dispatch and
+# combine, and the three expert products
+MOE_SPECS = {"gsec,gsd->gecd": "dispatch", "gsec,gecd->gsd": "combine",
+             "gecd,edf->gecf": "experts (gate, up)",
+             "gecf,efd->gecd": "experts (down)"}
+
+
+@contextlib.contextmanager
+def _moe_einsum(wrap):
+    """While the block runs, `models/moe.py` calls `wrap(spec, *ops)` in
+    place of `torch.einsum` (the module's `torch` is swapped for a proxy
+    here only)."""
+    import torch
+    from repro_torch.models import moe as MoE
+
+    class Proxy:
+        einsum = staticmethod(wrap)
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    MoE.torch = Proxy()
+    try:
+        yield
+    finally:
+        MoE.torch = torch
+
+
+@contextlib.contextmanager
+def moe_einsum_times(out: dict):
+    """While the block runs, each einsum of `models/moe.py` is bracketed
+    by a pair of CUDA events (no synchronize); on exit `out` holds the
+    milliseconds per `MOE_SPECS` label, summed over the calls, and the
+    call counts."""
+    import torch
+
+    pairs = []
+
+    def timed(spec, *ops):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = torch.einsum(spec, *ops)
+        e1.record()
+        pairs.append((MOE_SPECS[spec], e0, e1))
+        return res
+
+    try:
+        with _moe_einsum(timed):
+            yield
+    finally:
+        torch.cuda.synchronize()
+        for label, e0, e1 in pairs:
+            out[label] = out.get(label, 0.0) + e0.elapsed_time(e1)
+            out[f"{label} calls"] = out.get(f"{label} calls", 0) + 1
+
+
+@contextlib.contextmanager
+def moe_routing(cur: dict, log: dict, replay: dict | None = None):
+    """While the block runs, every `moe_apply` call made while
+    `cur["rid"]` names a request appends to `log[rid]` its routing, on
+    the device: the top-k expert indices [G, S, K] and per choice its
+    admitted place, expert * C + position, or -1 where capacity dropped
+    it.  With `replay` (another run's `log`), such a call takes its
+    top-k indices from `replay[rid]`, in order, with their probabilities
+    gathered from its own: the other run's routes, forced.  The module's
+    `top_k` is swapped here only."""
+    import torch
+    from repro_torch.models import moe as MoE
+
+    top_k, pending = MoE.top_k, {}
+
+    def spy_top_k(probs, k):
+        rid = cur["rid"]
+        if rid is None:
+            return top_k(probs, k)
+        calls = log.setdefault(rid, [])
+        if replay is None:
+            vals, idx = top_k(probs, k)
+        else:
+            idx = replay[rid][len(calls)][0]
+            vals = probs.gather(-1, idx)
+        pending["idx"] = idx
+        return vals, idx
+
+    def spy_einsum(spec, *ops):
+        if MOE_SPECS[spec] == "dispatch" and cur["rid"] is not None:
+            idx, disp = pending.pop("idx"), ops[0]
+            c = disp.shape[-1]
+            d = disp.gather(2, idx[..., None].expand(*idx.shape, c))
+            place = torch.where(d.amax(-1) > 0, idx * c + d.argmax(-1), -1)
+            log[cur["rid"]].append((idx, place))
+        return torch.einsum(spec, *ops)
+
+    MoE.top_k = spy_top_k
+    try:
+        with _moe_einsum(spy_einsum):
+            yield
+    finally:
+        MoE.top_k = top_k
+
+
+def _route_flips(a: dict, b: dict, n: int) -> list:
+    """Per request of two runs' `moe_routing` logs: (top-k expert choices
+    that differ, admitted (token, slot, expert, position) choices that
+    differ); (0, 0) for a request with no MoE call."""
+    out = []
+    for rid in range(n):
+        ra, rb = a.get(rid, []), b.get(rid, [])
+        check(len(ra) == len(rb), f"req {rid}: {len(ra)} / {len(rb)} MoE "
+              "calls")
+        out.append((sum(int((x[0] != y[0]).sum()) for x, y in zip(ra, rb)),
+                    sum(int((x[1] != y[1]).sum()) for x, y in zip(ra, rb))))
+    return out
+
+
+def serve_moe() -> dict:
+    """Phase 22: granite-moe-1b-a400m at full width and depth (24 layers
+    of 32 experts, top-8) through `_serve_model` (flash prefill, MoE FFNs
+    in plain torch, the plain path compared token for token, the routing
+    choices that differ counted and the logits held with the kernel
+    path's routes forced, its busy share); then one 4096-token prefill with each MoE contraction timed
+    (`moe_einsum_times`): the one-hot dispatch and combine beside the
+    expert products."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(MOE_ARCH)
+    out = _serve_model(cfg)
+    s = MoE.group_size(cfg)
+    print(f"serve {cfg.name} routing: groups of {s} tokens, capacity "
+          f"{MoE.capacity(s, cfg.n_experts, cfg.top_k)} a (group, expert), "
+          f"{cfg.n_experts} experts, top-{cfg.top_k}")
+    params = TF.init_params(torch.Generator("cuda").manual_seed(SEED), cfg,
+                            device="cuda")
+    toks = torch.tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, SERVE_PROMPTS[0])), device="cuda")
+    with torch.no_grad():
+        times = {}
+        with moe_einsum_times(times):
+            _, t = wall(lambda: TF.prefill(params, toks, cfg,
+                                           max_len=SERVE_MAX_LEN,
+                                           use_flash=True,
+                                           dtype=torch.float32))
+    del params
+    torch.cuda.empty_cache()
+    route = times["dispatch"] + times["combine"]
+    experts = times["experts (gate, up)"] + times["experts (down)"]
+    print(f"serve {cfg.name} MoE contractions in one {SERVE_PROMPTS[0]}-"
+          f"token prefill ({t:.3f} s wall; CUDA events around each einsum, "
+          f"{cfg.n_layers} layers): dispatch {times['dispatch']:.2f} ms + "
+          f"combine {times['combine']:.2f} ms = {route:.2f} ms, expert "
+          f"products {experts:.2f} ms (gate and up "
+          f"{times['experts (gate, up)']:.2f} ms, down "
+          f"{times['experts (down)']:.2f} ms): one-hot routing "
+          f"{route / experts:.2f}x the expert products")
+    check(times["dispatch calls"] == cfg.n_layers,
+          f"{times['dispatch calls']} dispatch contractions, expected "
+          f"{cfg.n_layers}")
+    out["moe_ms"] = {"dispatch": times["dispatch"],
+                     "combine": times["combine"], "experts": experts}
+    return out
+
+
+def train_moe() -> dict:
+    """Phase 23: granite-moe-1b-a400m trained at full width and depth with
+    phase 17's recipe (`Trainer`, bf16 compute, float32 parameters and
+    AdamW moments, remat, accum 2, 2 x 4096 tokens of
+    `SyntheticLM(seed=0)` a step, 3 steps): no hand-written kernel
+    launched (attention trains through the plain path, MoE is plain
+    torch); losses finite, every MoE layer's auxiliary loss finite and in
+    (0, E] in every step; seconds per step, tokens per second, peak
+    memory; one more step under `torch.profiler`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(MOE_ARCH)
+    n_tree = sum(t.numel() for t in _tree_leaves(TF.init_params(
+        torch.Generator(), cfg, device="meta")))
+    auxes = []
+    apply = MoE.moe_apply
+
+    def recorded(p, x, c):
+        out, aux = apply(p, x, c)
+        auxes.append(aux.detach())
+        return out, aux
+
+    MoE.moe_apply = recorded
+    try:
+        run = _train_run(cfg, plain=False)
+    finally:
+        MoE.moe_apply = apply
+    _train_report(cfg, run, n_tree)
+    n = run["launches"]
+    print(f"train path kernels {cfg.name} ({TRAIN_STEPS} steps): "
+          f"{json.dumps(n)}")
+    check(not any(n.values()), f"the MoE training path launched a "
+          f"hand-written kernel: {n}")
+    check(all(math.isfinite(m["loss"]) for m in run["metrics"]),
+          "a loss is not finite")
+    # the forward's calls: remat's recompute stops once it has rebuilt
+    # what the backward needs, before the wrapper records its aux
+    per_step = len(auxes) // TRAIN_STEPS
+    n_moe = sum(s.ffn != "dense" for s in cfg.group_spec()) * (
+        cfg.n_layers // len(cfg.group_spec()))
+    check(per_step * TRAIN_STEPS == len(auxes)
+          and per_step in (n_moe * TRAIN_ACCUM, 2 * n_moe * TRAIN_ACCUM),
+          f"{len(auxes)} MoE calls recorded in {TRAIN_STEPS} steps, "
+          f"expected {n_moe} layers x {TRAIN_ACCUM} microbatches a step "
+          "(twice that with remat's recompute)")
+    vals = torch.stack(auxes).float().cpu().reshape(TRAIN_STEPS, per_step)
+    for i, row in enumerate(vals):
+        print(f"train {cfg.name} step {i} aux: {per_step} MoE calls, per "
+              f"layer {row.min():.6f}-{row.max():.6f} (bound (0, "
+              f"{cfg.n_experts}])")
+        check(bool(torch.isfinite(row).all() and (row > 0).all()
+                   and (row <= cfg.n_experts).all()),
+              f"step {i}: an aux loss outside (0, {cfg.n_experts}]")
+    tr = run["trainer"]
+
+    def one_more():
+        tr.tcfg.steps = TRAIN_STEPS + 1
+        tr.run(start_step=TRAIN_STEPS)
+    busy_share(f"train path {cfg.name} (one step)", one_more,
+               watch=("gemm", "bmm"))
+    del tr, run["trainer"], one_more
+    torch.cuda.empty_cache()
+    return {"launches_train": n, "step_s": run["step_s"]}
+
+
+MAMBA_BWD_TOL = 1e-3         # rtol = atol: the backward vs its plain version
+# (b, t, di, ds, initial state and final state's gradient): jamba's
+# training shape, a ragged 1300 with B = 2 and ds = 8, and a nonzero
+# initial state with a nonzero final-state gradient
+SCAN_BWD_SHAPES = {"jamba 4096": (1, 4096, 16384, 16, False),
+                   "ragged 1300 b2 ds8": (2, 1300, 16384, 8, False),
+                   "from a state": (2, 300, 16384, 16, True)}
+MIXER_TOL = 1e-3             # relative norm gap of each parameter gradient
+
+
+def kernel_mamba_bwd(launches: int) -> dict:
+    """Phase 24: the selective-scan backward kernel against its plain
+    version (`torch.autograd.grad` through the plain step loop) on the
+    card at every `SCAN_BWD_SHAPES` shape, every gradient within rtol =
+    atol = 1e-3 (each max abs printed); its time at jamba's shape (CUDA
+    events, median of 10 calls of `mamba_scan_backward` on the forward's
+    saved chunk states; each of its two CUDA kernels' device time) beside
+    its bound and the plain version's time; then one full-width Jamba
+    Mamba mixer (d_model 8192, d_inner 16384) at T = 4096 in float32:
+    every parameter gradient through the kernels and through the plain
+    scan (its forward step loop with the plain reverse recurrence
+    `ref.mamba_scan_backward` as its gradient), relative norm gap
+    <= 1e-3.  `launches`: the backward's launches on the training path
+    (phase 21's Jamba)."""
+    import torch
+    from repro_torch.kernels.mamba_scan import ops, ref
+
+    def make(shape, seed):
+        b, t, di, ds, with_state = shape
+        g = torch.Generator("cuda").manual_seed(seed)
+
+        def n(*shp):
+            return torch.randn(shp, generator=g, device="cuda")
+        return (0.5 * n(b, t, di),
+                torch.nn.functional.softplus(n(b, t, di) - 1.0),
+                0.5 * n(b, t, ds), 0.5 * n(b, t, ds),
+                -torch.exp(0.3 * n(di, ds)),
+                0.5 * n(b, di, ds) if with_state else None, n(b, t, di),
+                n(b, di, ds) if with_state else None)
+
+    def plain_grads(x, dt, bm, cm, a, h0, dy, dh):
+        ins = [z.clone().requires_grad_() for z in (x, dt, bm, cm, a)]
+        if h0 is not None:
+            ins.append(h0.clone().requires_grad_())
+        y, h = ref.mamba_scan(*ins[:5], h0=None if h0 is None else ins[5])
+        outs, cts = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            cts.append(dh)
+        return torch.autograd.grad(outs, ins, cts)
+
+    worst, times = 0.0, None
+    for i, (label, shape) in enumerate(SCAN_BWD_SHAPES.items()):
+        x, dt, bm, cm, a, h0, dy, dh = make(shape, SEED + 60 + i)
+        _, _, chunks = ops._forward(x, dt, bm, cm, a, h0, None,
+                                    save_chunks=True)
+        got = ops.mamba_scan_backward(x, dt, bm, cm, a, chunks, dy, dh,
+                                      need_h0=h0 is not None)
+        want, plain_s = wall(lambda: plain_grads(x, dt, bm, cm, a, h0, dy,
+                                                 dh))
+        errs = {}
+        for name, g_, w_ in zip(("x", "dt", "B", "C", "A", "h0"), got,
+                                want):
+            diff = (g_ - w_).abs()
+            errs[name] = diff.max().item()
+            check(bool((diff <= MAMBA_BWD_TOL
+                        + MAMBA_BWD_TOL * w_.abs()).all()),
+                  f"mamba_scan_bwd {label}: d{name} beyond rtol = atol = "
+                  f"{MAMBA_BWD_TOL:g} (max abs {errs[name]:.3e})")
+        worst = max(worst, *errs.values())
+        print(f"mamba_scan_bwd {label} {shape}: max abs "
+              + ", ".join(f"d{k} {e:.3e}" for k, e in errs.items())
+              + f"; bound rtol = atol = {MAMBA_BWD_TOL:g}; plain (autograd "
+              f"through the step loop) {plain_s * 1e3:.1f} ms")
+        if i == 0:
+            b_, t_, di_, ds_, _ = shape
+
+            def call():
+                return ops.mamba_scan_backward(x, dt, bm, cm, a, chunks, dy)
+            ms = cuda_ms(call, reps=10)
+            passes = {}
+            for p in ("mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce"):
+                try:
+                    passes[p] = kernel_ms(call, p)
+                except NoProfilerRecord:    # a measurement only
+                    passes[p] = None
+            n_bytes = ops.mamba_scan_bwd_hbm_bytes(b_, t_, di_, ds_)
+            n_ops = ops.mamba_scan_bwd_flops(b_, t_, di_, ds_)
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            print(f"  kernel {ms:.4f} ms (the wrapper call's CUDA-event "
+                  f"time), bound {b_ms:.4f} ms ({b_by}: {n_ops:.4e} "
+                  f"operations at 67 TFLOP/s, {n_bytes / 1e6:.1f} MB at "
+                  f"3.35 TB/s), {ms / b_ms:.2f}x the bound; plain "
+                  f"{plain_s * 1e3:.1f} ms; library none")
+            print("  device time a call by CUDA kernel (torch.profiler, "
+                  "mean of 5 launches): " + ", ".join(
+                      f"{p} " + ("not recorded" if m is None
+                                 else f"{m:.4f} ms")
+                      for p, m in passes.items()))
+            times = {"ms": ms, "ms_source": "cuda_events_call",
+                     "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "pass_ms": passes}
+        del x, dt, bm, cm, a, h0, dy, dh, chunks, got, want
+        torch.cuda.empty_cache()
+    mixer = _mamba_mixer_check()
+    return {"name": "mamba_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/mamba_scan_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:184",
+            "shape": "b 1, t 4096, di 16384, ds 16", "launches": launches,
+            "launches_by_path": {"train jamba (phase 21)": launches},
+            "max_abs_err": worst, "mixer_grad_gap": mixer, **times}
+
+
+def _mamba_mixer_check() -> float:
+    """Phase 24b: one Mamba mixer of jamba-1.5-large at full width
+    (d_model 8192, d_inner 16384, d_state 16), seeded float32 weights, one
+    4096-token input: every parameter's gradient of sum(out * w) through
+    the scan kernel and its backward, and through the plain scan; the
+    largest relative norm gap |g - g_plain| / |g_plain| must be <= 1e-3.
+    Returns it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.models import ssm as SSM
+
+    cfg = get_config("jamba-1.5-large-398b")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    p = SSM.mamba_init(gen, cfg, device="cuda")
+    x = torch.randn((1, SERVE_PROMPTS[0], cfg.d_model), generator=gen,
+                    device="cuda")
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = {}
+    for plain in (False, True):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        saved = scan_ops.mamba_scan
+        reset_counts()
+        if plain:
+            scan_ops.mamba_scan = scan_ref.mamba_scan_with_grad
+        try:
+            out, _ = SSM.mamba_apply(leaves, x, cfg)
+            _, secs = wall(lambda: (out * w).sum().backward())
+        finally:
+            scan_ops.mamba_scan = saved
+        n = read_counts()
+        grads[plain] = {k: v.grad for k, v in leaves.items()}
+        print(f"mamba mixer {cfg.d_model} x {SERVE_PROMPTS[0]} "
+              f"{'plain' if plain else 'kernels'}: backward {secs:.3f} s, "
+              f"mamba_scan {n['mamba_scan']} mamba_scan_bwd "
+              f"{n['mamba_scan_bwd']} launches")
+        check((n["mamba_scan"], n["mamba_scan_bwd"])
+              == ((0, 0) if plain else (1, 1)),
+              f"mixer launches {n['mamba_scan']}, {n['mamba_scan_bwd']}")
+        del leaves, out
+    gaps = {k: float((grads[False][k] - g).norm() / g.norm())
+            for k, g in grads[True].items()}
+    print("mamba mixer gradients, kernels vs plain, relative norm gap: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (bound {MIXER_TOL:g})")
+    check(max(gaps.values()) <= MIXER_TOL, f"mixer gradients differ: {gaps}")
+    del grads, p, x, w
+    torch.cuda.empty_cache()
+    return max(gaps.values())
+
+
 def train_guards() -> None:
-    """Phase 19: the kernels without a backward refuse grad-requiring
-    inputs on the card (flash_attention, mamba_scan), and launch as
-    before under no_grad."""
+    """Phase 19: flash_attention, which has no backward, refuses
+    grad-requiring inputs on the card; mamba_scan, which has its backward
+    kernel, returns outputs with a grad_fn; both launch as before under
+    no_grad."""
     import torch
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
@@ -4245,33 +4732,37 @@ def train_guards() -> None:
     dt = torch.rand((1, 16, 64), device="cuda")
     bm = torch.randn((1, 16, 16), device="cuda")
     a = -torch.rand((64, 16), device="cuda")
-    for name, fn in (("flash_attention",
-                      lambda: flash_ops.flash_attention(q, kv, kv)),
-                     ("mamba_scan",
-                      lambda: scan_ops.mamba_scan(x, dt, bm, bm, a))):
-        try:
-            fn()
-        except NotImplementedError as e:
-            print(f"train guard {name}: NotImplementedError ({e})")
-        else:
-            raise SmokeFailure(f"{name} took grad-requiring inputs")
-        with torch.no_grad():
-            fn()
+    try:
+        flash_ops.flash_attention(q, kv, kv)
+    except NotImplementedError as e:
+        print(f"train guard flash_attention: NotImplementedError ({e})")
+    else:
+        raise SmokeFailure("flash_attention took grad-requiring inputs")
+    y, h = scan_ops.mamba_scan(x, dt, bm, bm, a)
+    check(y.grad_fn is not None and h.grad_fn is not None,
+          "mamba_scan's outputs carry no gradient")
+    print(f"train guard mamba_scan: outputs with grad_fn "
+          f"{type(y.grad_fn).__name__} (the backward kernel)")
+    with torch.no_grad():
+        flash_ops.flash_attention(q, kv, kv)
+        scan_ops.mamba_scan(x, dt, bm, bm, a)
 
 
 # the launchers phase 20 runs, with what each must print: the serving
 # launcher its 4 requests, the training launcher its loss line
 LAUNCHERS = (("serve", SERVE_ARCH), ("serve", "rwkv6-3b"),
-             ("train", TRAIN_ARCH), ("train", SERVE_ARCH))
+             ("serve", "granite-moe-1b-a400m"), ("train", TRAIN_ARCH),
+             ("train", SERVE_ARCH), ("train", "granite-moe-1b-a400m"))
 
 
 def launchers_start() -> list:
     """Phase 20, started: the port's launchers on the card, as a user
     runs them, all at once in the background while the cross-device
     phases run: `python -m repro_torch.launch.serve --arch
-    glm4-9b|rwkv6-3b --device cuda` (reduced, float32, kernel prefill)
-    and `python -m repro_torch.launch.train --arch rwkv6-3b|glm4-9b
-    --device cuda --steps 3` (reduced, float32)."""
+    glm4-9b|rwkv6-3b|granite-moe-1b-a400m --device cuda` (reduced,
+    float32, kernel prefill) and `python -m repro_torch.launch.train
+    --arch rwkv6-3b|glm4-9b|granite-moe-1b-a400m --device cuda --steps 3`
+    (reduced, float32)."""
     import os
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     procs = []
@@ -4310,78 +4801,125 @@ def launchers_finish(procs) -> None:
                   f"the {arch} training launcher printed no loss line")
 
 
-def cross_device_train() -> None:
-    """Phase 21: reduced rwkv6-3b (D = 32) trained 3 steps in float32 on
-    the card (the WKV kernels) and on the CPU (plain versions) from the
-    same weights and batches: losses within 1e-5 relative, grad norms
-    within 1e-5 relative or twice what one float32 ulp of parameter noise
-    moves the CPU's own (`grad_norm_noise`), every parameter within
-    atol 1e-6 + rtol 1e-4."""
+# phase 21's models with their batches (rows, tokens): reduced rwkv6-3b
+# (D = 32), reduced granite with its 32 experts (top-8, capacity below
+# the routing group) and one period of reduced Jamba with its experts (7
+# Mamba layers: the scan kernel and its backward; MoE on every second
+# layer), the last two on 2 x 32 tokens (their CPU side is the phase's
+# cost)
+CROSS_TRAIN = {"rwkv6-3b": ((4, 64), {}),
+               "granite-moe-1b-a400m": ((2, 32), {"n_experts": 32}),
+               "jamba-1.5-large-398b": ((2, 32), {"n_layers": 8})}
+
+
+def cross_device_train() -> dict:
+    """Phase 21: each `CROSS_TRAIN` model trained 3 steps in float32 on
+    the card (the WKV and selective-scan kernels and their backward
+    kernels) and on the CPU (plain versions) from the same weights and
+    batches: losses within 1e-5 relative, grad norms within 1e-5 relative
+    or twice what one float32 ulp of parameter noise moves the CPU's own
+    (`grad_norm_noise`, from the initial weights, measured only where a
+    gap exceeds 1e-5), every parameter within atol 1e-6 + rtol 1e-4.
+    The card's launches are counted per model (reset just before, read
+    just after its 3 steps); returned by model."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_map
     from repro_torch.train.step import TrainConfig, train_step
 
-    cfg = reduced(get_config(TRAIN_ARCH))
-    tcfg = TrainConfig(accum_steps=2, dtype=torch.float32)
-    cpu = TF.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
-    params = {"cpu": cpu, "cuda": _tree_to(cpu, "cuda")}
-    opts = {d: adamw_init(p) for d, p in params.items()}
-    rng = np.random.default_rng(SEED)
-    batches = [rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
-               for _ in range(3)]
+    launches = {}
+    for arch, ((rows, seq), kw) in CROSS_TRAIN.items():
+        cfg = reduced(get_config(arch), **kw)
+        tcfg = TrainConfig(accum_steps=2, dtype=torch.float32)
+        cpu = TF.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        params = {"cpu": cpu, "cuda": _tree_to(cpu, "cuda")}
+        opts = {d: adamw_init(p) for d, p in params.items()}
+        rng = np.random.default_rng(SEED)
+        batches = [rng.integers(0, cfg.vocab_size, (rows, seq + 1)).astype(
+            np.int32) for _ in range(3)]
 
-    def batch(toks, dev):
-        return {"tokens": torch.tensor(toks[:, :-1], device=dev),
-                "targets": torch.tensor(toks[:, 1:], device=dev)}
+        def batch(toks, dev):
+            return {"tokens": torch.tensor(toks[:, :-1], device=dev),
+                    "targets": torch.tensor(toks[:, 1:], device=dev)}
 
-    noise = max(abs(x) for x in grad_norm_noise(
-        cpu, batch(batches[0], "cpu"), cfg, tcfg))
-    gn_bound = max(1e-5, 2 * noise)
-    gaps = {"loss": [], "grad_norm": []}
-    for toks in batches:
-        m = {}
-        for dev in ("cuda", "cpu"):
-            params[dev], opts[dev], m[dev] = train_step(
-                params[dev], opts[dev], batch(toks, dev), cfg, tcfg,
-                inplace=True)
-        for key in gaps:
-            a, b = float(m["cuda"][key]), float(m["cpu"][key])
-            gaps[key].append(abs(a - b) / abs(b))
-    worst = max(((a.cpu() - b).abs() / (1e-6 + 1e-4 * b.abs())).max().item()
-                for a, b in zip(_tree_leaves(params["cuda"]),
-                                _tree_leaves(params["cpu"])))
-    print(f"cross-device train {cfg.name}: loss gaps "
-          f"{[f'{g:.2e}' for g in gaps['loss']]} (bound 1e-5), grad_norm "
-          f"gaps {[f'{g:.2e}' for g in gaps['grad_norm']]} (bound "
-          f"{gn_bound:.2e}: the CPU's own 1-ulp spread {noise:.2e}), "
-          f"parameters at {worst:.3f} of atol 1e-6 + rtol 1e-4")
-    check(max(gaps["loss"]) <= 1e-5, f"card and CPU losses differ: {gaps}")
-    check(max(gaps["grad_norm"]) <= gn_bound,
-          f"card and CPU grad norms differ: {gaps}")
-    check(worst <= 1.0, "card and CPU parameters differ")
+        init = tree_map(torch.clone, cpu)  # for the spread, if needed
+        gaps = {"loss": [], "grad_norm": []}
+        card = {}
+        for toks in batches:
+            m = {}
+            for dev in ("cuda", "cpu"):
+                if dev == "cuda":
+                    reset_counts()
+                params[dev], opts[dev], m[dev] = train_step(
+                    params[dev], opts[dev], batch(toks, dev), cfg, tcfg,
+                    inplace=True)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    for k, v in read_counts().items():
+                        card[k] = card.get(k, 0) + v
+            for key in gaps:
+                a, b = float(m["cuda"][key]), float(m["cpu"][key])
+                gaps[key].append(abs(a - b) / abs(b))
+        worst = max(((a.cpu() - b).abs() / (1e-6 + 1e-4 * b.abs())).max()
+                    .item() for a, b in zip(_tree_leaves(params["cuda"]),
+                                            _tree_leaves(params["cpu"])))
+        used = {k: v for k, v in card.items() if v}
+        # the spread widens the bound only past 1e-5: measured only then
+        if max(gaps["grad_norm"]) > 1e-5:
+            noise = max(abs(x) for x in grad_norm_noise(
+                init, batch(batches[0], "cpu"), cfg, tcfg))
+            spread = f"the CPU's own 1-ulp spread {noise:.2e}"
+        else:
+            noise, spread = 0.0, "every gap within 1e-5: the spread unmeasured"
+        gn_bound = max(1e-5, 2 * noise)
+        print(f"cross-device train {cfg.name}: loss gaps "
+              f"{[f'{g:.2e}' for g in gaps['loss']]} (bound 1e-5), grad_norm"
+              f" gaps {[f'{g:.2e}' for g in gaps['grad_norm']]} (bound "
+              f"{gn_bound:.2e}: {spread}), parameters at {worst:.3f} of atol "
+              f"1e-6 + rtol 1e-4; card kernels {used}")
+        check(max(gaps["loss"]) <= 1e-5, f"{arch}: card and CPU losses "
+              f"differ: {gaps}")
+        check(max(gaps["grad_norm"]) <= gn_bound,
+              f"{arch}: card and CPU grad norms differ: {gaps}")
+        check(worst <= 1.0, f"{arch}: card and CPU parameters differ")
+        layers = _mixer_layers(cfg)
+        want = {"wkv": 2 * 3 * 2 * layers["rwkv6"],
+                "wkv_bwd": 3 * 2 * layers["rwkv6"],
+                "mamba_scan": 2 * 3 * 2 * layers["mamba"],
+                "mamba_scan_bwd": 3 * 2 * layers["mamba"]}
+        check(used == {k: v for k, v in want.items() if v},
+              f"{arch}: the card's training launched {used}, expected "
+              f"{want} (forward and remat recompute, backward, per layer, "
+              "microbatch and step)")
+        launches[arch] = card
+    return launches
+
+
+# phase 12's models, with their experts: reduced granite keeps 32 (its
+# capacity below the routing group), arctic and Jamba `reduced`'s 8
+CROSS_SERVE = {"glm4-9b": {}, "gemma3-12b": {}, "rwkv6-3b": {},
+               "jamba-1.5-large-398b": {},
+               "granite-moe-1b-a400m": {"n_experts": 32},
+               "arctic-480b": {}}
 
 
 def cross_device_serve() -> None:
-    """Phase 12: reduced glm4-9b, gemma3-12b, rwkv6-3b and expert-free
-    jamba served on the card (kernel prefill, the selective scan in
-    decode) and on the CPU (plain versions) from the same seeded
-    weights: `examples/port_serve_batch.py`'s 6 requests, float32,
-    max_len 128; the served tokens must be equal."""
+    """Phase 12: each `CROSS_SERVE` model served on the card (kernel
+    prefill, the selective scan in decode, MoE FFNs in plain torch) and
+    on the CPU (plain versions) from the same seeded weights:
+    `examples/port_serve_batch.py`'s 6 requests, float32, max_len 128;
+    the served tokens must be equal."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import Request, ServeEngine
 
-    no_experts = {"n_experts": 0, "top_k": 0}
-    for arch in ("glm4-9b", "gemma3-12b", "rwkv6-3b",
-                 "jamba-1.5-large-398b"):
-        cfg = reduced(get_config(arch))
-        if cfg.n_experts:
-            cfg = dataclasses.replace(cfg, **no_experts)
+    for arch, kw in CROSS_SERVE.items():
+        cfg = reduced(get_config(arch), **kw)
         cpu = TF.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
         outs = {}
         for dev in ("cuda", "cpu"):
@@ -4395,8 +4933,9 @@ def cross_device_serve() -> None:
                     max_new_tokens=12))
             outs[dev] = {r.rid: r.out for r in eng.run_until_drained()}
         same = sum(outs["cuda"][i] == outs["cpu"][i] for i in range(6))
-        print(f"cross-device serve {cfg.name}: {same} of 6 requests served "
-              "the same tokens on the card (kernels) and the CPU")
+        print(f"cross-device serve {cfg.name} ({cfg.n_experts} experts, "
+              f"top-{cfg.top_k}): {same} of 6 requests served the same "
+              "tokens on the card (kernels) and the CPU")
         check(same == 6, f"{arch}: card and CPU tokens differ")
 
 
@@ -4464,13 +5003,17 @@ def main() -> int:
         k11 = phase(kernel_wkv, phase(serve_rwkv6))
         serve_h = phase(serve_jamba)
         k12 = phase(kernel_mamba, serve_h)
-        k10["launches_by_path"]["serve jamba"] = \
-            serve_h["launches_serve"]["flash_attention"]
-        k10["launches"] += k10["launches_by_path"]["serve jamba"]
+        serve_m = phase(serve_moe)
+        for path, run in (("serve jamba", serve_h), ("serve granite",
+                                                     serve_m)):
+            k10["launches_by_path"][path] = \
+                run["launches_serve"]["flash_attention"]
+            k10["launches"] += k10["launches_by_path"][path]
         train = phase(train_path)
         k11["launches_by_path"]["train"] = train["launches_train"]["wkv"]
         k11["launches"] += k11["launches_by_path"]["train"]
         k13 = phase(kernel_wkv_bwd, train)
+        phase(train_moe)
         phase(train_guards)
         phase(traffic_breakdown, traffic)
         del traffic
@@ -4478,9 +5021,14 @@ def main() -> int:
         phase(cross_device_thermal, phase(cross_device))
         for fn in (cross_device_region, cross_device_fault,
                    cross_device_traffic, cross_device_engine,
-                   cross_device_serve, cross_device_train):
+                   cross_device_serve):
             phase(fn)
+        trained = phase(cross_device_train)["jamba-1.5-large-398b"]
+        k12["launches_by_path"]["train jamba (phase 21)"] = \
+            trained["mamba_scan"]
+        k12["launches"] += trained["mamba_scan"]
         phase(launchers_finish, launchers)
+        k14 = phase(kernel_mamba_bwd, trained["mamba_scan_bwd"])
         print("phase seconds: " + json.dumps(PHASE_SECONDS))
         print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
         print(host_probe())
@@ -4489,7 +5037,8 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(card)
-    kernels = [k1, k2, k3, *k4, k5, k6, k7, k8, k9, k10, k11, k12, k13]
+    kernels = [k1, k2, k3, *k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
+               k14]
     for k in kernels:
         # `ms`: torch.profiler device time, unless the entry says that
         # it is a wrapper call's CUDA-event time

@@ -41,6 +41,7 @@ SOURCES = {
     "wkv": Path("rwkv6") / "wkv.cu",
     "wkv_bwd": Path("rwkv6") / "wkv_bwd.cu",
     "mamba_scan": Path("mamba_scan") / "mamba_scan.cu",
+    "mamba_scan_bwd": Path("mamba_scan") / "mamba_scan_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,2 +1,3 @@
-"""Kernel 6: the Mamba selective scan (`mamba_scan.cu`), its plain
-version (`ref.py`) and wrapper (`ops.py`)."""
+"""Kernel 6: the Mamba selective scan (`mamba_scan.cu`) and its
+backward (`mamba_scan_bwd.cu`), their plain versions (`ref.py`) and
+wrappers (`ops.py`)."""

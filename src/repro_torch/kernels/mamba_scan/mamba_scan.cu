@@ -13,8 +13,11 @@
 // an optional initial state h0 [B, di, ds] (zeros when null); outputs
 // y [B, T, di] and the final state [B, di, ds] (the decode cache's; h0
 // and the final state may be one buffer: each thread reads its own
-// states before it writes them).  No D-skip and no gate, as the TPU
-// kernel.  float32; ds 8 (the reduced configs) or 16.
+// states before it writes them); optionally the state at the start of
+// every tile, h_chunks [ceil(T / steps), B, di, ds] (null: not written),
+// which the backward (mamba_scan_bwd.cu) rebuilds each chunk's states
+// from.  No D-skip and no gate, as the TPU kernel.  float32; ds 8 (the
+// reduced configs) or 16.
 //
 // Bound.  mamba_scan_hbm_bytes = 4 B T (3 di + 2 ds) bytes: at jamba's
 // prefill shape (1, 4096, 16384, 16) 805.8 MB, 0.241 ms at 3.35 TB/s,
@@ -148,15 +151,17 @@ __device__ __forceinline__ void scan_steps(int i, const float* bs,
   }
 }
 
-template <int DS, int P>
+// kSave: the launch writes h_chunks (an instantiation of its own, so
+// that the serve path's launches run the code they ran before it)
+template <int DS, int P, bool kSave>
 __global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __restrict__ x,
                                   const float* __restrict__ dt,
                                   const float* __restrict__ bm,
                                   const float* __restrict__ cm,
                                   const float* __restrict__ a,
                                   const float* h0, float* __restrict__ y,
-                                  float* h_out, int t_len, int di, int steps,
-                                  Strides st) {
+                                  float* h_out, float* __restrict__ h_chunks,
+                                  int t_len, int di, int steps, Strides st) {
   constexpr int NS = DS / P;     // states per thread
   extern __shared__ __align__(16) float sm[];
   const int cpb = blockDim.x / P;              // channels per block
@@ -220,6 +225,11 @@ __global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __
   cp_async_commit();
   for (int t0 = 0, it = 0; t0 < t_len; t0 += steps, ++it) {
     const int n = min(steps, t_len - t0);
+    if (kSave && ok) {                // the state before step t0
+      float* hc = h_chunks + (long long)it * gridDim.y * di * DS + hrow;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) hc[s] = h[s];
+    }
     if (t0 + steps < t_len) stage(t0 + steps, sm + ((it + 1) & 1) * buf);
     cp_async_commit();                // (an empty group on the last tile)
     cp_async_wait_prior_1();          // this tile's copies have landed
@@ -251,14 +261,15 @@ __global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __
 template <int DS, int P>
 int launch(const float* x, const float* dt, const float* bm, const float* cm,
            const float* a, const float* h0, float* y, float* h_out,
-           int batch, int t_len, int di, int channels, int steps,
-           const Strides& st, cudaStream_t stream) {
+           float* h_chunks, int batch, int t_len, int di, int channels,
+           int steps, const Strides& st, cudaStream_t stream) {
   const int threads = channels * P;
   const long long smem = 4LL * steps * (2 * (2LL * DS + 2 * channels)
                                         + channels);
   if (threads > kMaxThreads || threads % 32 != 0 || smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
-  auto kern = mamba_scan_kernel<DS, P>;
+  auto kern = h_chunks != nullptr ? mamba_scan_kernel<DS, P, true>
+                                   : mamba_scan_kernel<DS, P, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -266,19 +277,21 @@ int launch(const float* x, const float* dt, const float* bm, const float* cm,
   }
   dim3 grid((di + channels - 1) / channels, batch);
   kern<<<grid, threads, smem, stream>>>(x, dt, bm, cm, a, h0, y, h_out,
-                                        t_len, di, steps, st);
+                                        h_chunks, t_len, di, steps, st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// h0 may be null (zeros).  team = P threads per channel (2, 4, 8 or 16,
+// h0 may be null (zeros), h_chunks null (not written; else
+// [ceil(t_len / steps), batch, di, ds]).  team = P threads per channel (2, 4, 8 or 16,
 // dividing ds), `channels` per block (channels x team a multiple of 32, at
 // most kMaxThreads), `steps` per staged tile.  Returns the CUDA error of the
 // launch (0 on success).
 extern "C" int mamba_scan_launch(
     const void* x, const void* dt, const void* bm, const void* cm,
-    const void* a, const void* h0, void* y, void* h_out, int batch,
+    const void* a, const void* h0, void* y, void* h_out, void* h_chunks,
+    int batch,
     int t_len, int di, int ds, int team, int channels, int steps,
     long long xb, long long xt, long long db, long long dtt, long long bb,
     long long bt, long long cb, long long ct, long long yb, long long yt,
@@ -291,15 +304,16 @@ extern "C" int mamba_scan_launch(
   const auto* xf = static_cast<const float*>(x);
   const auto* df = static_cast<const float*>(dt);
   const auto* bf = static_cast<const float*>(bm);
-  const auto* cf = static_cast<const float*>(cm);
+  const auto* cmf = static_cast<const float*>(cm);
   const auto* af = static_cast<const float*>(a);
   const auto* hf = static_cast<const float*>(h0);
   auto* yf = static_cast<float*>(y);
   auto* of = static_cast<float*>(h_out);
+  auto* cf = static_cast<float*>(h_chunks);
 #define MAMBA_SCAN_CASE(DS_, P_)                                             \
   if (ds == DS_ && team == P_)                                               \
-    return launch<DS_, P_>(xf, df, bf, cf, af, hf, yf, of, batch, t_len, di, \
-                           channels, steps, st, s);
+    return launch<DS_, P_>(xf, df, bf, cmf, af, hf, yf, of, cf, batch,       \
+                           t_len, di, channels, steps, st, s);
   MAMBA_SCAN_CASE(8, 2)
   MAMBA_SCAN_CASE(8, 4)
   MAMBA_SCAN_CASE(8, 8)

@@ -1,4 +1,4 @@
-"""Wrapper of the selective-scan kernel.
+"""Wrappers of the selective-scan kernel and its backward.
 
 CUDA tensors launch `mamba_scan.cu` (counted in `mamba_scan.launches`);
 CPU tensors run the plain version (`ref.mamba_scan`) — chosen by the
@@ -11,16 +11,25 @@ h0 from the cache.  `scan_plan` picks each launch's team of threads per
 channel, channels per block and steps per staged tile (`SCAN_PLANS`,
 measured on the card); `scan_thread_map` repeats the kernel's index
 arithmetic, so the CPU tests can check that a plan covers every state
-exactly once.  The kernel has no backward: on the card, inputs that
-require grad (with grad enabled) raise NotImplementedError rather than
-give outputs that carry no gradient; the CPU's plain version stays
-differentiable.
+exactly once.
+
+On the card, inputs that require grad (with grad enabled) go through a
+`torch.autograd.Function`: its forward launches the kernel with a tile
+of `chunk()` steps (the backward kernel's chunk) and keeps the state at the start of every tile (the
+kernel's optional `h_chunks` output; the serve path's launches do not
+ask for it), and its backward launches `mamba_scan_bwd.cu`
+(`mamba_scan_backward`, counted in `mamba_scan_backward.launches`, one
+per call; a call runs two CUDA kernels: the reverse scan with per-block
+partial sums of dB and dC, then their sums over the blocks), which
+returns the gradients of x, dt, B, C, A and, when a state was passed
+in, of h0.  On the CPU autograd differentiates the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -104,10 +113,29 @@ def scan_thread_map(plan: ScanPlan, b: int, di: int, ds: int):
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("mamba_scan")
-    lib.mamba_scan_launch.argtypes = [ctypes.c_void_p] * 8 \
+    lib.mamba_scan_launch.argtypes = [ctypes.c_void_p] * 9 \
         + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
     lib.mamba_scan_launch.restype = ctypes.c_int
     return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("mamba_scan_bwd")
+    lib.mamba_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 16 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.mamba_scan_bwd_launch.restype = ctypes.c_int
+    lib.mamba_scan_bwd_blocks.argtypes = [ctypes.c_int]
+    lib.mamba_scan_bwd_blocks.restype = ctypes.c_int
+    lib.mamba_scan_bwd_chunk.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def chunk() -> int:
+    """Steps between the states the backward reads: the backward
+    kernel's own spacing (`mamba_scan_bwd_chunk`), which the forward's
+    tile takes when it saves them.  Builds the kernels on first use."""
+    return _bwd_lib().mamba_scan_bwd_chunk()
 
 
 def _check(x, dt, bmat, cmat, a, h0) -> None:
@@ -127,30 +155,21 @@ def _check(x, dt, bmat, cmat, a, h0) -> None:
                          f"{tuple(h0.shape)}")
 
 
-def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
-               cmat: torch.Tensor, a: torch.Tensor,
-               h0: torch.Tensor | None = None, plan: ScanPlan | None = None):
-    """x, dt: [B, T, di]; bmat, cmat: [B, T, ds]; a: [di, ds]; h0
-    [B, di, ds] or None (zeros) -> (y [B, T, di], final state [B, di, ds]),
-    float32.  No D-skip, no gate.  `plan` overrides `scan_plan` (the card
-    only)."""
-    _check(x, dt, bmat, cmat, a, h0)
-    xs = [x, dt, bmat, cmat, a] + ([] if h0 is None else [h0])
+def _cuda_inputs(name: str, xs) -> None:
     devs = {t.device for t in xs}
-    if devs == {torch.device("cpu")}:
-        return ref.mamba_scan(x, dt, bmat, cmat, a, h0=h0)
-    if len(devs) != 1 or x.device.type != "cuda":
-        raise ValueError(f"mamba_scan: every input must lie on one CUDA "
-                         f"device, got {sorted(str(d) for d in devs)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
-        raise NotImplementedError(
-            "mamba_scan: the kernel has no backward yet, and its outputs "
-            "would carry no gradient (ROADMAP queue A, \"LLM scaffold, what "
-            "PR 16-17 left\": a mamba_scan backward kernel, for training "
-            "the Jamba family); call it under torch.no_grad()")
+    if len(devs) != 1 or xs[0].device.type != "cuda":
+        raise ValueError(f"{name}: every input must lie on one CUDA device, "
+                         f"got {sorted(str(d) for d in devs)}")
     if any(t.dtype != torch.float32 for t in xs):
-        raise ValueError(f"mamba_scan: float32 inputs only, got "
+        raise ValueError(f"{name}: float32 inputs only, got "
                          f"{sorted({str(t.dtype) for t in xs})}")
+
+
+def _forward(x, dt, bmat, cmat, a, h0, plan: ScanPlan | None,
+             save_chunks: bool = False):
+    """Launch the forward kernel: (y, final state, and with `save_chunks`
+    the state at the start of every `chunk()` steps [ceil(T / chunk()),
+    B, di, ds], else None)."""
     b, t, di = x.shape
     ds = bmat.shape[-1]
     if ds not in STATE_DIMS:
@@ -161,25 +180,128 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     if h0 is not None:
         h0 = h0.contiguous()
     plan = plan or scan_plan(t, ds)
+    if save_chunks:              # the saved states' spacing is the tile's
+        plan = dataclasses.replace(plan, steps=min(chunk(), t))
     check_plan(plan, ds)
     y = torch.empty((b, t, di), dtype=torch.float32, device=x.device)
     h_out = torch.empty((b, di, ds), dtype=torch.float32, device=x.device)
+    chunks = (torch.empty((-(-t // chunk()), b, di, ds), dtype=torch.float32,
+                          device=x.device) if save_chunks else None)
     strides = [s for z in (x, dt, bmat, cmat, y) for s in z.stride()[:2]]
     with torch.cuda.device(x.device):
         rc = _lib().mamba_scan_launch(
             x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
             a.data_ptr(), None if h0 is None else h0.data_ptr(),
             y.data_ptr(), h_out.data_ptr(),
+            None if chunks is None else chunks.data_ptr(),
             b, t, di, ds, plan.team, plan.channels, plan.steps, *strides,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan: kernel launch failed (CUDA error "
                            f"{rc})")
     mamba_scan.launches += 1
+    return y, h_out, chunks
+
+
+class _Scan(torch.autograd.Function):
+    """The scan kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bmat, cmat, a, h0, plan):
+        y, h_out, chunks = _forward(x, dt, bmat, cmat, a, h0, plan,
+                                    save_chunks=True)
+        ctx.save_for_backward(x, dt, bmat, cmat, a, chunks)
+        ctx.has_h0 = h0 is not None
+        ctx.set_materialize_grads(False)
+        return y, h_out
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, bmat, cmat, a, chunks = ctx.saved_tensors
+        if dy is None:                   # only the final state was used
+            dy = torch.zeros_like(x)
+        grads = mamba_scan_backward(x, dt, bmat, cmat, a, chunks, dy, dh,
+                                    need_h0=ctx.has_h0)
+        return (*grads, None)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, a: torch.Tensor,
+               h0: torch.Tensor | None = None, plan: ScanPlan | None = None):
+    """x, dt: [B, T, di]; bmat, cmat: [B, T, ds]; a: [di, ds]; h0
+    [B, di, ds] or None (zeros) -> (y [B, T, di], final state [B, di, ds]),
+    float32.  No D-skip, no gate.  Differentiable on both devices.
+    `plan` overrides `scan_plan` (the card only; with grad, its tile is
+    `chunk()` steps)."""
+    _check(x, dt, bmat, cmat, a, h0)
+    xs = [x, dt, bmat, cmat, a] + ([] if h0 is None else [h0])
+    if {t.device for t in xs} == {torch.device("cpu")}:
+        return ref.mamba_scan(x, dt, bmat, cmat, a, h0=h0)
+    _cuda_inputs("mamba_scan", xs)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        return _Scan.apply(x, dt, bmat, cmat, a, h0, plan)
+    y, h_out, _ = _forward(x, dt, bmat, cmat, a, h0, plan)
     return y, h_out
 
 
 mamba_scan.launches = 0
+
+
+def mamba_scan_backward(x, dt, bmat, cmat, a, h_chunks, dy, dh=None,
+                        need_h0: bool = False):
+    """The backward kernel on CUDA tensors: x, dt and the output's
+    gradient dy [B, T, di], bmat, cmat [B, T, ds], a [di, ds], the
+    forward's states at the start of every `chunk()` steps `h_chunks`
+    [ceil(T / chunk()), B, di, ds] and the final state's gradient dh
+    [B, di, ds] or None (zeros) -> (dx, ddt [B, T, di], dB, dC [B, T,
+    ds], dA [di, ds], dh0 [B, di, ds] or None unless `need_h0`)."""
+    _check(x, dt, bmat, cmat, a, dh)
+    b, t, di = x.shape
+    ds = bmat.shape[-1]
+    given = [] if dh is None else [dh]
+    _cuda_inputs("mamba_scan_backward", [x, dt, bmat, cmat, a, h_chunks, dy]
+                 + given)
+    if ds not in STATE_DIMS:
+        raise ValueError(f"mamba_scan_backward: state dim {ds} not in "
+                         f"{STATE_DIMS}")
+    if tuple(dy.shape) != (b, t, di) or tuple(h_chunks.shape) != (
+            -(-t // chunk()), b, di, ds):
+        raise ValueError(f"mamba_scan_backward: dy {tuple(dy.shape)} or the "
+                         f"chunk states {tuple(h_chunks.shape)} do not match "
+                         f"x {tuple(x.shape)} and ds {ds}")
+    lib = _bwd_lib()
+    x, dt, bmat, cmat, a, h_chunks, dy = (z.contiguous() for z in (
+        x, dt, bmat, cmat, a, h_chunks, dy))
+    if dh is not None:
+        dh = dh.contiguous()
+    dev = x.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dx, ddt = empty(b, t, di), empty(b, t, di)
+    db, dc = empty(b, t, ds), empty(b, t, ds)
+    da = empty(di, ds)
+    dh0 = empty(b, di, ds) if need_h0 else None
+    blocks = lib.mamba_scan_bwd_blocks(di)
+    part, da_part = empty(blocks, b, t, 2 * ds), empty(b, di, ds)
+
+    def ptr(z):
+        return None if z is None else z.data_ptr()
+    with torch.cuda.device(dev):
+        rc = lib.mamba_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+            a.data_ptr(), h_chunks.data_ptr(), dy.data_ptr(), ptr(dh),
+            dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            da.data_ptr(), ptr(dh0), part.data_ptr(), da_part.data_ptr(),
+            b, t, di, ds, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan_backward: kernel launch failed (CUDA "
+                           f"error {rc})")
+    mamba_scan_backward.launches += 1
+    return dx, ddt, db, dc, da, dh0
+
+
+mamba_scan_backward.launches = 0
 
 
 def mamba_scan_hbm_bytes(b, t, di, ds, itemsize=4) -> int:
@@ -200,3 +322,24 @@ def mamba_scan_flops(b, t, di, ds) -> int:
     element dt * A, its exp, the B product, the state's multiply and add
     and the C product and sum."""
     return b * t * di * (1 + 7 * ds)
+
+
+def mamba_scan_bwd_flops(b, t, di, ds) -> int:
+    """Operations of the backward per call: per state and step the
+    state rebuilt as the forward computes it (dt * A, its exp, the B
+    product, the decay product and the sum: 5), G (2), the dC and dB
+    terms with their sums over the channels (4), G B with its sum over
+    the states (2), q = G a h_{t-1} (2), q A with its sum (2), dA (2) and
+    a G (1): 20; per channel and step dt * x, dx and ddt (4)."""
+    return b * t * di * (20 * ds + 4)
+
+
+def mamba_scan_bwd_hbm_bytes(b, t, di, ds, h0: bool = False,
+                             d_state: bool = False, itemsize=4) -> int:
+    """Bytes a backward call must move: x, dt, dy [B, T, di] and B, C
+    [B, T, ds] read once, A read once, dx, ddt, dB, dC and dA written
+    once; with `h0` the initial state read and its gradient written, with
+    `d_state` the final state's gradient read."""
+    state = b * di * ds
+    return itemsize * (5 * b * t * di + 4 * b * t * ds + 2 * di * ds
+                       + state * (2 * int(h0) + int(d_state)))

@@ -9,9 +9,8 @@ engine on a reduced config in float32, as the reference's launcher
 `--device` defaults to cuda (no card: it raises; pass `--device cpu`
 for the plain PyTorch versions).  On the card every prefill goes through
 the flash attention kernel (attention layers), the WKV kernel (RWKV6,
-e.g. `--arch rwkv6-3b`) and the selective-scan kernel (Mamba).  Configs
-with MoE FFNs (granite, arctic, jamba) raise: `models/moe.py` is not
-ported.
+e.g. `--arch rwkv6-3b`) and the selective-scan kernel (Mamba); MoE FFNs
+(granite, arctic, jamba) run in plain torch on either device.
 """
 
 from __future__ import annotations

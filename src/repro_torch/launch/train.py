@@ -8,10 +8,10 @@ Runs a reduced config (`--full-config` for the full architecture) in
 float32 through `Trainer` on one device; `--device` defaults to cuda (no
 card: it raises; pass `--device cpu` for the plain PyTorch versions).
 On the card every RWKV6 layer trains through the WKV kernel and its
-backward kernel; attention trains through the plain attention.  Mamba
-layers raise on the card (the selective-scan kernel has no backward),
-MoE configs raise everywhere (`models/moe.py` is not ported), and so do
-`--mesh pod|multipod`.  Prints the reference's loss line.
+backward kernel, every Mamba layer through the selective-scan kernel
+and its backward kernel; attention trains through the plain attention
+and MoE FFNs (granite, arctic, jamba) in plain torch.  `--mesh
+pod|multipod` raises.  Prints the reference's loss line.
 """
 
 from __future__ import annotations

@@ -1,2 +1,3 @@
 """Decoder-LM layers and assembly of the port (`repro.models`):
-attention, RMSNorm, RoPE, SwiGLU and the transformer entry points."""
+attention, RMSNorm, RoPE, SwiGLU, the RWKV6 and Mamba mixers, the MoE
+FFN and the transformer entry points."""

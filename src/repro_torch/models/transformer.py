@@ -10,9 +10,10 @@ a Python loop over the R stacked layers of each stage.
 Params keep the reference's tree: `stage` leaves are stacked [R, ...],
 as are the cache leaves (K/V [R, B, S, Hkv, Dh]; Mamba {conv, h}; RWKV6
 {x_prev, wkv}), so `repro_torch.convert.model_params` carries the
-reference's params across one to one.  Attention, Mamba and RWKV6
-mixers with dense FFNs are ported; MoE FFNs raise NotImplementedError
-(ROADMAP queue A, "LLM scaffold, what PR 16-17 left").
+reference's params across one to one.  Every mixer (attention, Mamba,
+RWKV6) and every FFN (dense, MoE, MoE with a dense residual) of the
+reference is ported; a MoE layer's auxiliary load-balancing loss is
+summed over the layers into `apply`'s `aux`.
 """
 
 from __future__ import annotations
@@ -26,17 +27,10 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
-
-
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.ffn != "dense":
-        raise NotImplementedError(
-            f"layer {spec}: only dense FFNs are ported; MoE FFNs "
-            "(models/moe.py) wait for ROADMAP queue A, \"LLM scaffold, "
-            "what PR 16-17 left\"")
 
 
 def _tree_map(fn, tree):
@@ -48,14 +42,20 @@ def _tree_map(fn, tree):
 # ------------------------------------------------------------------- init
 def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, lead=(), *,
                device) -> Params:
-    _check_spec(spec)
-    init = {"mamba": SSM.mamba_init,
-            "rwkv6": SSM.rwkv6_init}.get(spec.mixer, L.attention_init)
+    init = {"attn": L.attention_init, "attn_local": L.attention_init,
+            "mamba": SSM.mamba_init, "rwkv6": SSM.rwkv6_init}
+    if spec.mixer not in init or spec.ffn not in ("dense", "moe",
+                                                   "moe_dense"):
+        raise ValueError(f"init_layer: unknown layer {spec}")
+    mixer = init[spec.mixer](gen, cfg, lead, device=device)
+    if spec.ffn == "dense":
+        ffn = L.mlp_init(gen, cfg.d_model, cfg.d_ff, lead, device=device)
+    else:
+        ffn = MoE.moe_init(gen, cfg, spec.ffn == "moe_dense", lead,
+                           device=device)
     return {"norm1": L.rmsnorm_init(cfg.d_model, lead, device=device),
             "norm2": L.rmsnorm_init(cfg.d_model, lead, device=device),
-            "mixer": init(gen, cfg, lead, device=device),
-            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, lead,
-                              device=device)}
+            "mixer": mixer, "ffn": ffn}
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -117,7 +117,6 @@ def _mixer_apply(p, x, cfg, spec: LayerSpec, positions, cache, mode,
     """The layer's mixer.  Attention in prefill mode projects Q/K/V once
     and K/V also fill the decode cache (the reference projects them
     twice, with the same result)."""
-    _check_spec(spec)
     if spec.mixer in ("mamba", "rwkv6"):
         return _ssm_apply(p, x, cfg, spec, cache, mode)
     local = spec.mixer == "attn_local"
@@ -139,8 +138,12 @@ def layer_apply(p: Params, x, cfg, spec: LayerSpec, positions, cache, mode,
                                 L.rmsnorm(p["norm1"], x, cfg.norm_eps),
                                 cfg, spec, positions, cache, mode, use_flash)
     x = x + h
-    f = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x + f, new_cache, 0.0
+    hn = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == "dense":
+        f, aux = L.mlp_apply(p["ffn"], hn), 0.0
+    else:
+        f, aux = MoE.moe_apply(p["ffn"], hn, cfg)
+    return x + f, new_cache, aux
 
 
 # ------------------------------------------------------------- stage loop
@@ -244,7 +247,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     repeats = cfg.n_layers // len(group)
 
     def one(spec: LayerSpec):
-        _check_spec(spec)
         if spec.mixer == "mamba":
             di = cfg.expand * cfg.d_model
             return {"conv": torch.zeros((repeats, batch, cfg.d_conv - 1, di),

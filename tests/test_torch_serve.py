@@ -38,7 +38,7 @@ from repro.serve.engine import Request as RefRequest
 from repro.serve.engine import ServeEngine as RefEngine
 from repro_torch import convert
 from repro_torch.configs import ARCHS, get_config, input_shapes
-from repro_torch.configs.base import reduced
+from repro_torch.configs.base import LayerSpec, reduced
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
@@ -306,11 +306,23 @@ def test_prefill_decode_apply_match_the_reference(arch, s):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "arctic-480b",
                                   "jamba-1.5-large-398b"])
 def test_unported_mixers_and_ffns_raise(arch):
+    """No mixer or FFN of the reference is left unported: the MoE configs
+    build their parameters (the reference's tree of shapes) and caches;
+    a mixer or FFN kind the reference does not have raises, as in the
+    reference."""
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="LLM scaffold"):
-        TF.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="LLM scaffold"):
-        TF.init_cache(cfg, 1, 16, device="cpu")
+    ref = jax.eval_shape(lambda: RTF.init_params(
+        jax.random.PRNGKey(0), ref_reduced(ref_get_config(arch))))
+    params = TF.init_params(torch.Generator(), cfg, device="meta")
+    assert jax.tree.structure(ref) == jax.tree.structure(
+        jax.tree.map(lambda t: 0, params, is_leaf=torch.is_tensor))
+    for (path, r), t in zip(jax.tree_util.tree_leaves_with_path(ref),
+                            jax.tree.leaves(params, is_leaf=torch.is_tensor)):
+        assert tuple(t.shape) == tuple(r.shape), path
+    TF.init_cache(cfg, 1, 16, device="cpu")
+    for spec in (LayerSpec("s4", "dense"), LayerSpec("attn", "sparse")):
+        with pytest.raises(ValueError, match="unknown layer"):
+            TF.init_layer(torch.Generator(), spec, cfg, device="meta")
 
 
 def test_init_params_matches_the_reference_tree_and_scales():

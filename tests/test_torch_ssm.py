@@ -301,7 +301,19 @@ def test_init_cache_matches_the_reference_tree():
 
 
 def test_moe_ffns_still_raise():
+    """Jamba with its experts builds (MoE on every second layer, since
+    models/moe.py is ported); what MoE still refuses is a top-k beyond
+    its experts."""
     cfg = reduced(get_config("jamba-1.5-large-398b"))
     assert cfg.n_experts > 0
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TF.init_params(torch.Generator(), cfg, device="cpu")
+    params = TF.init_params(torch.Generator(), cfg, device="meta")
+    ffns = [sorted(params["stage"][f"l{i}"]["ffn"]) for i in range(8)]
+    assert ffns[0] == ["w_down", "w_gate", "w_up"]
+    assert ffns[1] == ["router", "w_down", "w_gate", "w_up"]
+    bad = dataclasses.replace(cfg, top_k=cfg.n_experts + 1)
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    p = TF.init_params(torch.Generator().manual_seed(0),
+                       dataclasses.replace(cfg, n_layers=8), device="cpu")
+    with pytest.raises(ValueError, match="top_k"):
+        TF.apply(p, tok, dataclasses.replace(bad, n_layers=8),
+                 dtype=torch.float32)

@@ -47,16 +47,22 @@ from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 REL = 1e-5
 NO_EXPERTS = {"n_experts": 0, "top_k": 0}
-# tests/test_train.py's tiny glm4; the others at `reduced`'s defaults
+# tests/test_train.py's tiny glm4; the others at `reduced`'s defaults;
+# "jamba-1.5-large-398b" is the expert-free Jamba, its experts kept
+# under "+experts" (one 8-layer period), and granite keeps its 32
+# experts (tests/test_torch_moe.py)
 ARCHS = {"glm4-9b": dict(n_layers=2, d_model=64, n_heads=2, d_ff=128,
                          vocab=128),
-         "rwkv6-3b": {}, "jamba-1.5-large-398b": {}}
+         "rwkv6-3b": {}, "jamba-1.5-large-398b": {},
+         "granite-moe-1b-a400m": {"n_experts": 32}, "arctic-480b": {},
+         "jamba-1.5-large-398b+experts": {"n_layers": 8}}
 
 
 def _cfgs(arch):
-    ref = ref_reduced(ref_get_config(arch), **ARCHS[arch])
-    port = reduced(get_config(arch), **ARCHS[arch])
-    if ref.n_experts:
+    name = arch.partition("+")[0]
+    ref = ref_reduced(ref_get_config(name), **ARCHS[arch])
+    port = reduced(get_config(name), **ARCHS[arch])
+    if arch == "jamba-1.5-large-398b":
         ref = dataclasses.replace(ref, **NO_EXPERTS)
         port = dataclasses.replace(port, **NO_EXPERTS)
     return ref, port
@@ -487,9 +493,11 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="sharding"):
         train_step(p, adamw_init(p), _batch(_tokens(cfg, 0), True), pcfg,
                    TrainConfig(dtype=torch.float32), grad_shardings={})
+    # MoE configs train since models/moe.py is ported: no refusal left
     moe = reduced(get_config("granite-moe-1b-a400m"))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Trainer(moe, TrainerConfig(steps=1), device="cpu")
+    trainer = Trainer(moe, TrainerConfig(steps=1, global_batch=2,
+                                         seq_len=16), device="cpu")
+    assert trainer.params["stage"]["l0"]["ffn"]["router"].shape[-1] == 8
 
 
 def test_entry_points_default_to_the_card():

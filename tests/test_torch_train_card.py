@@ -1,6 +1,8 @@
-"""The port's training half on the card: the WKV backward kernel against
-its plain version, the guards of the two kernels that have no backward,
-and one reduced `train_step` on the card against the CPU.  This file
+"""The port's training half on the card: the WKV and selective-scan
+backward kernels against their plain versions, flash attention's guard
+(it has no backward), and reduced `train_step`s on the card against the
+CPU (rwkv6-3b; Jamba with its experts, whose Mamba layers train through
+both scan kernels).  This file
 imports neither JAX nor the reference package, so it runs on a machine
 that has only PyTorch:
 
@@ -25,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.models import transformer as TF
@@ -113,8 +116,9 @@ def test_wkv_backward_refuses_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """flash_attention and mamba_scan raise on grad-requiring CUDA inputs
-    rather than return outputs that carry no gradient; under no_grad they
+    """flash_attention raises on grad-requiring CUDA inputs rather than
+    return an output that carries no gradient; mamba_scan, which has its
+    backward kernel, returns outputs with a grad_fn; under no_grad both
     launch as before."""
     q = torch.randn((1, 64, 4, 64), device=cuda, requires_grad=True)
     kv = torch.randn((1, 64, 2, 64), device=cuda)
@@ -124,8 +128,8 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
     dt = torch.rand((1, 16, 32), device=cuda)
     bm = torch.randn((1, 16, 16), device=cuda)
     a = -torch.rand((32, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        scan_ops.mamba_scan(x, dt, bm, bm, a)
+    y, h = scan_ops.mamba_scan(x, dt, bm, bm, a)
+    assert y.grad_fn is not None and h.grad_fn is not None
     with torch.no_grad():
         f0, m0 = flash_ops.flash_attention.launches, \
             scan_ops.mamba_scan.launches
@@ -133,6 +137,101 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
         scan_ops.mamba_scan(x, dt, bm, bm, a)
         assert flash_ops.flash_attention.launches == f0 + 1
         assert scan_ops.mamba_scan.launches == m0 + 1
+
+
+SCAN_BWD_CASES = [
+    # b, t, di, ds, initial state and final state's gradient
+    (1, 64, 256, 16, False),        # one chunk
+    (2, 200, 300, 16, False),       # ragged T and di, B > 1
+    (1, 1, 64, 16, True),           # one step
+    (2, 130, 96, 8, True),          # ds 8, from a state, ragged
+    (1, 300, 128, 16, True),        # several chunks, from a state
+    (2, 77, 40, 8, False),          # ds 8, di below a block
+]
+
+
+def _scan_inputs(b, t, di, ds, device, seed, state):
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g)
+    x = 0.5 * n(b, t, di)
+    dt = torch.nn.functional.softplus(n(b, t, di) - 1.0)
+    bm, cm = 0.5 * n(b, t, ds), 0.5 * n(b, t, ds)
+    a = -torch.exp(0.3 * n(di, ds))
+    h0 = 0.5 * n(b, di, ds) if state else None
+    dy = n(b, t, di)
+    dh = n(b, di, ds) if state else None
+    return [None if z is None else z.to(device)
+            for z in (x, dt, bm, cm, a, h0, dy, dh)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+def test_mamba_scan_backward_kernel_matches_plain(cuda, case):
+    """Autograd through `ops.mamba_scan` on the card (the forward kernel
+    saving its chunk states, then the backward kernel, one launch each)
+    against `ref.mamba_scan_backward` on the same inputs, and a rerun
+    bitwise the same."""
+    b, t, di, ds, state = case
+    x, dt, bm, cm, a, h0, dy, dh = _scan_inputs(b, t, di, ds, cuda, 11,
+                                                state)
+    runs = []
+    for _ in range(2):
+        xs = [z.clone().requires_grad_() for z in (x, dt, bm, cm, a)]
+        h0_t = None if h0 is None else h0.clone().requires_grad_()
+        f0 = scan_ops.mamba_scan.launches
+        b0 = scan_ops.mamba_scan_backward.launches
+        y, h = scan_ops.mamba_scan(*xs, h0=h0_t)
+        outs, cts = [y], [dy]
+        if state:
+            outs.append(h)
+            cts.append(dh)
+        runs.append(torch.autograd.grad(
+            outs, xs + ([h0_t] if state else []), cts))
+        torch.cuda.synchronize()
+        assert scan_ops.mamba_scan.launches == f0 + 1
+        assert scan_ops.mamba_scan_backward.launches == b0 + 1
+    want = scan_ref.mamba_scan_backward(x, dt, bm, cm, a, dy, h0=h0, dh=dh)
+    names = ["x", "dt", "B", "C", "A", "h0"]
+    for name, g, g2, wnt in zip(names, runs[0], runs[1], want):
+        err = (g - wnt).abs().max().item()
+        print(f"{case} d{name}: max abs {err:.3e}")
+        assert torch.equal(g, g2), f"{case} d{name}: a rerun differs"
+        torch.testing.assert_close(g, wnt, rtol=TOL, atol=TOL,
+                                   msg=f"{case} d{name}")
+
+
+@pytest.mark.gpu
+def test_mamba_scan_saved_states_leave_the_forward_bitwise(cuda):
+    """The forward with its chunk states asked for (the grad path, tiles
+    of 64 steps) gives the serve path's outputs bit for bit, and its
+    saved states are the plain step loop's at every 64th step."""
+    x, dt, bm, cm, a, h0, _, _ = _scan_inputs(2, 200, 300, 16, cuda, 3, True)
+    y0, h_0 = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0)
+    y1, h_1, chunks = scan_ops._forward(x, dt, bm, cm, a, h0, None,
+                                        save_chunks=True)
+    assert torch.equal(y0, y1) and torch.equal(h_0, h_1)
+    assert tuple(chunks.shape) == (4, 2, 300, 16)
+    assert torch.equal(chunks[0], h0)
+    _, h64 = scan_ops.mamba_scan(x[:, :64], dt[:, :64], bm[:, :64],
+                                 cm[:, :64], a, h0=h0)
+    assert torch.equal(chunks[1], h64)
+
+
+@pytest.mark.gpu
+def test_mamba_scan_backward_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, bm, cm, a, _, dy, _ = _scan_inputs(1, 70, 64, 16, cuda, 0, False)
+    chunks = torch.zeros((2, 1, 64, 16), device=cuda)
+    before = scan_ops.mamba_scan_backward.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        scan_ops.mamba_scan_backward(x, dt, bm, cm, a, chunks, dy.cpu())
+    with pytest.raises(ValueError, match="chunk"):
+        scan_ops.mamba_scan_backward(x, dt, bm, cm, a, chunks[:1], dy)
+    with pytest.raises(ValueError, match="state dim"):
+        scan_ops.mamba_scan_backward(x, dt, bm[..., :4], cm[..., :4],
+                                     a[:, :4], chunks[..., :4], dy)
+    assert scan_ops.mamba_scan_backward.launches == before
 
 
 def _tree(tree, fn):
@@ -158,13 +257,11 @@ def _grad_norm_noise(params, batch, cfg, tcfg, seeds=(100, 101, 102)):
     return worst
 
 
-@pytest.mark.gpu
-def test_train_step_on_the_card_matches_the_cpu(cuda):
-    """Three float32 steps of reduced rwkv6-3b (D = 32, accum 2, remat)
-    on the card, through the WKV kernels, and on the CPU through the
-    plain versions, from the same weights and batches."""
+def _card_vs_cpu(cfg, cuda):
+    """Three float32 steps (accum 2, remat) of `cfg` on the card and on
+    the CPU from the same weights and batches, held to the file's
+    bounds."""
     assert not torch.backends.cuda.matmul.allow_tf32
-    cfg = reduced(get_config("rwkv6-3b"))
     tcfg = TrainConfig(accum_steps=2, dtype=torch.float32)
     cpu = TF.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     card = _tree(cpu, lambda t: t.to(cuda))
@@ -180,7 +277,6 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
 
     noise = _grad_norm_noise(cpu, batch(batches[0], "cpu"), cfg, tcfg)
     bound = {"loss": 1e-5, "lr": 1e-5, "grad_norm": max(1e-5, 2 * noise)}
-    b0 = wkv_ops.wkv_backward.launches
     for step, toks in enumerate(batches):
         metrics = {}
         for dev in ("cuda", "cpu"):
@@ -191,9 +287,31 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
             a, b = float(metrics["cuda"][key]), float(metrics["cpu"][key])
             print(f"step {step} {key}: card {a:.7g} cpu {b:.7g}")
             assert abs(a - b) <= tol * abs(b), (step, key, a, b, tol)
-    assert wkv_ops.wkv_backward.launches == b0 + 3 * 2 * cfg.n_layers
     flat = []
     _tree({"a": params["cuda"], "b": params["cpu"]}, flat.append)
     n = len(flat) // 2
     for a, b in zip(flat[:n], flat[n:]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three float32 steps of reduced rwkv6-3b (D = 32, accum 2, remat)
+    on the card, through the WKV kernels, and on the CPU through the
+    plain versions, from the same weights and batches."""
+    cfg = reduced(get_config("rwkv6-3b"))
+    b0 = wkv_ops.wkv_backward.launches
+    _card_vs_cpu(cfg, cuda)
+    assert wkv_ops.wkv_backward.launches == b0 + 3 * 2 * cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_jamba_train_step_on_the_card_matches_the_cpu(cuda):
+    """The same for reduced Jamba with its experts (one 8-layer period:
+    7 Mamba layers through the scan kernel and its backward, MoE on every
+    second layer)."""
+    cfg = reduced(get_config("jamba-1.5-large-398b"), n_layers=8)
+    assert cfg.n_experts
+    b0 = scan_ops.mamba_scan_backward.launches
+    _card_vs_cpu(cfg, cuda)
+    assert scan_ops.mamba_scan_backward.launches == b0 + 3 * 2 * 7

@@ -6,9 +6,9 @@ NVIDIA card, and the selective scan's launch plans side by side.
     python3 -m benchmarks.port_kernel_redesign --plans
 
 `--parent DIR` builds those of DIR's `replay/replay.cu`,
-`replay/adaptive.cu`, `mamba_scan/mamba_scan.cu` and `rwkv6/wkv_bwd.cu`
-whose source or headers (`*.cuh` beside it) differ from this
-checkout's, with the same `nvcc` flags, calls both builds on the same
+`replay/adaptive.cu`, `mamba_scan/mamba_scan.cu`, `rwkv6/wkv_bwd.cu`
+and `mamba_scan/mamba_scan_bwd.cu` whose source or headers (`*.cuh`
+beside it) differ from this checkout's, with the same `nvcc` flags, calls both builds on the same
 inputs through their C interfaces, and counts the output elements that
 differ bit for bit.
 DIR is the parent's kernels, or a variant of this checkout's (a build
@@ -36,6 +36,15 @@ older one the per-bank flag), for an A/B of two designs in one run:
 - wkv_bwd at every `chip_smoke.WKV_BWD_SHAPES` entry: each gradient's
   max abs against the plain version for both builds (a variant may sum
   in another order);
+- mamba_scan_bwd at every `chip_smoke.SCAN_BWD_SHAPES` entry, each build
+  fed the states its own forward saves (at its own spacing,
+  `mamba_scan_bwd_chunk`; the parent's `mamba_scan.cu` is built too when
+  it differs): each gradient's max abs against the plain version
+  (`ref.mamba_scan_backward`) for both builds, the call's time in turns
+  (CUDA events around the C launch, median of 5) and, at the first
+  shape, each build's device time by CUDA kernel, its partial buffer's
+  bytes, and both builds' forward with and without its saves
+  (torch.profiler device time, mean of 10, in turns);
 
 with each kernel's time, the two builds in turns (old, new, new, old):
 the replay kernels and wkv_bwd by CUDA events around the C launch alone
@@ -103,7 +112,8 @@ def _device_ms(fn, kernel: str, reps: int = 10) -> float:
 PARENT_SOURCES = {"replay_blocks": "replay/replay.cu",
                   "adaptive_blocks": "replay/adaptive.cu",
                   "mamba_scan": "mamba_scan/mamba_scan.cu",
-                  "wkv_bwd": "rwkv6/wkv_bwd.cu"}
+                  "wkv_bwd": "rwkv6/wkv_bwd.cu",
+                  "mamba_scan_bwd": "mamba_scan/mamba_scan_bwd.cu"}
 
 
 def _source_bytes(root: Path, src: str) -> list:
@@ -158,14 +168,24 @@ def _build_parent(parent: Path) -> dict:
         # the first kernel's C interface has no launch plan; a build
         # that takes one (int team, channels, steps) gets this checkout's;
         # one that writes the chunk states (void* h_chunks) gets null
+        # one that saves its states at a spacing of their own (int save)
+        # gets 0 for the serve launch
         src = (root / "mamba_scan" / "mamba_scan.cu").read_text()
         libs["scan_takes_plan"] = "int team" in src
         libs["scan_chunks"] = "void* h_chunks" in src
-        libs["mamba_scan"].mamba_scan_launch.argtypes = \
-            [ctypes.c_void_p] * (9 if libs["scan_chunks"] else 8) \
-            + [ctypes.c_int] * (7 if libs["scan_takes_plan"] else 4) \
-            + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
-        libs["mamba_scan"].mamba_scan_launch.restype = ctypes.c_int
+        libs["scan_save"] = "int save" in src
+        _scan_argtypes(libs["mamba_scan"], libs["scan_chunks"],
+                       libs["scan_takes_plan"], libs["scan_save"])
+    if "mamba_scan_bwd" in libs:
+        lib = libs["mamba_scan_bwd"]
+        lib.mamba_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 16 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.mamba_scan_bwd_launch.restype = ctypes.c_int
+        lib.mamba_scan_bwd_chunk.restype = ctypes.c_int
+        rows = getattr(lib, "mamba_scan_bwd_rows", None) \
+            or lib.mamba_scan_bwd_blocks      # PR 27's: one per block
+        rows.argtypes, rows.restype = [ctypes.c_int], ctypes.c_int
+        libs["scan_bwd_rows"] = rows
     if "wkv_bwd" in libs:
         libs["wkv_bwd"].wkv_bwd_launch.argtypes = [ctypes.c_void_p] * 18 \
             + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 15 \
@@ -525,27 +545,46 @@ def _scan_inputs(shape, seed):
             0.5 * n(b, di, ds) if with_state else None)
 
 
-def _old_scan(lib, takes_plan, chunks, x, dt, bm, cm, a, h0):
+def _scan_argtypes(lib, chunks: bool, takes_plan: bool, save: bool):
+    lib.mamba_scan_launch.argtypes = [ctypes.c_void_p] * (9 if chunks
+                                                           else 8) \
+        + [ctypes.c_int] * ((7 if takes_plan else 4) + save) \
+        + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
+    lib.mamba_scan_launch.restype = ctypes.c_int
+
+
+def _old_scan(lib, takes_plan, chunks, x, dt, bm, cm, a, h0, save=False,
+              every=0):
+    """One forward launch of a build: the serve launch, or with `every`
+    > 0 the grad path's, saving the state every `every` steps (a build
+    without `save` saves at its tile, which is then `every` steps).
+    Returns (y, final state, saved states or None)."""
     import torch
     from repro_torch.kernels.mamba_scan import ops
     b, t, di = x.shape
     ds = bm.shape[-1]
     y = torch.empty((b, t, di), device="cuda")
     h = torch.empty((b, di, ds), device="cuda")
+    hc = (torch.empty((-(-t // every), b, di, ds), device="cuda")
+          if every else None)
     strides = [s for z in (x, dt, bm, cm, y) for s in z.stride()[:2]]
     plan = ops.scan_plan(t, ds)
+    steps = plan.steps if save or not every else min(every, t)
     rc = lib.mamba_scan_launch(
         x.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
         a.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h.data_ptr(), *((None,) if chunks else ()), b, t, di, ds,
-        *((plan.team, plan.channels, plan.steps) if takes_plan else ()),
+        h.data_ptr(), *((None if hc is None else hc.data_ptr(),)
+                        if chunks else ()), b, t, di, ds,
+        *((plan.team, plan.channels, steps) if takes_plan else ()),
+        *((every,) if save else ()),
         *strides, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan_launch: cudaError {rc}")
-    return y, h
+    return y, h, hc
 
 
-def compare_mamba(old_lib, takes_plan: bool, chunks: bool) -> list:
+def compare_mamba(old_lib, takes_plan: bool, chunks: bool,
+                  save: bool) -> list:
     import torch
     import chip_smoke as cs
     from repro_torch.kernels.mamba_scan import ops
@@ -553,13 +592,13 @@ def compare_mamba(old_lib, takes_plan: bool, chunks: bool) -> list:
     for i, (label, shape) in enumerate(cs.SCAN_SHAPES.items()):
         ins = _scan_inputs(shape, SEED + i)
         y1, h1 = ops.mamba_scan(*ins[:5], h0=ins[5])
-        y0, h0 = _old_scan(old_lib, takes_plan, chunks, *ins)
+        y0, h0, _ = _old_scan(old_lib, takes_plan, chunks, *ins, save)
         n_h = _n_differing(h1, h0)
         t = {"old": [], "new": [], "new saving states": []}
         for who in ("old", "new", "new saving states", "new",
                     "new saving states", "old"):
             fn = {"old": lambda: _old_scan(old_lib, takes_plan, chunks,
-                                           *ins),
+                                           *ins, save),
                   "new": lambda: ops.mamba_scan(*ins[:5], h0=ins[5]),
                   "new saving states": lambda: ops._forward(
                       *ins, None, save_chunks=True)}[who]
@@ -686,6 +725,134 @@ def compare_wkv_bwd(old_lib) -> list:
     return rows
 
 
+# ------------------------------------------------------ mamba_scan_bwd
+
+SCAN_BWD_PASSES = ("mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce")
+
+
+def _scan_bwd_call(lib, rows_fn, ins, chunks):
+    """A call of a backward build through its C interface on the saved
+    states `chunks`: (the call, its outputs (dx, ddt, dB, dC, dA, dh0 or
+    None), the partial buffer's bytes)."""
+    import torch
+    x, dt, bm, cm, a, h0, dy, dh = ins
+    b, t, di = x.shape
+    ds = bm.shape[-1]
+
+    def e(*shape):
+        return torch.empty(shape, device="cuda")
+    outs = [e(b, t, di), e(b, t, di), e(b, t, ds), e(b, t, ds), e(di, ds),
+            e(b, di, ds) if h0 is not None else None]
+    part, da_part = e(rows_fn(di), b, t, 2 * ds), e(b, di, ds)
+    ptr = (lambda z: None if z is None else z.data_ptr())
+
+    def call():
+        rc = lib.mamba_scan_bwd_launch(
+            *(ptr(z) for z in (x, dt, bm, cm, a, chunks, dy, dh, *outs)),
+            part.data_ptr(), da_part.data_ptr(), b, t, di, ds,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"mamba_scan_bwd_launch: cudaError {rc}")
+    return call, outs, part.numel() * 4
+
+
+def compare_mamba_bwd(libs) -> list:
+    """Both backward builds against the plain version at every
+    `chip_smoke.SCAN_BWD_SHAPES` shape, each on the states its own
+    forward saves, timed in turns; at the first shape each build's
+    device time by CUDA kernel and both builds' forward with and
+    without its saves."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mamba_scan import ops, ref
+    old = libs["mamba_scan_bwd"]
+    new = build.load("mamba_scan_bwd")
+    new.mamba_scan_bwd_rows.argtypes = [ctypes.c_int]
+    new.mamba_scan_bwd_rows.restype = ctypes.c_int
+    every = {"old": old.mamba_scan_bwd_chunk(), "new": ops.chunk()}
+    # the parent's forward, or this checkout's where its source is the same
+    if "mamba_scan" in libs:
+        fwd_old = (libs["mamba_scan"], libs["scan_takes_plan"],
+                   libs["scan_chunks"], libs["scan_save"])
+    else:
+        fwd_old = (ops._lib(), True, True, True)
+    fwd_new = (ops._lib(), True, True, True)
+    names = ("x", "dt", "B", "C", "A", "h0")
+    rows = []
+    for i, (label, shape) in enumerate(cs.SCAN_BWD_SHAPES.items()):
+        b, t, di, ds, with_state = shape
+        g = torch.Generator("cuda").manual_seed(cs.SEED + 60 + i)
+
+        def n(*shp):
+            return torch.randn(shp, generator=g, device="cuda")
+        ins = (0.5 * n(b, t, di),
+               torch.nn.functional.softplus(n(b, t, di) - 1.0),
+               0.5 * n(b, t, ds), 0.5 * n(b, t, ds),
+               -torch.exp(0.3 * n(di, ds)),
+               0.5 * n(b, di, ds) if with_state else None, n(b, t, di),
+               n(b, di, ds) if with_state else None)
+        chunks = {w: _old_scan(*f[:3], *ins[:6], save=f[3],
+                               every=every[w])[2]
+                  for w, f in (("old", fwd_old), ("new", fwd_new))}
+        calls, outs, part_bytes = {}, {}, {}
+        for w, lib, rows_fn in (("old", old, libs["scan_bwd_rows"]),
+                                ("new", new, new.mamba_scan_bwd_rows)):
+            calls[w], outs[w], part_bytes[w] = _scan_bwd_call(
+                lib, rows_fn, ins, chunks[w])
+            calls[w]()
+        want = ref.mamba_scan_backward(*ins[:5], ins[6], h0=ins[5],
+                                       dh=ins[7])
+
+        def err(got):
+            return {f"d{nm}": float((x - y).abs().max())
+                    for nm, x, y in zip(names, got, want) if x is not None}
+        row = {"shape": label, "dims": list(shape[:4]),
+               "old_vs_plain": err(outs["old"]),
+               "new_vs_plain": err(outs["new"]),
+               "spacing": every, "partial_bytes": part_bytes}
+        t_ms = {"old": [], "new": []}
+        for w in ("old", "new", "new", "old"):
+            t_ms[w].append(_events_ms(calls[w]))
+        row["old_ms"], row["new_ms"] = t_ms["old"], t_ms["new"]
+        if i == 0:
+            for w in ("old", "new"):
+                row[f"{w}_pass_ms"] = {p: _device_ms(calls[w], p)
+                                       for p in SCAN_BWD_PASSES}
+            fw = {"old serve": [], "old saving": [], "new serve": [],
+                  "new saving": []}
+            runs = {"old serve": lambda: _old_scan(*fwd_old[:3], *ins[:6],
+                                                   save=fwd_old[3]),
+                    "old saving": lambda: _old_scan(
+                        *fwd_old[:3], *ins[:6], save=fwd_old[3],
+                        every=every["old"]),
+                    "new serve": lambda: _old_scan(*fwd_new[:3], *ins[:6],
+                                                   save=True),
+                    "new saving": lambda: _old_scan(
+                        *fwd_new[:3], *ins[:6], save=True,
+                        every=every["new"])}
+            for w in ("old serve", "old saving", "new serve", "new saving",
+                      "new saving", "new serve", "old saving", "old serve"):
+                fw[w].append(_device_ms(runs[w], "mamba_scan_kernel"))
+            row["forward_ms"] = fw
+            print("  device ms by CUDA kernel: new "
+                  f"{json.dumps(row['new_pass_ms'])}, previous "
+                  f"{json.dumps(row['old_pass_ms'])}; forward (device ms, "
+                  f"in turns) {json.dumps(fw)}")
+        print(f"mamba_scan_bwd {label} {shape[:4]}: max abs against the "
+              f"plain version new {json.dumps(row['new_vs_plain'])}, "
+              f"previous {json.dumps(row['old_vs_plain'])}; previous "
+              f"{t_ms['old'][0]:.4f} / {t_ms['old'][1]:.4f} ms, new "
+              f"{t_ms['new'][0]:.4f} / {t_ms['new'][1]:.4f} ms a call; "
+              f"saved states every {every['old']} / {every['new']} steps, "
+              f"partials {part_bytes['old'] / 1e6:.1f} / "
+              f"{part_bytes['new'] / 1e6:.1f} MB")
+        rows.append(row)
+        del ins, chunks, calls, outs, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def sweep_plans() -> list:
     """Every team x block x tile at the prefill and decode shapes."""
     import torch
@@ -803,9 +970,12 @@ def main(argv=None) -> int:
         if "mamba_scan" in libs:
             res["mamba"] = compare_mamba(libs["mamba_scan"],
                                          libs["scan_takes_plan"],
-                                         libs["scan_chunks"])
+                                         libs["scan_chunks"],
+                                         libs["scan_save"])
         if "wkv_bwd" in libs:
             res["wkv_bwd"] = compare_wkv_bwd(libs["wkv_bwd"])
+        if "mamba_scan_bwd" in libs:
+            res["mamba_scan_bwd"] = compare_mamba_bwd(libs)
     if args.plans:
         res["plans"] = sweep_plans()
     if args.clocks:

@@ -4567,8 +4567,9 @@ def kernel_mamba_bwd(launches: int) -> dict:
     card at every `SCAN_BWD_SHAPES` shape, every gradient within rtol =
     atol = 1e-3 (each max abs printed); its time at jamba's shape (CUDA
     events, median of 10 calls of `mamba_scan_backward` on the forward's
-    saved chunk states; each of its two CUDA kernels' device time) beside
-    its bound and the plain version's time; then one full-width Jamba
+    saved chunk states; each of its two CUDA kernels' device time; the
+    bytes and rows of its dB / dC partials) beside its bound and the
+    plain version's time; then one full-width Jamba
     Mamba mixer (d_model 8192, d_inner 16384) at T = 4096 in float32:
     every parameter gradient through the kernels and through the plain
     scan (its forward step loop with the plain reverse recurrence
@@ -4645,15 +4646,19 @@ def kernel_mamba_bwd(launches: int) -> dict:
                   f"operations at 67 TFLOP/s, {n_bytes / 1e6:.1f} MB at "
                   f"3.35 TB/s), {ms / b_ms:.2f}x the bound; plain "
                   f"{plain_s * 1e3:.1f} ms; library none")
+            rows = ops._bwd_lib().mamba_scan_bwd_rows(di_)
+            part_bytes = 4 * rows * b_ * t_ * 2 * ds_
             print("  device time a call by CUDA kernel (torch.profiler, "
                   "mean of 5 launches): " + ", ".join(
                       f"{p} " + ("not recorded" if m is None
                                  else f"{m:.4f} ms")
-                      for p, m in passes.items()))
+                      for p, m in passes.items())
+                  + f"; dB / dC partials {part_bytes / 1e6:.1f} MB "
+                  f"({rows} rows)")
             times = {"ms": ms, "ms_source": "cuda_events_call",
                      "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
-                     "pass_ms": passes}
+                     "pass_ms": passes, "partial_bytes": part_bytes}
         del x, dt, bm, cm, a, h0, dy, dh, chunks, got, want
         torch.cuda.empty_cache()
     mixer = _mamba_mixer_check()

@@ -13,11 +13,11 @@
 // an optional initial state h0 [B, di, ds] (zeros when null); outputs
 // y [B, T, di] and the final state [B, di, ds] (the decode cache's; h0
 // and the final state may be one buffer: each thread reads its own
-// states before it writes them); optionally the state at the start of
-// every tile, h_chunks [ceil(T / steps), B, di, ds] (null: not written),
-// which the backward (mamba_scan_bwd.cu) rebuilds each chunk's states
-// from.  No D-skip and no gate, as the TPU kernel.  float32; ds 8 (the
-// reduced configs) or 16.
+// states before it writes them); optionally the state before every
+// `save`-th step, h_chunks [ceil(T / save), B, di, ds] (null: not
+// written), which the backward (mamba_scan_bwd.cu) rebuilds each span's
+// states from.  No D-skip and no gate, as the TPU kernel.  float32; ds 8
+// (the reduced configs) or 16.
 //
 // Bound.  mamba_scan_hbm_bytes = 4 B T (3 di + 2 ds) bytes: at jamba's
 // prefill shape (1, 4096, 16384, 16) 805.8 MB, 0.241 ms at 3.35 TB/s,
@@ -50,7 +50,11 @@
 // not staged.  At T = 1 a team's states are adjacent in h0 and the final
 // state, so a warp's state loads and stores cover one contiguous span.
 // The host plan (ops.scan_plan: P, channels per block, steps per tile)
-// was chosen by measurement on the card.
+// was chosen by measurement on the card.  The grad path's launch (kSave)
+// also stores each thread's states before every `save`-th step, at the
+// start of a group: every 16 steps, 268 MB at jamba's prefill shape,
+// 1.06x the serve launch's time on an H100 (700 W; PR 28's
+// benchmarks/port_kernel_redesign.py run).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,6 +109,21 @@ __device__ __forceinline__ void load_ns(const float* p, float (&v)[NS]) {
   }
 }
 
+// NS consecutive floats to global memory, in vector stores where aligned
+template <int NS>
+__device__ __forceinline__ void store_ns(float* p, const float (&v)[NS]) {
+  if constexpr (NS % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < NS / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else if constexpr (NS == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
 // U consecutive steps i, ..., i + U - 1 of one thread's NS states: every
 // load first, then the U x NS exponentials (independent of the state),
 // then the state updates in step order, then the U partial sums' team
@@ -151,8 +170,9 @@ __device__ __forceinline__ void scan_steps(int i, const float* bs,
   }
 }
 
-// kSave: the launch writes h_chunks (an instantiation of its own, so
-// that the serve path's launches run the code they ran before it)
+// kSave: the launch writes h_chunks every `save` steps (an
+// instantiation of its own, so that the serve path's launches run the
+// code they ran before it)
 template <int DS, int P, bool kSave>
 __global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __restrict__ x,
                                   const float* __restrict__ dt,
@@ -161,7 +181,8 @@ __global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __
                                   const float* __restrict__ a,
                                   const float* h0, float* __restrict__ y,
                                   float* h_out, float* __restrict__ h_chunks,
-                                  int t_len, int di, int steps, Strides st) {
+                                  int t_len, int di, int steps, int save,
+                                  Strides st) {
   constexpr int NS = DS / P;     // states per thread
   extern __shared__ __align__(16) float sm[];
   const int cpb = blockDim.x / P;              // channels per block
@@ -221,15 +242,23 @@ __global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __
     }
   };
 
+  // kSave: the state before every `save`-th step, each a group's first
+  // (the launch checks that the save points fall on group starts)
+  float* hc = h_chunks + hrow;
+  const long long hstride = (long long)gridDim.y * di * DS;
+  int next_save = 0;
+  auto save_state = [&](int t) {
+    if (t == next_save) {
+      if (ok) store_ns<NS>(hc, h);
+      hc += hstride;
+      next_save += save;
+    }
+  };
+
   stage(0, sm);
   cp_async_commit();
   for (int t0 = 0, it = 0; t0 < t_len; t0 += steps, ++it) {
     const int n = min(steps, t_len - t0);
-    if (kSave && ok) {                // the state before step t0
-      float* hc = h_chunks + (long long)it * gridDim.y * di * DS + hrow;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) hc[s] = h[s];
-    }
     if (t0 + steps < t_len) stage(t0 + steps, sm + ((it + 1) & 1) * buf);
     cp_async_commit();                // (an empty group on the last tile)
     cp_async_wait_prior_1();          // this tile's copies have landed
@@ -241,11 +270,15 @@ __global__ void __launch_bounds__(kMaxThreads) mamba_scan_kernel(const float* __
     // every team lane runs the steps: the shuffles need the whole warp (a
     // channel past di computes on zeros)
     int i = 0;
-    for (; i + kGroup<NS> <= n; i += kGroup<NS>)
+    for (; i + kGroup<NS> <= n; i += kGroup<NS>) {
+      if constexpr (kSave) save_state(t0 + i);
       scan_steps<DS, P, kGroup<NS>>(i, bs, cs, xs, dts, ys, cpb, cl, j, av,
                                     h);
-    for (; i < n; ++i)
+    }
+    for (; i < n; ++i) {
+      if constexpr (kSave) save_state(t0 + i);
       scan_steps<DS, P, 1>(i, bs, cs, xs, dts, ys, cpb, cl, j, av, h);
+    }
     __syncthreads();                  // the y tile is complete
     if (tc_live)
       for (int r = tr; r < n; r += P)
@@ -262,11 +295,16 @@ template <int DS, int P>
 int launch(const float* x, const float* dt, const float* bm, const float* cm,
            const float* a, const float* h0, float* y, float* h_out,
            float* h_chunks, int batch, int t_len, int di, int channels,
-           int steps, const Strides& st, cudaStream_t stream) {
+           int steps, int save, const Strides& st, cudaStream_t stream) {
   const int threads = channels * P;
   const long long smem = 4LL * steps * (2 * (2LL * DS + 2 * channels)
                                         + channels);
   if (threads > kMaxThreads || threads % 32 != 0 || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  // saves on group starts: every tile starts on a save point and the
+  // groups of steps divide the spacing
+  if (h_chunks != nullptr &&
+      ((steps < t_len && steps % save != 0) || save % kGroup<DS / P> != 0))
     return (int)cudaErrorInvalidValue;
   auto kern = h_chunks != nullptr ? mamba_scan_kernel<DS, P, true>
                                    : mamba_scan_kernel<DS, P, false>;
@@ -277,27 +315,28 @@ int launch(const float* x, const float* dt, const float* bm, const float* cm,
   }
   dim3 grid((di + channels - 1) / channels, batch);
   kern<<<grid, threads, smem, stream>>>(x, dt, bm, cm, a, h0, y, h_out,
-                                        h_chunks, t_len, di, steps, st);
+                                        h_chunks, t_len, di, steps, save, st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// h0 may be null (zeros), h_chunks null (not written; else
-// [ceil(t_len / steps), batch, di, ds]).  team = P threads per channel (2, 4, 8 or 16,
-// dividing ds), `channels` per block (channels x team a multiple of 32, at
-// most kMaxThreads), `steps` per staged tile.  Returns the CUDA error of the
-// launch (0 on success).
+// h0 may be null (zeros), h_chunks null (not written; else the state
+// before every `save`-th step, [ceil(t_len / save), batch, di, ds]).
+// team = P threads per channel (2, 4, 8 or 16, dividing ds), `channels`
+// per block (channels x team a multiple of 32, at most kMaxThreads),
+// `steps` per staged tile, `save` >= 1 with h_chunks.  Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int mamba_scan_launch(
     const void* x, const void* dt, const void* bm, const void* cm,
     const void* a, const void* h0, void* y, void* h_out, void* h_chunks,
     int batch,
-    int t_len, int di, int ds, int team, int channels, int steps,
+    int t_len, int di, int ds, int team, int channels, int steps, int save,
     long long xb, long long xt, long long db, long long dtt, long long bb,
     long long bt, long long cb, long long ct, long long yb, long long yt,
     void* stream) {
   if (batch < 1 || batch > 65535 || t_len < 1 || di < 1 || channels < 1 ||
-      steps < 1)
+      steps < 1 || (h_chunks != nullptr && save < 1))
     return (int)cudaErrorInvalidValue;
   const Strides st{xb, xt, db, dtt, bb, bt, cb, ct, yb, yt};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -313,7 +352,7 @@ extern "C" int mamba_scan_launch(
 #define MAMBA_SCAN_CASE(DS_, P_)                                             \
   if (ds == DS_ && team == P_)                                               \
     return launch<DS_, P_>(xf, df, bf, cmf, af, hf, yf, of, cf, batch,       \
-                           t_len, di, channels, steps, st, s);
+                           t_len, di, channels, steps, save, st, s);
   MAMBA_SCAN_CASE(8, 2)
   MAMBA_SCAN_CASE(8, 4)
   MAMBA_SCAN_CASE(8, 8)

@@ -14,15 +14,16 @@ arithmetic, so the CPU tests can check that a plan covers every state
 exactly once.
 
 On the card, inputs that require grad (with grad enabled) go through a
-`torch.autograd.Function`: its forward launches the kernel with a tile
-of `chunk()` steps (the backward kernel's chunk) and keeps the state at the start of every tile (the
-kernel's optional `h_chunks` output; the serve path's launches do not
-ask for it), and its backward launches `mamba_scan_bwd.cu`
-(`mamba_scan_backward`, counted in `mamba_scan_backward.launches`, one
-per call; a call runs two CUDA kernels: the reverse scan with per-block
-partial sums of dB and dC, then their sums over the blocks), which
-returns the gradients of x, dt, B, C, A and, when a state was passed
-in, of h0.  On the CPU autograd differentiates the plain version.
+`torch.autograd.Function`: its forward launches the kernel with its
+usual plan and keeps the state before every `chunk()`-th step (the
+kernel's optional `h_chunks` output, at the backward kernel's spacing;
+the serve path's launches do not ask for it), and its backward launches
+`mamba_scan_bwd.cu` (`mamba_scan_backward`, counted in
+`mamba_scan_backward.launches`, one per call; a call runs two CUDA
+kernels: the reverse scan, whose clusters of blocks write partial rows
+of dB and dC, then the sums of those rows), which returns the gradients
+of x, dt, B, C, A and, when a state was passed in, of h0.  On the CPU
+autograd differentiates the plain version.
 """
 
 from __future__ import annotations
@@ -114,18 +115,19 @@ def scan_thread_map(plan: ScanPlan, b: int, di: int, ds: int):
 def _lib() -> ctypes.CDLL:
     lib = build.load("mamba_scan")
     lib.mamba_scan_launch.argtypes = [ctypes.c_void_p] * 9 \
-        + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
     lib.mamba_scan_launch.restype = ctypes.c_int
     return lib
 
 
+@functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("mamba_scan_bwd")
     lib.mamba_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 16 \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.mamba_scan_bwd_launch.restype = ctypes.c_int
-    lib.mamba_scan_bwd_blocks.argtypes = [ctypes.c_int]
-    lib.mamba_scan_bwd_blocks.restype = ctypes.c_int
+    lib.mamba_scan_bwd_rows.argtypes = [ctypes.c_int]
+    lib.mamba_scan_bwd_rows.restype = ctypes.c_int
     lib.mamba_scan_bwd_chunk.restype = ctypes.c_int
     return lib
 
@@ -133,8 +135,8 @@ def _bwd_lib() -> ctypes.CDLL:
 @functools.cache
 def chunk() -> int:
     """Steps between the states the backward reads: the backward
-    kernel's own spacing (`mamba_scan_bwd_chunk`), which the forward's
-    tile takes when it saves them.  Builds the kernels on first use."""
+    kernel's own spacing (`mamba_scan_bwd_chunk`), at which the forward
+    saves them, whatever its tile.  Builds the kernels on first use."""
     return _bwd_lib().mamba_scan_bwd_chunk()
 
 
@@ -180,9 +182,11 @@ def _forward(x, dt, bmat, cmat, a, h0, plan: ScanPlan | None,
     if h0 is not None:
         h0 = h0.contiguous()
     plan = plan or scan_plan(t, ds)
-    if save_chunks:              # the saved states' spacing is the tile's
-        plan = dataclasses.replace(plan, steps=min(chunk(), t))
     check_plan(plan, ds)
+    if save_chunks and plan.steps < t and plan.steps % chunk():
+        raise ValueError(f"mamba_scan: with its states saved every "
+                         f"{chunk()} steps a tile of {plan.steps} steps "
+                         "must be a multiple of that spacing")
     y = torch.empty((b, t, di), dtype=torch.float32, device=x.device)
     h_out = torch.empty((b, di, ds), dtype=torch.float32, device=x.device)
     chunks = (torch.empty((-(-t // chunk()), b, di, ds), dtype=torch.float32,
@@ -194,7 +198,8 @@ def _forward(x, dt, bmat, cmat, a, h0, plan: ScanPlan | None,
             a.data_ptr(), None if h0 is None else h0.data_ptr(),
             y.data_ptr(), h_out.data_ptr(),
             None if chunks is None else chunks.data_ptr(),
-            b, t, di, ds, plan.team, plan.channels, plan.steps, *strides,
+            b, t, di, ds, plan.team, plan.channels, plan.steps,
+            chunk() if save_chunks else 0, *strides,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan: kernel launch failed (CUDA error "
@@ -231,8 +236,8 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     """x, dt: [B, T, di]; bmat, cmat: [B, T, ds]; a: [di, ds]; h0
     [B, di, ds] or None (zeros) -> (y [B, T, di], final state [B, di, ds]),
     float32.  No D-skip, no gate.  Differentiable on both devices.
-    `plan` overrides `scan_plan` (the card only; with grad, its tile is
-    `chunk()` steps)."""
+    `plan` overrides `scan_plan` (the card only; with grad, a tile
+    shorter than T is a multiple of `chunk()` steps)."""
     _check(x, dt, bmat, cmat, a, h0)
     xs = [x, dt, bmat, cmat, a] + ([] if h0 is None else [h0])
     if {t.device for t in xs} == {torch.device("cpu")}:
@@ -278,12 +283,16 @@ def mamba_scan_backward(x, dt, bmat, cmat, a, h_chunks, dy, dh=None,
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    dx, ddt = empty(b, t, di), empty(b, t, di)
-    db, dc = empty(b, t, ds), empty(b, t, ds)
+    # few allocations (each costs the call host time while the card
+    # waits): dx and ddt, dB and dC are halves of one buffer each, and
+    # the scratch (the partial rows [rows, B, T, 2 ds], then dA's per-row
+    # sums [B, di, ds]) is one buffer
+    dx, ddt = empty(2, b, t, di).unbind(0)
+    db, dc = empty(2, b, t, ds).unbind(0)
     da = empty(di, ds)
     dh0 = empty(b, di, ds) if need_h0 else None
-    blocks = lib.mamba_scan_bwd_blocks(di)
-    part, da_part = empty(blocks, b, t, 2 * ds), empty(b, di, ds)
+    n_part = lib.mamba_scan_bwd_rows(di) * b * t * 2 * ds
+    scratch = empty(n_part + b * di * ds)
 
     def ptr(z):
         return None if z is None else z.data_ptr()
@@ -292,7 +301,8 @@ def mamba_scan_backward(x, dt, bmat, cmat, a, h_chunks, dy, dh=None,
             x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
             a.data_ptr(), h_chunks.data_ptr(), dy.data_ptr(), ptr(dh),
             dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            da.data_ptr(), ptr(dh0), part.data_ptr(), da_part.data_ptr(),
+            da.data_ptr(), ptr(dh0), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * n_part,
             b, t, di, ds, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan_backward: kernel launch failed (CUDA "

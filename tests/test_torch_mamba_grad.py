@@ -7,7 +7,11 @@ against the reference in float32: `jax.vjp` of its oracle
 `jax.vjp` of its Mamba mixer (`repro.models.ssm.mamba_apply`, whose
 `lax.scan` the reference trains through) from a nonzero carried state,
 with the port's mixer differentiating the scan through the plain
-backward.  The wrapper on CPU tensors stays differentiable.
+backward; and the card kernel's order of work (`mamba_scan_bwd.cu`:
+16-step spans rebuilt from saved states and walked back, dB / dC
+summed per thread, warp, block and cluster into partial rows) modelled
+in float64 against the plain backward.  The wrapper on CPU tensors
+stays differentiable.
 
 Inputs from numpy, in tests/test_kernels.py's distribution (dt a
 softplus, A = -exp(0.3 z)); ds 8 and 16, a ragged T.  Bounds: 1e-10 in
@@ -177,6 +181,104 @@ def test_wrapper_on_cpu_tensors_stays_differentiable():
     for name, g, w in zip(NAMES, got, want):
         _close(g, w, TOL, name)
     assert scan_ops.mamba_scan.launches == before
+
+
+# mamba_scan_bwd.cu's shape of work: saved states every SPAN steps; a
+# thread holds CH channels x NS states, a block CPB channels, a cluster
+# CLUSTER blocks (one partial row of dB / dC)
+SPAN, CH, NS, CPB, CLUSTER = 16, 2, 2, 128, 2
+
+
+def _kernel_order_backward(x, dt, bm, cm, a, dy, h0, dh):
+    """The backward in the kernel's order of work, in float64: the
+    forward's states saved every SPAN steps; per span (the last first)
+    the states rebuilt from the saved start, h_{t-1} and a_t kept, the
+    span walked back with h_t the next step's h_{t-1} (the last step's the
+    rebuild's end state); a short last span padded with steps of zero
+    inputs; dB / dC summed over a thread's channels, its warp's lanes,
+    the block's warps and the cluster's blocks into partial rows [rows,
+    B, T, 2 ds], then over the rows; dx / ddt from a thread's partial
+    sums over its states (dt gb, x gb + gq), then over the lanes; dA per
+    chain, then over the batch rows."""
+    b, t, di = x.shape
+    ds = bm.shape[-1]
+    sg = ds // NS                     # lanes a channel pair
+    cgs = 32 // sg                    # channel pairs a warp
+    warps = CPB // (cgs * CH)
+    rows = -(-di // (CLUSTER * CPB))
+    dp = rows * CLUSTER * CPB
+    n_spans = -(-t // SPAN)
+    tp = n_spans * SPAN
+
+    def pad(z, shape):
+        out = torch.zeros(shape, dtype=torch.float64)
+        out[tuple(slice(0, n) for n in z.shape)] = z
+        return out
+    x, dt, dy = (pad(z, (b, tp, dp)) for z in (x, dt, dy))
+    bm, cm = pad(bm, (b, tp, ds)), pad(cm, (b, tp, ds))
+    a = pad(a, (dp, ds))
+    h = torch.zeros((b, dp, ds), dtype=torch.float64) if h0 is None \
+        else pad(h0, (b, dp, ds))
+    g = torch.zeros_like(h) if dh is None else pad(dh, (b, dp, ds))
+    saved = []
+    for i in range(tp):                # the forward, saving every SPAN
+        if i % SPAN == 0:
+            saved.append(h)
+        h = torch.exp(dt[:, i, :, None] * a) * h \
+            + (dt[:, i] * x[:, i])[..., None] * bm[:, i, None, :]
+
+    def channel_sum(prod):             # [B, dp, ds] -> [B, rows, ds]
+        p = prod.reshape(b, rows, CLUSTER, warps, cgs, CH, ds)
+        for axis in (5, 4, 3, 2):      # thread, lanes, warps, cluster
+            p = p.sum(axis)
+        return p
+
+    def state_sum(prod):               # [B, dp, ds] -> [B, dp]
+        return prod.reshape(b, dp, sg, NS).sum(-1).sum(-1)
+    part = torch.zeros((rows, b, tp, 2 * ds), dtype=torch.float64)
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    dacc = torch.zeros_like(h)
+    for k in reversed(range(n_spans)):
+        h, hp, at = saved[k], [], []
+        for u in range(SPAN):
+            i = k * SPAN + u
+            at.append(torch.exp(dt[:, i, :, None] * a))
+            hp.append(h)
+            h = at[u] * h + (dt[:, i] * x[:, i])[..., None] * bm[:, i, None, :]
+        for u in reversed(range(SPAN)):
+            i = k * SPAN + u
+            d, xv, yv = dt[:, i, :, None], x[:, i, :, None], dy[:, i, :, None]
+            ht = h if u == SPAN - 1 else hp[u + 1]
+            g = g + yv * cm[:, i, None, :]
+            part[:, :, i, :ds] = channel_sum(yv * ht).transpose(0, 1)
+            part[:, :, i, ds:] = channel_sum(g * d * xv).transpose(0, 1)
+            gb = (g * bm[:, i, None, :]).reshape(b, dp, sg, NS).sum(-1)
+            g = at[u] * g
+            q = g * hp[u]
+            gq = (q * a).reshape(b, dp, sg, NS).sum(-1)
+            dx[:, i] = (d * gb).sum(-1)
+            ddt[:, i] = (xv * gb + gq).sum(-1)
+            dacc = dacc + q * d
+    db_dc = part.sum(0)
+    return (dx[:, :t, :di], ddt[:, :t, :di], db_dc[:, :t, ds:],
+            db_dc[:, :t, :ds], dacc.sum(0)[:di], g[:, :di])
+
+
+@pytest.mark.parametrize("di,state", [(130, False), (300, True)])
+@pytest.mark.parametrize("t", [1, 16, 37, 130])
+@pytest.mark.parametrize("ds", [8, 16])
+def test_kernel_order_of_work_matches_the_plain_backward(ds, t, di, state):
+    """mamba_scan_bwd.cu's order of work, modelled in float64, gives the
+    plain backward's gradients (`ref.mamba_scan_backward`, float64): T
+    ragged against the saved states' spacing and di against a block's and
+    a cluster's channels, from a zero state and from a state with a
+    gradient into the final state."""
+    x, dt, bm, cm, a, h0, dy, dh = _t(_inputs(7, 2, t, di, ds, state),
+                                      torch.float64)
+    got = _kernel_order_backward(x, dt, bm, cm, a, dy, h0, dh)
+    want = scan_ref.mamba_scan_backward(x, dt, bm, cm, a, dy, h0=h0, dh=dh)
+    for name, g, w in zip(NAMES, got, want):
+        _close(g, w, TOL64, f"ds {ds}, T {t}, di {di}: d{name}")
 
 
 def test_backward_bounds_count_the_work():

@@ -12,8 +12,10 @@ that has only PyTorch:
 Every test needs an NVIDIA card and skips without one (decided inside
 the `cuda` fixture, never at import).  Bounds: the backward kernel within
 rtol = atol = 1e-3 of `torch.autograd.grad` through the plain version
-(chunk 16; the kernel works on the forward's 64-step chunks in
-parallel, from their saved start states); the card's training step within 1e-5 relative of
+(chunk 16; the WKV kernel works on the forward's 64-step chunks in
+parallel, from their saved start states; the scan's on the forward's
+`scan_ops.chunk()`-step spans, from theirs); the card's training step
+within 1e-5 relative of
 the CPU's on the loss, on grad_norm within 1e-5 or twice what one
 float32 ulp of noise on the parameters moves the CPU's own
 (`_grad_norm_noise`; tests/test_torch_train.py says why), every
@@ -147,6 +149,11 @@ SCAN_BWD_CASES = [
     (2, 130, 96, 8, True),          # ds 8, from a state, ragged
     (1, 300, 128, 16, True),        # several chunks, from a state
     (2, 77, 40, 8, False),          # ds 8, di below a block
+    # T not a multiple of the saved states' spacing (16), di not one of
+    # a block's (128) or a cluster's (256) channels, B = 2
+    (2, 37, 300, 16, True),         # 3 blocks: a cluster's second idle
+    (2, 261, 390, 8, False),        # di % 4 != 0: single-float staging
+    (2, 130, 520, 16, False),       # 5 blocks, 3 partial rows
 ]
 
 
@@ -204,25 +211,32 @@ def test_mamba_scan_backward_kernel_matches_plain(cuda, case):
 
 @pytest.mark.gpu
 def test_mamba_scan_saved_states_leave_the_forward_bitwise(cuda):
-    """The forward with its chunk states asked for (the grad path, tiles
-    of 64 steps) gives the serve path's outputs bit for bit, and its
-    saved states are the plain step loop's at every 64th step."""
-    x, dt, bm, cm, a, h0, _, _ = _scan_inputs(2, 200, 300, 16, cuda, 3, True)
-    y0, h_0 = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0)
-    y1, h_1, chunks = scan_ops._forward(x, dt, bm, cm, a, h0, None,
-                                        save_chunks=True)
-    assert torch.equal(y0, y1) and torch.equal(h_0, h_1)
-    assert tuple(chunks.shape) == (4, 2, 300, 16)
-    assert torch.equal(chunks[0], h0)
-    _, h64 = scan_ops.mamba_scan(x[:, :64], dt[:, :64], bm[:, :64],
-                                 cm[:, :64], a, h0=h0)
-    assert torch.equal(chunks[1], h64)
+    """The forward with its states asked for (the grad path, its usual
+    tile) gives the serve path's outputs bit for bit, and its saved
+    states are the step loop's at every `scan_ops.chunk()`-th step: the
+    serve launch's final state on each prefix, bit for bit."""
+    every = scan_ops.chunk()
+    for ds in (16, 8):
+        x, dt, bm, cm, a, h0, _, _ = _scan_inputs(2, 200, 300, ds, cuda, 3,
+                                                  True)
+        y0, h_0 = scan_ops.mamba_scan(x, dt, bm, cm, a, h0=h0)
+        y1, h_1, chunks = scan_ops._forward(x, dt, bm, cm, a, h0, None,
+                                            save_chunks=True)
+        assert torch.equal(y0, y1) and torch.equal(h_0, h_1)
+        assert tuple(chunks.shape) == (-(-200 // every), 2, 300, ds)
+        assert torch.equal(chunks[0], h0)
+        for k in range(1, chunks.shape[0]):
+            t = k * every
+            _, h_t = scan_ops.mamba_scan(x[:, :t], dt[:, :t], bm[:, :t],
+                                         cm[:, :t], a, h0=h0)
+            assert torch.equal(chunks[k], h_t), f"ds {ds}, step {t}"
 
 
 @pytest.mark.gpu
 def test_mamba_scan_backward_refuses_what_the_kernel_does_not_take(cuda):
     x, dt, bm, cm, a, _, dy, _ = _scan_inputs(1, 70, 64, 16, cuda, 0, False)
-    chunks = torch.zeros((2, 1, 64, 16), device=cuda)
+    chunks = torch.zeros((-(-70 // scan_ops.chunk()), 1, 64, 16),
+                         device=cuda)
     before = scan_ops.mamba_scan_backward.launches
     with pytest.raises(ValueError, match="one CUDA device"):
         scan_ops.mamba_scan_backward(x, dt, bm, cm, a, chunks, dy.cpu())

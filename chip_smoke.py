@@ -310,6 +310,20 @@ Phases (any failure exits non-zero and prints no result line):
      path's under one float32 ulp of parameter noise, three draws
      each), and each path's distance to a float64 witness (the plain
      version in float64) printed;
+  17c. (after phase 17 has freed its trainers) the same training on a
+     mesh: `Trainer(mesh=make_smoke_mesh())`, the parameters, gradient
+     buffers and moments `DTensor`s on a (1, 1) ("data", "model") mesh
+     in an NCCL world of one (a `HashStore`, no port), launch counts
+     reset just before and read just after: exactly phase 17's 128 wkv
+     and 64 wkv_bwd launches a step and nothing else; losses, lr and
+     grad norms equal to phase 17's run as it ran (the largest gaps
+     printed), seconds per step and peak memory beside phase 17's with
+     the card's name and power limit; one more full-width gradient,
+     whose largest leaf goes through the top-k (with error feedback)
+     and int8 gradient compressors on the card and on the CPU, bit for
+     bit; a reduced rwkv6-3b mesh trainer's checkpoint restored with
+     `shardings=` onto `make_mesh_for(1, model_parallel=1)`, bit for
+     bit; the process group is destroyed at the end;
   18. the WKV backward kernel against autograd through its plain
      version at (1, 4096, 40, 64), a ragged 1300, D = 32 with B = 2 and
      from a nonzero state with a nonzero final-state gradient, every
@@ -4071,7 +4085,202 @@ def train_path() -> dict:
     check(max(gaps["loss"]) <= TRAIN_LOSS_TOL, f"losses differ: {gaps}")
     _train_grad_check(cfg)
     torch.cuda.empty_cache()
-    return {"launches_train": n, "step_s": fast["step_s"]}
+    return {"launches_train": n, "step_s": fast["step_s"],
+            "opt_s": fast["opt_s"], "metrics": fast["metrics"][:TRAIN_STEPS],
+            "peak_gb": fast["peak_gb"]}
+
+
+# the checkpoint check's reduced rwkv6-3b run: steps, batch rows, tokens
+MESH_CKPT_STEPS, MESH_CKPT_BATCH, MESH_CKPT_SEQ = 2, 2, 256
+COMPRESS_RATIO = 0.01        # top-k's kept share (the reference's default)
+
+
+def _bits_equal(a, b) -> bool:
+    """Same shape and the same bits (float32 as int32: signed zeros and
+    NaN payloads count)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def train_mesh(train: dict) -> dict:
+    """Phase 17c (after phase 17): rwkv6-3b at full width and depth
+    trained with phase 17's recipe by `Trainer(mesh=make_smoke_mesh())`:
+    its parameters, gradients and moments `DTensor`s on a (1, 1)
+    ("data", "model") mesh in an NCCL world of one.  Launch counts reset
+    just before the run and read just after: exactly phase 17's 128 wkv
+    and 64 wkv_bwd launches a step and nothing else; losses, lr and grad
+    norms held to phase 17's kernel run as it ran (a world of one sums
+    over one rank: bitwise expected; the largest gap printed); seconds
+    per step and peak memory beside phase 17's.  Then, at reduced width,
+    a checkpoint of a mesh trainer restored with `shardings=` onto
+    `make_mesh_for(1, model_parallel=1)`, bitwise; and the gradient
+    compressors (top-k with error feedback, int8) on the card and on the
+    CPU on the largest leaf of one full-width gradient, bitwise."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime import compression as C
+    from repro_torch.runtime.elastic import make_mesh_for
+    from repro_torch.train.step import accumulate_grads
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_smoke_mesh()
+    print(f"train mesh: {mesh} in a world of {dist.get_world_size()} "
+          f"({dist.get_backend()})")
+    tr, init_s = wall(lambda: Trainer(cfg, _train_config(), mesh=mesh))
+    check(all(isinstance(x, DTensor) for x in _tree_leaves(tr.params)),
+          "the mesh trainer holds a parameter that is not a DTensor")
+    times = []
+    reset_counts()
+    tr.run(times=times)
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    layers = _mixer_layers(cfg)["rwkv6"]
+    want = {"wkv": 2 * layers * TRAIN_ACCUM * TRAIN_STEPS,
+            "wkv_bwd": layers * TRAIN_ACCUM * TRAIN_STEPS}
+    print(f"train mesh kernels ({TRAIN_STEPS} steps): wkv {n['wkv']} "
+          f"(expected {want['wkv']}), wkv_bwd {n['wkv_bwd']} (expected "
+          f"{want['wkv_bwd']}), others "
+          f"{ {k: v for k, v in n.items() if k not in want and v} }")
+    for k, w in want.items():
+        check(n[k] == w, f"train mesh: {k} launched {n[k]} times, "
+              f"expected {w}")
+    check(all(v == 0 for k, v in n.items() if k not in want),
+          f"the mesh training path launched another kernel: {n}")
+    gaps = {k: max(abs(a[k] - b[k]) for a, b in zip(tr.metrics,
+                                                     train["metrics"]))
+            for k in ("loss", "lr", "grad_norm")}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    card = card_line()
+    for m, b, t, bt, bo in zip(tr.metrics, train["metrics"], times,
+                               train["step_s"], train["opt_s"]):
+        st = t["grads_s"] + t["update_s"]
+        print(f"train mesh {cfg.name} step {m['step']}: loss {m['loss']:.6f} "
+              f"grad_norm {m['grad_norm']:.6f} lr {m['lr']:.3e} (phase 17: "
+              f"{b['loss']:.6f} {b['grad_norm']:.6f} {b['lr']:.3e}); "
+              f"{st:.3f} s = forward + backward {t['grads_s']:.3f} s + "
+              f"optimizer {t['update_s']:.3f} s, {tokens / st:.0f} tokens/s "
+              f"(phase 17: {bt:.3f} s, optimizer {bo:.3f} s) on {card}")
+    print(f"train mesh {cfg.name}: drawn and placed in {init_s:.2f} s; peak "
+          f"memory allocated {peak:.2f} GB (phase 17: "
+          f"{train['peak_gb']:.2f} GB); largest gaps to phase 17: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check(all(v == 0 for v in gaps.values()),
+          f"the mesh trainer's metrics differ from phase 17's: {gaps}")
+
+    # one more full-width gradient; its largest leaf through both
+    # compressors on the card and on the CPU
+    grads, _ = accumulate_grads(
+        tr.params, shard_batch(tr.data.batch_at(TRAIN_STEPS),
+                               SH.batch_sharding(mesh)), cfg, tr.tcfg.train)
+    name, leaf = max(((SH.path_str(p), x) for p, x in _named(grads)),
+                     key=lambda t: t[1].numel())
+    g = SH.local(leaf).detach().clone()
+    del grads, leaf, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = {}
+    for dev, x in (("cuda", {"g": g}), ("cpu", {"g": g.cpu()})):
+        (sent, state), sec = _timed(dev, lambda x=x: C.topk_compress(
+            x, C.topk_init(x), COMPRESS_RATIO))
+        (q, scale, _, _), sec8 = _timed(dev, lambda x=x: C.int8_compress(
+            x)["g"])
+        outs[dev] = {"sent": sent["g"], "residual": state.residual["g"],
+                     "q": q, "scale": scale, "s": (sec, sec8)}
+        del sent, state, q, scale
+    same = {k: _bits_equal(outs["cuda"][k], outs["cpu"][k])
+            for k in ("sent", "residual", "q", "scale")}
+    err = float((C.int8_decompress({"g": (outs["cuda"]["q"],
+                                          outs["cuda"]["scale"],
+                                          tuple(g.shape), 0)})["g"]
+                 - g).abs().max())
+    bound = C.int8_error_bound(g)
+    print(f"train mesh compressors on {name} {tuple(g.shape)} "
+          f"({g.numel()} elements): top-k at {COMPRESS_RATIO:g} "
+          f"{C.topk_wire_bytes({'g': g}, COMPRESS_RATIO)} wire bytes, "
+          f"{outs['cuda']['s'][0]:.3f} s on the card, "
+          f"{outs['cpu']['s'][0]:.3f} s on the CPU; int8 "
+          f"{outs['cuda']['s'][1]:.3f} / {outs['cpu']['s'][1]:.3f} s, round "
+          f"trip max error {err:.3e} (bound {bound:.3e}); bitwise card = "
+          f"CPU: {same}")
+    check(all(same.values()), f"the compressors differ card vs CPU: {same}")
+    check(err <= bound, f"int8 round trip {err} above its bound {bound}")
+    del outs, g
+    torch.cuda.empty_cache()
+
+    # a reduced mesh trainer's checkpoint, restored with shardings= onto
+    # make_mesh_for(1, model_parallel=1)
+    small = reduced(cfg)
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        tc = dataclasses.replace(
+            _train_config(), steps=MESH_CKPT_STEPS,
+            global_batch=MESH_CKPT_BATCH, seq_len=MESH_CKPT_SEQ, ckpt_dir=d,
+            ckpt_every=1)
+        st = Trainer(small, tc, mesh=make_smoke_mesh())
+        st.run()
+        new = make_mesh_for(1, model_parallel=1)
+        like = {"params": st.params, "opt": st.opt}
+        p_sh = SH.param_shardings(small, new, st.params)
+        tree, step = load_checkpoint(d, like, shardings={
+            "params": p_sh, "opt": SH.opt_shardings(p_sh, st.opt)})
+    pairs = list(zip(_named(tree), _named(like)))
+    same_ck = sum(_bits_equal(SH.gather(a), SH.gather(b))
+                  for (_, a), (_, b) in pairs)
+    placed = all(isinstance(a, DTensor) and a.device_mesh == new
+                 for (p, a), _ in pairs if p[0] == "params")
+    print(f"train mesh checkpoint ({small.name}, step {step}): {same_ck} of "
+          f"{len(pairs)} leaves bitwise after the restore onto "
+          f"make_mesh_for(1, model_parallel=1); parameters placed on it: "
+          f"{placed}")
+    check(step == MESH_CKPT_STEPS and same_ck == len(pairs) and placed,
+          "the mesh checkpoint did not restore bitwise")
+    del st, tree, like
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"train mesh phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches_train_mesh": n}
+
+
+def _named(tree, path=()):
+    """(path, leaf) of nested dicts, tuples and NamedTuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = zip(getattr(tree, "_fields", range(len(tree))), tree)
+    else:
+        yield path, tree
+        return
+    for k, v in items:
+        yield from _named(v, path + (k,))
+
+
+def _timed(dev: str, fn):
+    """fn() and its seconds, the card synchronized on both sides."""
+    import torch
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 # layers of the float32 gradient checks at full width: two, where
@@ -5017,7 +5226,12 @@ def main() -> int:
         train = phase(train_path)
         k11["launches_by_path"]["train"] = train["launches_train"]["wkv"]
         k11["launches"] += k11["launches_by_path"]["train"]
+        meshed = phase(train_mesh, train)["launches_train_mesh"]
+        k11["launches_by_path"]["train mesh"] = meshed["wkv"]
+        k11["launches"] += meshed["wkv"]
         k13 = phase(kernel_wkv_bwd, train)
+        k13["launches_by_path"]["train mesh"] = meshed["wkv_bwd"]
+        k13["launches"] += meshed["wkv_bwd"]
         phase(train_moe)
         phase(train_guards)
         phase(traffic_breakdown, traffic)

@@ -13,9 +13,16 @@ and the manifest records every leaf's dtype.  An asynchronous save
 copies every leaf to the host before its writer thread starts, so an
 in-place update of the state after `save_checkpoint` returns cannot
 reach the file.  On restore each leaf goes to the dtype and device of
-the matching leaf of `like`, or to `device` when one is given (the
-reference's `shardings`; the sharded counterpart waits for the model
-half of `launch/sharding.py`).
+the matching leaf of `like`, or to `device` when one is given.
+
+On a mesh the format stays mesh-agnostic: a `DTensor` leaf is gathered
+whole before it is saved (every rank takes part, before any writer
+starts), and rank 0 of the process group writes.  On restore a leaf is
+placed under its `shardings` entry (a `launch.sharding.NamedSharding`),
+or, without one, under the placements of a `DTensor` leaf of `like`;
+the mesh may differ from the one that saved (elastic re-meshing,
+`runtime.elastic`).  `CheckpointManager.wait` holds every rank until the
+writer has committed.
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.mesh import is_main_rank, mesh_device
+from repro_torch.launch.sharding import distribute, place
 
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
 _BF16 = "torch.bfloat16"
@@ -90,10 +102,17 @@ def save_checkpoint(path: str, step: int, tree, *, blocking: bool = True
     """Write `tree` under path/step_<n>/ atomically.  With
     `blocking=False` the files are written by a thread (returned; its
     `error` attribute holds an exception it raised) from host copies
-    taken before it starts."""
+    taken before it starts.  Every rank calls it; ranks other than 0
+    take part in gathering the `DTensor` leaves, write nothing and
+    return None."""
     final = os.path.join(path, f"step_{step:08d}")
     tmp = final + ".tmp"
-    host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
+    whole = {k: v.full_tensor() if isinstance(v, DTensor) else v
+             for k, v in _flatten(tree).items()}
+    if not is_main_rank():
+        return None
+    host = {k: _host_copy(v) for k, v in whole.items()}
+    del whole
     names = {k: _SAFE.sub("_", k) + ".npy" for k in host}
     if len(set(names.values())) != len(names):
         raise ValueError(f"leaf paths collide as file names: {names}")
@@ -141,7 +160,7 @@ def latest_step(path: str) -> int | None:
 
 
 def _restore_leaf(arr: np.ndarray, dtype: str | None, like, key: str,
-                  device):
+                  device, sharding):
     shape = tuple(like.shape) if hasattr(like, "shape") else np.shape(like)
     if tuple(arr.shape) != shape:
         raise ValueError(f"checkpoint leaf {key!r}: shape {arr.shape}, "
@@ -150,6 +169,12 @@ def _restore_leaf(arr: np.ndarray, dtype: str | None, like, key: str,
         t = torch.from_numpy(arr).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if sharding is not None:
+        return place(t.to(dtype=like.dtype, device=mesh_device(
+            sharding.mesh)), sharding)
+    if isinstance(like, DTensor):
+        return distribute(t.to(dtype=like.dtype, device=like.device),
+                          like.device_mesh, like.placements)
     if isinstance(like, torch.Tensor):
         return t.to(dtype=like.dtype,
                     device=like.device if device is None else device)
@@ -160,11 +185,14 @@ def _restore_leaf(arr: np.ndarray, dtype: str | None, like, key: str,
 
 
 def load_checkpoint(path: str, like, step: int | None = None,
-                    device: str | torch.device | None = None):
+                    device: str | torch.device | None = None,
+                    shardings=None):
     """Restore the latest committed step (or `step`) into the structure
     of `like`: each leaf takes its `like` leaf's dtype and device, or
-    `device` when given.  A shape that differs from `like`'s raises.
-    Returns (tree, step)."""
+    `device` when given, or is placed under its entry of `shardings` (a
+    tree like `like` of `NamedSharding`s, None for a plain leaf) or, as a
+    `DTensor` leaf of `like`, under that leaf's placements.  A shape that
+    differs from `like`'s raises.  Returns (tree, step)."""
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint under {path}")
@@ -173,8 +201,10 @@ def load_checkpoint(path: str, like, step: int | None = None,
         manifest = json.load(f)
     files, dtypes = manifest["leaves"], manifest.get("dtypes", {})
     dev = None if device is None else torch.device(device)
+    flat_sh = (_flatten(shardings) if shardings is not None
+               else dict.fromkeys(_flatten(like)))
     out = {key: _restore_leaf(np.load(os.path.join(d, files[key])),
-                              dtypes.get(key), leaf, key, dev)
+                              dtypes.get(key), leaf, key, dev, flat_sh[key])
            for key, leaf in _flatten(like).items()}
     return _rebuild(like, out), step
 
@@ -197,14 +227,18 @@ class CheckpointManager:
         self._gc()
 
     def wait(self):
+        """Join the pending writer (re-raising its error); in a world of
+        several ranks every rank then waits for the others."""
         if self._pending is not None:
             t, self._pending = self._pending, None
             t.join()
             if t.error is not None:
                 raise t.error
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def _gc(self):
-        if not os.path.isdir(self.path):
+        if not is_main_rank() or not os.path.isdir(self.path):
             return
         steps = sorted(
             int(d.split("_")[1]) for d in os.listdir(self.path)
@@ -213,5 +247,7 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.path, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore(self, like, device: str | torch.device | None = None):
-        return load_checkpoint(self.path, like, device=device)
+    def restore(self, like, device: str | torch.device | None = None,
+                shardings=None):
+        return load_checkpoint(self.path, like, device=device,
+                               shardings=shardings)

@@ -5,9 +5,9 @@ of `repro.data.pipeline`).
 1_000_003 + step)` and one zipfian `choice` per batch, so a batch is bit
 for bit the reference's.  The host-to-device prefetch queue is sized by
 an `AdaptiveTable` profiled on batch-production latency, as in the
-reference.  The reference's `shard_batch` places a batch under a device
-sharding; the port's is a plain move to one device (the model half of
-sharding waits for ROADMAP queue A, "LLM scaffold, what PR 16-17 left").
+reference.  `shard_batch` places a batch under a mesh sharding
+(`launch.sharding.batch_sharding`: rows over the data-parallel axes),
+as the reference's, or moves it to one device.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.core.autotune import AdaptiveTable
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
+from repro_torch.launch.sharding import NamedSharding, place
 
 STATIC_WORST_CASE_DEPTH = 16
 
@@ -54,9 +56,16 @@ class SyntheticLM:
 
 
 def shard_batch(batch: dict[str, np.ndarray],
-                device: str | torch.device = "cuda") -> dict:
-    """The batch's arrays as tensors on `device`."""
-    dev = resolve_device(device)
+                sharding: str | torch.device | NamedSharding = "cuda"
+                ) -> dict:
+    """The batch's arrays as tensors on a device, or as `DTensor`s under a
+    `NamedSharding` (each rank keeps its rows of the whole batch, which
+    every rank holds)."""
+    if isinstance(sharding, NamedSharding):
+        dev = mesh_device(sharding.mesh)
+        return {k: place(torch.as_tensor(np.ascontiguousarray(v)).to(dev),
+                         sharding) for k, v in batch.items()}
+    dev = resolve_device(sharding)
     return {k: torch.as_tensor(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
 

@@ -2,7 +2,7 @@
 --arch <id> ...`` (the reference's `repro.launch.train`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
-        [--steps 20] [--device cuda|cpu]
+        [--steps 20] [--device cuda|cpu] [--mesh none|pod|multipod]
 
 Runs a reduced config (`--full-config` for the full architecture) in
 float32 through `Trainer` on one device; `--device` defaults to cuda (no
@@ -11,7 +11,10 @@ On the card every RWKV6 layer trains through the WKV kernel and its
 backward kernel, every Mamba layer through the selective-scan kernel
 and its backward kernel; attention trains through the plain attention
 and MoE FFNs (granite, arctic, jamba) in plain torch.  `--mesh
-pod|multipod` raises.  Prints the reference's loss line.
+pod|multipod` trains in bf16 on the production mesh over the launcher's
+world (`torchrun --nproc-per-node ...` sets `WORLD_SIZE` and `RANK`): 256
+or 512 ranks, one a device; a world of another size raises the mesh's
+`ValueError`.  Prints the reference's loss line.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import reduced
+from repro_torch.launch.mesh import (is_main_rank, make_production_mesh,
+                                     world_size)
 from repro_torch.train.step import TrainConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -41,22 +46,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes need the model "
-            "half of launch/mesh.py and launch/sharding.py (ROADMAP queue "
-            "A, \"LLM scaffold, what PR 16-17 left\")")
     cfg = get_config(args.arch)
     if not args.full_config:
         cfg = reduced(cfg)
+    mesh = None
+    if args.mesh != "none":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod",
+                                    device=args.device)
     tcfg = TrainerConfig(
         steps=args.steps, global_batch=args.global_batch,
         seq_len=args.seq_len, ckpt_dir=args.ckpt,
-        train=TrainConfig(accum_steps=args.accum, dtype=torch.float32))
-    trainer = Trainer(cfg, tcfg, device=args.device)
+        train=TrainConfig(accum_steps=args.accum,
+                          dtype=torch.bfloat16 if mesh else torch.float32))
+    trainer = Trainer(cfg, tcfg, mesh=mesh, device=args.device)
     out = trainer.run()
-    print(f"{args.arch}: loss {out['losses'][0]:.3f} -> "
-          f"{out['losses'][-1]:.3f} in {out['wall_s']:.0f}s on 1 device(s)")
+    if is_main_rank():
+        print(f"{args.arch}: loss {out['losses'][0]:.3f} -> "
+              f"{out['losses'][-1]:.3f} in {out['wall_s']:.0f}s on "
+              f"{world_size()} device(s)")
 
 
 if __name__ == "__main__":

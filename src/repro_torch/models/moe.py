@@ -20,9 +20,16 @@ to x's dtype before the last contraction.  The gradient reaches the
 router through the gate values and the auxiliary loss' mean
 probabilities; the one-hot masks and positions carry none.
 
-The reference's `pspec.constrain` calls do nothing on one device and
-are left out here; they come with the model half of the meshes (ROADMAP
-queue A, item 9.3).
+Under a mesh each data-parallel rank routes its own shard of the batch.
+Its routing groups are the reference's when its token count is a
+multiple of the global batch's group (a group spanning ranks raises).
+The experts' top-1 fractions are averaged over those ranks
+(`pspec.dp_mean`; they carry no gradient), and the auxiliary loss is
+linear in the mean probabilities, so the ranks' mean loss is the global
+batch's, as the reference's.  The reference's three `pspec.constrain`
+calls partition activations over "model"; they are left out until the
+forward runs on `DTensor`s (ROADMAP queue A, "LLM scaffold, what PR
+16-17 left", item 9.3b).
 
 Covers arctic-480b (128e top-2 + parallel dense residual),
 granite-moe-1b-a400m (32e top-8) and jamba (16e top-2, every 2nd layer).
@@ -35,6 +42,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import pspec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
@@ -91,6 +99,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
         raise ValueError(f"moe_apply: top_k {k} must lie in [1, n_experts "
                          f"{e}]")
     s = min(group_size(cfg), t)
+    dp = pspec.dp_size()
+    if dp > 1 and t % min(group_size(cfg), dp * t):
+        raise NotImplementedError(
+            f"moe_apply: {t} tokens on each of {dp} data-parallel ranks do "
+            f"not make whole routing groups of {group_size(cfg)}; a group "
+            "spanning ranks waits for ROADMAP queue A, \"LLM scaffold, what "
+            "PR 16-17 left\", item 9.3b")
     pad = (-t) % s
     g = (t + pad) // s
     c = capacity(s, e, k)
@@ -108,7 +123,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     # load-balancing auxiliary loss (Switch-style), over all G * S rows
     me = probs.mean((0, 1))                                    # [E]
-    ce = F.one_hot(gate_idx[..., 0], e).to(logits.dtype).mean((0, 1))
+    ce = pspec.dp_mean(
+        F.one_hot(gate_idx[..., 0], e).to(logits.dtype).mean((0, 1)))
     aux = e * torch.sum(me * ce)
 
     dispatch = torch.zeros((g, s, e, c), dtype=dt, device=x.device)

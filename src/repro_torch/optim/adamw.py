@@ -8,13 +8,21 @@ leaf in place under `torch.no_grad()`, in slices of at most
 `SLICE_ELEMS` elements along the leading axis (the update is elementwise,
 so slicing changes no value) to bound its temporaries.  The default
 returns new trees and leaves its arguments untouched; both give the same
-values."""
+values.
+
+Leaves may be `DTensor`s on a mesh (`launch.sharding`): the moments take
+their parameters' placements, each rank updates its local shards, and
+the global norm counts every element once (`sharded_sums`)."""
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.sharding import local
 
 SLICE_ELEMS = 1 << 26        # elements per in-place slice (256 MB float32)
 
@@ -48,11 +56,53 @@ def _clone(tree):
     return tree.clone()
 
 
+def locals_of(p, *rest) -> tuple:
+    """The local shards of a parameter and the leaves that go with it,
+    which must share its placements."""
+    for x in rest:
+        if isinstance(x, DTensor) and (not isinstance(p, DTensor) or
+                                       x.placements != p.placements):
+            raise ValueError(f"a leaf placed {x.placements} goes with a "
+                             f"parameter placed "
+                             f"{getattr(p, 'placements', 'locally')}")
+    return tuple(local(x) for x in (p, *rest))
+
+
+def sharded_dims(x) -> tuple[int, ...]:
+    """The mesh dims of size > 1 that shard a `DTensor` (() for a plain
+    tensor)."""
+    if not isinstance(x, DTensor):
+        return ()
+    m = x.device_mesh
+    return tuple(i for i, p in enumerate(x.placements)
+                 if p.is_shard() and m.size(i) > 1)
+
+
+def sharded_sums(xs: list, fn) -> list:
+    """`fn` (a sum over elements) of each tensor: of its local shard,
+    summed over the mesh dims that shard it, so that every element counts
+    once and its replicas not at all.  One all-reduce per set of mesh
+    dims; a plain tensor's value is `fn` of it."""
+    sums = [fn(local(x)) for x in xs]
+    groups: dict[tuple, list] = {}
+    for i, x in enumerate(xs):
+        if sharded_dims(x):
+            groups.setdefault(sharded_dims(x), []).append(i)
+    for dims, idx in sorted(groups.items()):
+        mesh = xs[idx[0]].device_mesh
+        v = torch.stack([sums[i] for i in idx])
+        for d in dims:
+            dist.all_reduce(v, group=mesh.get_group(d))
+        for k, i in enumerate(idx):
+            sums[i] = v[k]
+    return sums
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over the leaves of each leaf's float32 sum of
     squares (summed leaf by leaf, as the reference)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+    return torch.sqrt(sum(sharded_sums(
+        tree_leaves(grads), lambda g: torch.sum(torch.square(g.float())))))
 
 
 def clip_scale(grads, grad_clip: float | None):
@@ -121,5 +171,5 @@ def adamw_update(grads, state: AdamWState, params, lr,
 
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state.m), tree_leaves(state.v)):
-        upd(p, g, m, v)
+        upd(*locals_of(p, g, m, v))
     return params, AdamWState(step=step, m=state.m, v=state.v)

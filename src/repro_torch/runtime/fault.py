@@ -4,9 +4,9 @@
 `FaultTolerantLoop` wraps a train-step callable with:
   * periodic async checkpoints (CheckpointManager),
   * a simulated heartbeat monitor (nodes miss beats -> declared dead),
-  * restart-from-checkpoint on failure (the reference's elastic
-    re-mesh, `runtime/elastic.py`, waits for the model half of
-    `launch/sharding.py`).
+  * restart-from-checkpoint on failure; the restart may re-mesh
+    (`runtime.elastic.plan_mesh` / `make_mesh_for`, the checkpoint
+    restored under the new mesh's shardings).
 
 The heartbeat thresholds use the AL-DRAM adaptive table (per-node
 profiles) rather than a single static miss budget.

@@ -480,19 +480,19 @@ def test_launcher_on_the_cpu(capsys, monkeypatch):
 
 
 def test_refusals():
-    """What waits for ROADMAP queue A's LLM item raises, naming it."""
+    """`--mesh pod` in a world of one raises the production mesh's
+    `ValueError`, naming the 256 ranks it needs, before any process group
+    starts; a mesh that is not a `DeviceMesh` raises a `TypeError`."""
+    import torch.distributed as dist
     from repro_torch.launch import train as port_launch
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg, pcfg = _cfgs("glm4-9b")
-    with pytest.raises(NotImplementedError, match="LLM scaffold"):
-        Trainer(pcfg, TrainerConfig(steps=1), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="LLM scaffold"):
+    with pytest.raises(ValueError, match="256 ranks"):
         port_launch.main(["--arch", "glm4-9b", "--mesh", "pod",
                           "--device", "cpu"])
-    p = TF.init_params(torch.Generator().manual_seed(0), pcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        train_step(p, adamw_init(p), _batch(_tokens(cfg, 0), True), pcfg,
-                   TrainConfig(dtype=torch.float32), grad_shardings={})
+    assert not dist.is_initialized()
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        Trainer(pcfg, TrainerConfig(steps=1), mesh=object(), device="cpu")
     # MoE configs train since models/moe.py is ported: no refusal left
     moe = reduced(get_config("granite-moe-1b-a400m"))
     trainer = Trainer(moe, TrainerConfig(steps=1, global_batch=2,

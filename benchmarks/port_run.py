@@ -44,8 +44,9 @@ def benches() -> dict:
     from benchmarks import (port_fault_bench, port_fig2_refresh,
                             port_fig2_timing, port_fig3_population,
                             port_fig4_system, port_fig_bank, port_fig_region,
-                            port_fleet_bench, port_multi_timing,
-                            port_power_bench, port_repeatability,
+                            port_fleet_bench, port_framework,
+                            port_multi_timing, port_power_bench,
+                            port_repeatability, port_roofline,
                             port_sim_bench, port_thermal_bench,
                             port_traffic_bench)
 
@@ -68,6 +69,8 @@ def benches() -> dict:
         "fleet_bench": kw(port_fleet_bench.run),
         "fault_bench": kw(port_fault_bench.run),
         "traffic_bench": kw(port_traffic_bench.run),
+        "framework": kw(port_framework.run),
+        "roofline": kw(port_roofline.run),
     }
 
 

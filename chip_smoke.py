@@ -321,9 +321,23 @@ Phases (any failure exits non-zero and prints no result line):
      the card's name and power limit; one more full-width gradient,
      whose largest leaf goes through the top-k (with error feedback)
      and int8 gradient compressors on the card and on the CPU, bit for
-     bit; a reduced rwkv6-3b mesh trainer's checkpoint restored with
-     `shardings=` onto `make_mesh_for(1, model_parallel=1)`, bit for
-     bit; the process group is destroyed at the end;
+     bit, and through one 8-bit AdamW update (with its parameter, from
+     a zero state, no clipping) on the card and on the CPU: moment codes,
+     row scales and parameters bit for bit; a reduced rwkv6-3b mesh
+     trainer's checkpoint restored with `shardings=` onto
+     `make_mesh_for(1, model_parallel=1)`, bit for bit; the process
+     group is destroyed at the end;
+  17d. (inside phase 17c, after its gradient for the compressors and
+     before its trainer is freed; no new model) one warm training step
+     of that trainer counted on the card by the cost counter
+     (`repro_torch.launch.hlo_cost`), launch counts reset just before
+     and read just after: exactly 128 wkv and 64 wkv_bwd launches; the
+     same step counted on fake CPU tensors by `repro_torch.launch.
+     dryrun`: equal flops and collectives, and the HBM bytes equal or
+     each differing op printed; one line with the flops, HBM bytes, model
+     flops, useful ratio, the H100 roofline's compute and memory seconds,
+     phase 17's warm step and the model-flops share of 989 TFLOP/s in
+     it, with the card's name and power limit;
   18. the WKV backward kernel against autograd through its plain
      version at (1, 4096, 40, 64), a ragged 1300, D = 32 with B = 2 and
      from a nonzero state with a nonzero final-state gradient, every
@@ -4190,10 +4204,13 @@ def train_mesh(train: dict) -> dict:
     grads, _ = accumulate_grads(
         tr.params, shard_batch(tr.data.batch_at(TRAIN_STEPS),
                                SH.batch_sharding(mesh)), cfg, tr.tcfg.train)
-    name, leaf = max(((SH.path_str(p), x) for p, x in _named(grads)),
-                     key=lambda t: t[1].numel())
+    path, leaf = max(_named(grads), key=lambda t: t[1].numel())
+    name = SH.path_str(path)
     g = SH.local(leaf).detach().clone()
-    del grads, leaf, tr
+    p0 = SH.local(SH.at(tr.params, path)).detach().clone()
+    del grads, leaf
+    cost = train_cost(tr, train)
+    del tr
     gc.collect()
     torch.cuda.empty_cache()
     outs = {}
@@ -4222,7 +4239,9 @@ def train_mesh(train: dict) -> dict:
           f"CPU: {same}")
     check(all(same.values()), f"the compressors differ card vs CPU: {same}")
     check(err <= bound, f"int8 round trip {err} above its bound {bound}")
-    del outs, g
+    del outs
+    adamw8_card_cpu(name, g, p0)
+    del g, p0
     torch.cuda.empty_cache()
 
     # a reduced mesh trainer's checkpoint, restored with shardings= onto
@@ -4255,7 +4274,120 @@ def train_mesh(train: dict) -> dict:
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     print(f"train mesh phase: {time.perf_counter() - t0:.1f} s")
-    return {"launches_train_mesh": n}
+    return {"launches_train_mesh": n, "launches_cost": cost}
+
+
+def adamw8_card_cpu(name: str, g, p) -> None:
+    """Phase 17c's 8-bit AdamW check: one update of the parameter leaf
+    `p` by its gradient `g` (rwkv6-3b's largest leaf, from a zero state,
+    lr 3e-4, no clipping: the global norm is a reduction whose order is
+    the device's own) on the card and on the CPU: the moment codes, the
+    row scales and the parameters bit for bit."""
+    import torch
+    from repro_torch.optim.adamw8bit import adamw8_init, adamw8_update
+
+    outs = {}
+    for dev, x, w in (("cuda", g, p), ("cpu", g.cpu(), p.cpu())):
+        def one(x=x, w=w, dev=dev):
+            st = adamw8_init({"w": w})
+            new, st = adamw8_update({"w": x}, st, {"w": w},
+                                    torch.full((), 3e-4, device=dev),
+                                    grad_clip=None)
+            return {"param": new["w"], "m codes": st.m["w"].q,
+                    "m scales": st.m["w"].scale, "v codes": st.v["w"].q,
+                    "v scales": st.v["w"].scale}
+        outs[dev], sec = _timed(dev, one)
+        outs[dev]["s"] = sec
+    same = {k: _bits_equal(outs["cuda"][k], outs["cpu"][k])
+            for k in outs["cpu"] if k != "s"}
+    flips = {k: int((outs["cuda"][k].cpu() != outs["cpu"][k]).sum())
+             for k in same if not same[k]}
+    print(f"train mesh 8-bit AdamW on {name} {tuple(g.shape)}: one update "
+          f"{outs['cuda']['s']:.3f} s on the card, {outs['cpu']['s']:.3f} s "
+          f"on the CPU; bitwise card = CPU: {same}"
+          + (f"; elements that differ: {flips}" if flips else ""))
+    check(all(same.values()), f"8-bit AdamW differs card vs CPU: {flips}")
+
+
+COST_TOL_OPS = 20            # differing ops printed by phase 17d
+
+
+def train_cost(tr, train: dict) -> dict:
+    """Phase 17d (inside phase 17c, on its trainer, before it is freed;
+    no new model): one warm training step of rwkv6-3b at full width
+    (phase 17's recipe, the (1, 1) mesh) counted on the card by
+    `launch.hlo_cost`, launch counts reset just before and read just
+    after (exactly 128 wkv and 64 wkv_bwd launches and nothing else),
+    and the same step counted on fake CPU tensors by `launch.dryrun`
+    (no mesh: on a mesh of one rank the step runs the same ops): equal
+    flops and collectives; the HBM bytes equal, or each differing op
+    printed.  Then one line: flops, HBM bytes, model flops (3 x
+    `flops_per_token` x tokens), the useful ratio, the H100 roofline's
+    compute and memory seconds (989 TFLOP/s, 3.35 TB/s), phase 17's warm
+    step and the model-flops share of 989 TFLOP/s in it, with the card's
+    name and power limit.  Returns the launches."""
+    import torch
+    from repro_torch.launch import dryrun, hlo_cost
+
+    t0 = time.perf_counter()
+    cfg = tr.cfg
+    batch = tr._place(tr.data.batch_at(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (out, card_mode, card_mem), step_s = _timed("cuda", lambda: hlo_cost.count(
+        tr._step, tr.params, tr.opt, batch))
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(out[2]["loss"])
+    del out
+    layers = _mixer_layers(cfg)["rwkv6"]
+    want = {"wkv": 2 * layers * TRAIN_ACCUM, "wkv_bwd": layers * TRAIN_ACCUM}
+    print(f"cost step kernels: wkv {n['wkv']} (expected {want['wkv']}), "
+          f"wkv_bwd {n['wkv_bwd']} (expected {want['wkv_bwd']}), others "
+          f"{ {k: v for k, v in n.items() if k not in want and v} }")
+    for k, w in want.items():
+        check(n[k] == w, f"cost step: {k} launched {n[k]} times, expected "
+              f"{w}")
+    check(all(v == 0 for k, v in n.items() if k not in want),
+          f"the counted step launched another kernel: {n}")
+
+    t1 = time.perf_counter()
+    specs = dryrun.fake_inputs(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    fake_mode, fake_mem = dryrun.count_step("train", cfg, specs,
+                                            tr.tcfg.train)
+    fake_s = time.perf_counter() - t1
+    c, f = card_mode.costs, fake_mode.costs
+    print(f"cost step counted: card {c.flops:.6e} flops, {c.hbm_bytes:.6e} "
+          f"HBM bytes, collectives {c.collectives}, peak tracked "
+          f"{card_mem['peak_bytes'] / 1e9:.3f} GB (allocator peak "
+          f"{peak:.3f} GB), loss {loss:.6f}, {step_s:.3f} s under the "
+          f"counter; fake CPU tensors {f.flops:.6e} flops, "
+          f"{f.hbm_bytes:.6e} HBM bytes, collectives {f.collectives}, peak "
+          f"{fake_mem['peak_bytes'] / 1e9:.3f} GB, {fake_s:.1f} s")
+    diff = sorted((k, card_mode.ops.get(k), fake_mode.ops.get(k))
+                  for k in set(card_mode.ops) | set(fake_mode.ops)
+                  if card_mode.ops.get(k) != fake_mode.ops.get(k))
+    for k, a, b in diff[:COST_TOL_OPS]:
+        print(f"  cost step op {k}: card [calls, flops, bytes] {a}, fake {b}")
+    check(c.flops == f.flops and c.collectives == f.collectives,
+          "the card's counted step and its fake-tensor count differ in "
+          "flops or collectives")
+    mf = 3.0 * cfg.flops_per_token(TRAIN_SEQ) * TRAIN_BATCH * TRAIN_SEQ
+    warm = statistics.median(train["step_s"][1:])
+    print(f"cost rwkv6-3b step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, accum "
+          f"{TRAIN_ACCUM}, remat, bf16 compute): {c.flops:.6e} flops, "
+          f"{c.hbm_bytes:.6e} HBM bytes (hbm equal to the fake count: "
+          f"{c.hbm_bytes == f.hbm_bytes}), model flops {mf:.6e}, useful "
+          f"ratio {mf / c.flops:.4f}; H100 roofline compute "
+          f"{c.flops / PEAK_BF16_PER_S:.4f} s, memory "
+          f"{c.hbm_bytes / PEAK_BYTES_PER_S:.4f} s; phase 17 warm step "
+          f"{warm:.4f} s (median of {len(train['step_s']) - 1}); model-flops "
+          f"share of 989 TFLOP/s {mf / PEAK_BF16_PER_S / warm:.4%} on "
+          f"{card_line()}")
+    print(f"cost phase (17d): {time.perf_counter() - t0:.1f} s")
+    return n
+
 
 
 def _named(tree, path=()):
@@ -5226,12 +5358,16 @@ def main() -> int:
         train = phase(train_path)
         k11["launches_by_path"]["train"] = train["launches_train"]["wkv"]
         k11["launches"] += k11["launches_by_path"]["train"]
-        meshed = phase(train_mesh, train)["launches_train_mesh"]
+        meshed = phase(train_mesh, train)
+        counted = meshed["launches_cost"]
+        meshed = meshed["launches_train_mesh"]
         k11["launches_by_path"]["train mesh"] = meshed["wkv"]
-        k11["launches"] += meshed["wkv"]
+        k11["launches_by_path"]["cost (17d)"] = counted["wkv"]
+        k11["launches"] += meshed["wkv"] + counted["wkv"]
         k13 = phase(kernel_wkv_bwd, train)
         k13["launches_by_path"]["train mesh"] = meshed["wkv_bwd"]
-        k13["launches"] += meshed["wkv_bwd"]
+        k13["launches_by_path"]["cost (17d)"] = counted["wkv_bwd"]
+        k13["launches"] += meshed["wkv_bwd"] + counted["wkv_bwd"]
         phase(train_moe)
         phase(train_guards)
         phase(traffic_breakdown, traffic)

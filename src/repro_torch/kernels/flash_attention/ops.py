@@ -3,7 +3,9 @@
 CUDA tensors launch `flash_attention.cu` (counted in
 `flash_attention.launches`); CPU tensors run the plain version
 (`ref.flash_attention`) — chosen by the tensors' device alone, and a
-CUDA tensor never falls back.  The kernel reads [B, S, H, D] through
+CUDA tensor never falls back.  The wrapper is the `torch.library` custom
+op `repro_torch::flash_attention` (`kernels.library`): one op on every
+device, with a fake implementation that launches nothing.  The kernel reads [B, S, H, D] through
 its strides (the last axis contiguous), handles ragged Sq and Sk itself
 (no padding copies: keys at kpos >= Sk are masked, as in the plain
 version) and takes head dims 32, 64, 128 and 256 in float32 (register
@@ -19,9 +21,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.library import route
 
 HEAD_DIMS = (32, 64, 128, 256)   # the configs' and the reduced configs'
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,25 +75,8 @@ def _check(q, k, v, window) -> None:
                          f"{window}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
-    dtype.  Scale D^-0.5, kv head h // (Hq / Hkv), causal kpos <= qpos,
-    window kpos > qpos - window; float32 math."""
-    _check(q, k, v, window)
-    devs = {x.device for x in (q, k, v)}
-    if devs == {torch.device("cpu")}:
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
-    if len(devs) != 1 or q.device.type != "cuda":
-        raise ValueError(f"flash_attention: q, k and v must lie on one "
-                         f"CUDA device, got {[str(d) for d in devs]}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: the kernel has no backward yet, and its output "
-            "would carry no gradient (ROADMAP queue A, \"LLM scaffold, what "
-            "PR 16-17 left\": a flash attention backward kernel); train "
-            "without use_flash, or call it under torch.no_grad()")
+def _launch(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+    """Launch the kernel (inputs checked by `flash_attention`)."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: float32 or bfloat16 inputs of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -117,10 +104,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+              window: int) -> Tensor:
+    """window 0: none.  On the CPU the plain version."""
+    return ref.flash_attention(q, k, v, causal=causal, window=window or None)
+
+
+@_flash_op.register_kernel("cuda")
+def _(q, k, v, causal, window):
+    return _launch(q, k, v, causal, window or None)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
+    dtype.  Scale D^-0.5, kv head h // (Hq / Hkv), causal kpos <= qpos,
+    window kpos > qpos - window; float32 math.  The op
+    `repro_torch::flash_attention`: one op on every device, fake tensors
+    included (an output of q's shape, nothing launched); CPU inputs that
+    require grad (with grad enabled) run the differentiable plain version
+    outside it."""
+    _check(q, k, v, window)
+    grad = torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in (q, k, v))
+    where = route("flash_attention", (q, k, v))
+    if where == "cpu" and grad:
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if where == "cuda" and grad:
+        raise NotImplementedError(
+            "flash_attention: the kernel has no backward yet, and its output "
+            "would carry no gradient (ROADMAP queue A, \"LLM scaffold, what "
+            "PR 16-17 left\": a flash attention backward kernel); train "
+            "without use_flash, or call it under torch.no_grad()")
+    return _flash_op(q, k, v, causal, window or 0)
+
+
 flash_attention.launches = 0
 
 
 def attention_flops(b, sq, sk, hq, d, causal=True) -> int:
-    """Roofline helper."""
+    """Roofline helper: the two products, 2 x 2 b hq sq sk d, halved by
+    the causal mask."""
     full = 4 * b * hq * sq * sk * d
     return full // 2 if causal else full
+
+
+def attention_hbm_bytes(b, sq, sk, hq, hkv, d, itemsize: int = 4) -> int:
+    """Bytes a call must move: q read and the output written ([B, Sq, Hq,
+    D] each), k and v read ([B, Sk, Hkv, D] each), once."""
+    return itemsize * (2 * b * sq * hq * d + 2 * b * sk * hkv * d)

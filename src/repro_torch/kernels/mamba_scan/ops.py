@@ -13,17 +13,21 @@ measured on the card); `scan_thread_map` repeats the kernel's index
 arithmetic, so the CPU tests can check that a plan covers every state
 exactly once.
 
-On the card, inputs that require grad (with grad enabled) go through a
-`torch.autograd.Function`: its forward launches the kernel with its
-usual plan and keeps the state before every `chunk()`-th step (the
-kernel's optional `h_chunks` output, at the backward kernel's spacing;
-the serve path's launches do not ask for it), and its backward launches
+Both are `torch.library` custom ops (`repro_torch::mamba_scan`,
+`repro_torch::mamba_scan_bwd`; `kernels.library`): one op on every
+device, with a fake implementation that returns outputs of the kernels'
+shapes and launches nothing.  For inputs that require grad (with grad
+enabled) the forward launches the kernel with its usual plan and keeps
+the state before every `chunk()`-th step (the kernel's optional
+`h_chunks` output, at the backward kernel's spacing; the serve path's
+launches do not ask for it), and its backward is
+`repro_torch::mamba_scan_bwd`, which on the card launches
 `mamba_scan_bwd.cu` (`mamba_scan_backward`, counted in
 `mamba_scan_backward.launches`, one per call; a call runs two CUDA
 kernels: the reverse scan, whose clusters of blocks write partial rows
-of dB and dC, then the sums of those rows), which returns the gradients
-of x, dt, B, C, A and, when a state was passed in, of h0.  On the CPU
-autograd differentiates the plain version.
+of dB and dC, then the sums of those rows) and returns the gradients of
+x, dt, B, C, A and, when a state was passed in, of h0.  On the CPU the
+backward differentiates the plain step loop, recomputed.
 """
 
 from __future__ import annotations
@@ -31,16 +35,22 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import build
+from repro_torch.kernels.library import (autograd_inside, float_of,
+                                         no_states, route)
 from repro_torch.kernels.mamba_scan import ref
 
 STATE_DIMS = (8, 16)      # jamba's and the reduced configs'
 TEAMS = {8: (2, 4, 8), 16: (2, 4, 8, 16)}    # the kernel's instantiations
 SMEM_LIMIT = 227 * 1024   # mamba_scan.cu's bound on a block's shared memory
 MAX_THREADS = 512         # ... and on its threads (`kMaxThreads`)
+SPAN = 16                 # mamba_scan_bwd.cu's `kSpan`: steps between the
+                          # states the forward saves for the backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +146,13 @@ def _bwd_lib() -> ctypes.CDLL:
 def chunk() -> int:
     """Steps between the states the backward reads: the backward
     kernel's own spacing (`mamba_scan_bwd_chunk`), at which the forward
-    saves them, whatever its tile.  Builds the kernels on first use."""
-    return _bwd_lib().mamba_scan_bwd_chunk()
+    saves them, whatever its tile; `SPAN`, which the CPU and fake
+    implementations use, must be it.  Builds the kernels on first use."""
+    n = _bwd_lib().mamba_scan_bwd_chunk()
+    if n != SPAN:
+        raise RuntimeError(f"mamba_scan: the backward kernel reads states "
+                           f"every {n} steps, SPAN says {SPAN}")
+    return n
 
 
 def _check(x, dt, bmat, cmat, a, h0) -> None:
@@ -208,72 +223,11 @@ def _forward(x, dt, bmat, cmat, a, h0, plan: ScanPlan | None,
     return y, h_out, chunks
 
 
-class _Scan(torch.autograd.Function):
-    """The scan kernel with the backward kernel as its gradient."""
-
-    @staticmethod
-    def forward(ctx, x, dt, bmat, cmat, a, h0, plan):
-        y, h_out, chunks = _forward(x, dt, bmat, cmat, a, h0, plan,
-                                    save_chunks=True)
-        ctx.save_for_backward(x, dt, bmat, cmat, a, chunks)
-        ctx.has_h0 = h0 is not None
-        ctx.set_materialize_grads(False)
-        return y, h_out
-
-    @staticmethod
-    def backward(ctx, dy, dh):
-        x, dt, bmat, cmat, a, chunks = ctx.saved_tensors
-        if dy is None:                   # only the final state was used
-            dy = torch.zeros_like(x)
-        grads = mamba_scan_backward(x, dt, bmat, cmat, a, chunks, dy, dh,
-                                    need_h0=ctx.has_h0)
-        return (*grads, None)
-
-
-def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
-               cmat: torch.Tensor, a: torch.Tensor,
-               h0: torch.Tensor | None = None, plan: ScanPlan | None = None):
-    """x, dt: [B, T, di]; bmat, cmat: [B, T, ds]; a: [di, ds]; h0
-    [B, di, ds] or None (zeros) -> (y [B, T, di], final state [B, di, ds]),
-    float32.  No D-skip, no gate.  Differentiable on both devices.
-    `plan` overrides `scan_plan` (the card only; with grad, a tile
-    shorter than T is a multiple of `chunk()` steps)."""
-    _check(x, dt, bmat, cmat, a, h0)
-    xs = [x, dt, bmat, cmat, a] + ([] if h0 is None else [h0])
-    if {t.device for t in xs} == {torch.device("cpu")}:
-        return ref.mamba_scan(x, dt, bmat, cmat, a, h0=h0)
-    _cuda_inputs("mamba_scan", xs)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
-        return _Scan.apply(x, dt, bmat, cmat, a, h0, plan)
-    y, h_out, _ = _forward(x, dt, bmat, cmat, a, h0, plan)
-    return y, h_out
-
-
-mamba_scan.launches = 0
-
-
-def mamba_scan_backward(x, dt, bmat, cmat, a, h_chunks, dy, dh=None,
-                        need_h0: bool = False):
-    """The backward kernel on CUDA tensors: x, dt and the output's
-    gradient dy [B, T, di], bmat, cmat [B, T, ds], a [di, ds], the
-    forward's states at the start of every `chunk()` steps `h_chunks`
-    [ceil(T / chunk()), B, di, ds] and the final state's gradient dh
-    [B, di, ds] or None (zeros) -> (dx, ddt [B, T, di], dB, dC [B, T,
-    ds], dA [di, ds], dh0 [B, di, ds] or None unless `need_h0`)."""
-    _check(x, dt, bmat, cmat, a, dh)
+def _backward(x, dt, bmat, cmat, a, h_chunks, dy, dh, need_h0):
+    """Launch the backward kernel (inputs checked by
+    `mamba_scan_backward`)."""
     b, t, di = x.shape
     ds = bmat.shape[-1]
-    given = [] if dh is None else [dh]
-    _cuda_inputs("mamba_scan_backward", [x, dt, bmat, cmat, a, h_chunks, dy]
-                 + given)
-    if ds not in STATE_DIMS:
-        raise ValueError(f"mamba_scan_backward: state dim {ds} not in "
-                         f"{STATE_DIMS}")
-    if tuple(dy.shape) != (b, t, di) or tuple(h_chunks.shape) != (
-            -(-t // chunk()), b, di, ds):
-        raise ValueError(f"mamba_scan_backward: dy {tuple(dy.shape)} or the "
-                         f"chunk states {tuple(h_chunks.shape)} do not match "
-                         f"x {tuple(x.shape)} and ds {ds}")
     lib = _bwd_lib()
     x, dt, bmat, cmat, a, h_chunks, dy = (z.contiguous() for z in (
         x, dt, bmat, cmat, a, h_chunks, dy))
@@ -283,12 +237,11 @@ def mamba_scan_backward(x, dt, bmat, cmat, a, h_chunks, dy, dh=None,
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    # few allocations (each costs the call host time while the card
-    # waits): dx and ddt, dB and dC are halves of one buffer each, and
-    # the scratch (the partial rows [rows, B, T, 2 ds], then dA's per-row
-    # sums [B, di, ds]) is one buffer
-    dx, ddt = empty(2, b, t, di).unbind(0)
-    db, dc = empty(2, b, t, ds).unbind(0)
+    # the outputs of a custom op may not share storage: dx, ddt, dB and
+    # dC are buffers of their own; the scratch (the partial rows [rows,
+    # B, T, 2 ds], then dA's per-row sums [B, di, ds]) is one buffer
+    dx, ddt = empty(b, t, di), empty(b, t, di)
+    db, dc = empty(b, t, ds), empty(b, t, ds)
     da = empty(di, ds)
     dh0 = empty(b, di, ds) if need_h0 else None
     n_part = lib.mamba_scan_bwd_rows(di) * b * t * 2 * ds
@@ -309,6 +262,153 @@ def mamba_scan_backward(x, dt, bmat, cmat, a, h_chunks, dy, dh=None,
                            f"error {rc})")
     mamba_scan_backward.launches += 1
     return dx, ddt, db, dc, da, dh0
+
+
+# ------------------------------------------------------------ custom ops
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=(),
+                         device_types="cpu")
+def _scan_op(x: Tensor, dt: Tensor, bmat: Tensor, cmat: Tensor, a: Tensor,
+             h0: Optional[Tensor], save_states: bool, team: int,
+             channels: int, steps: int) -> tuple[Tensor, Tensor, Tensor]:
+    """(y, final state, the states every `SPAN` steps or an empty tensor
+    unless `save_states`); team / channels / steps a `ScanPlan`, 0 for
+    `scan_plan`'s.  On the CPU the plain version, which keeps no saved
+    states (`library.no_states`): its backward recomputes the forward."""
+    y, h = ref.mamba_scan(x, dt, bmat, cmat, a, h0=h0)
+    b, t, di = x.shape
+    shape = (-(-t // SPAN), b, di, bmat.shape[-1]) if save_states else (0,)
+    return y, h, no_states(h, shape)
+
+
+@_scan_op.register_kernel("cuda")
+def _(x, dt, bmat, cmat, a, h0, save_states, team, channels, steps):
+    plan = ScanPlan(team, channels, steps) if team else None
+    y, h, chunks = _forward(x, dt, bmat, cmat, a, h0, plan,
+                            save_chunks=save_states)
+    return y, h, x.new_empty(0) if chunks is None else chunks
+
+
+@_scan_op.register_fake
+def _(x, dt, bmat, cmat, a, h0, save_states, team, channels, steps):
+    b, t, di = x.shape
+    ds = bmat.shape[-1]
+    f = float_of(x)
+    return (x.new_empty((b, t, di)), x.new_empty((b, di, ds), dtype=f),
+            x.new_empty((-(-t // SPAN), b, di, ds) if save_states else (0,),
+                        dtype=f))
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_bwd", mutates_args=(),
+                         device_types="cpu")
+def _scan_bwd_op(x: Tensor, dt: Tensor, bmat: Tensor, cmat: Tensor,
+                 a: Tensor, h_chunks: Tensor, dy: Tensor,
+                 dh: Optional[Tensor], h0: Optional[Tensor],
+                 need_h0: bool) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                         Tensor, Tensor]:
+    """(dx, ddt, dB, dC, dA, dh0 or an empty tensor).  On the CPU autograd
+    through the plain version's step loop, recomputed from `h0`."""
+    if need_h0 and h0 is None:
+        b, _, di = x.shape
+        h0 = x.new_zeros((b, di, bmat.shape[-1]), dtype=float_of(x))
+    with autograd_inside():
+        xs = [z.detach().requires_grad_() for z in (x, dt, bmat, cmat, a)]
+        hs = [h0.detach().requires_grad_()] if need_h0 else []
+        y, h = ref.mamba_scan(*xs, h0=hs[0] if hs else h0)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            grads.append(dh)
+        g = torch.autograd.grad(outs, xs + hs, grads)
+    return (*g[:5], g[5] if need_h0 else x.new_empty(0))
+
+
+@_scan_bwd_op.register_kernel("cuda")
+def _(x, dt, bmat, cmat, a, h_chunks, dy, dh, h0, need_h0):
+    *g, dh0 = _backward(x, dt, bmat, cmat, a, h_chunks, dy, dh, need_h0)
+    return (*g, x.new_empty(0) if dh0 is None else dh0)
+
+
+@_scan_bwd_op.register_fake
+def _(x, dt, bmat, cmat, a, h_chunks, dy, dh, h0, need_h0):
+    b, _, di = x.shape
+    ds = bmat.shape[-1]
+    return (x.new_empty(x.shape), x.new_empty(x.shape),
+            bmat.new_empty(bmat.shape), bmat.new_empty(bmat.shape),
+            a.new_empty(a.shape),
+            x.new_empty((b, di, ds) if need_h0 else (0,), dtype=float_of(x)))
+
+
+def _scan_setup(ctx, inputs, output):
+    x, dt, bmat, cmat, a, h0 = inputs[:6]
+    ctx.save_for_backward(x, dt, bmat, cmat, a, h0, output[2])
+    ctx.set_materialize_grads(False)
+
+
+def _scan_grad(ctx, dy, dh, _):
+    x, dt, bmat, cmat, a, h0, chunks = ctx.saved_tensors
+    if dy is None:                   # only the final state was used
+        dy = torch.zeros_like(x)
+    *g, dh0 = torch.ops.repro_torch.mamba_scan_bwd(
+        x, dt, bmat, cmat, a, chunks, dy, dh, h0, h0 is not None)
+    return (*g, dh0 if h0 is not None else None, None, None, None, None)
+
+
+_scan_op.register_autograd(_scan_grad, setup_context=_scan_setup)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, a: torch.Tensor,
+               h0: torch.Tensor | None = None, plan: ScanPlan | None = None):
+    """x, dt: [B, T, di]; bmat, cmat: [B, T, ds]; a: [di, ds]; h0
+    [B, di, ds] or None (zeros) -> (y [B, T, di], final state [B, di, ds]),
+    float32.  No D-skip, no gate.  Differentiable on both devices.
+    `plan` overrides `scan_plan` (the card only; with grad, a tile
+    shorter than T is a multiple of `chunk()` steps).  The op
+    `repro_torch::mamba_scan`: one op on every device, fake tensors
+    included (outputs of the kernel's shapes, nothing launched); with
+    grad the forward saves the states its backward reads."""
+    _check(x, dt, bmat, cmat, a, h0)
+    xs = [x, dt, bmat, cmat, a] + ([] if h0 is None else [h0])
+    if route("mamba_scan", xs) == "cuda":
+        _cuda_inputs("mamba_scan", xs)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in xs)
+    p = plan or ScanPlan(0, 0, 0)
+    y, h_out, _ = _scan_op(x, dt, bmat, cmat, a, h0, grad, p.team,
+                           p.channels, p.steps)
+    return y, h_out
+
+
+mamba_scan.launches = 0
+
+
+def mamba_scan_backward(x, dt, bmat, cmat, a, h_chunks, dy, dh=None,
+                        need_h0: bool = False, h0=None):
+    """The backward kernel (`repro_torch::mamba_scan_bwd`): x, dt and the
+    output's gradient dy [B, T, di], bmat, cmat [B, T, ds], a [di, ds],
+    the forward's states at the start of every `SPAN` steps `h_chunks`
+    [ceil(T / SPAN), B, di, ds] and the final state's gradient dh
+    [B, di, ds] or None (zeros) -> (dx, ddt [B, T, di], dB, dC [B, T,
+    ds], dA [di, ds], dh0 [B, di, ds] or None unless `need_h0`).  On the
+    CPU autograd differentiates the plain step loop recomputed from the
+    initial state `h0` (None: zeros), and `h_chunks` is not read."""
+    _check(x, dt, bmat, cmat, a, dh)
+    b, t, di = x.shape
+    ds = bmat.shape[-1]
+    given = [] if dh is None else [dh]
+    xs = [x, dt, bmat, cmat, a, h_chunks, dy] + given
+    if route("mamba_scan_backward", xs) == "cuda":
+        _cuda_inputs("mamba_scan_backward", xs)
+        if ds not in STATE_DIMS:
+            raise ValueError(f"mamba_scan_backward: state dim {ds} not in "
+                             f"{STATE_DIMS}")
+    if tuple(dy.shape) != (b, t, di) or tuple(h_chunks.shape) != (
+            -(-t // SPAN), b, di, ds):
+        raise ValueError(f"mamba_scan_backward: dy {tuple(dy.shape)} or the "
+                         f"chunk states {tuple(h_chunks.shape)} do not match "
+                         f"x {tuple(x.shape)} and ds {ds}")
+    *g, dh0 = _scan_bwd_op(x, dt, bmat, cmat, a, h_chunks, dy, dh, h0,
+                           need_h0)
+    return (*g, dh0 if need_h0 else None)
 
 
 mamba_scan_backward.launches = 0

@@ -10,24 +10,31 @@ mask a ragged T themselves (no padding copy), take an optional initial
 state and write the final state (the decode cache's); head dims 32 and
 64, float32.
 
-On the card `wkv` is a `torch.autograd.Function`: its forward keeps the
-chunk-start states that the forward's state scan leaves in its scratch
-and the final state, and its backward launches `wkv_bwd.cu`
-(`wkv_backward`, counted in `wkv_backward.launches`, one per call; a
-call runs four CUDA kernels: chunk sums of the state gradient, the
-reverse scan over chunks, each chunk's gradients, and du's sum), which
-returns the gradients of r, k, v, w_log, u and, when a state was passed
-in, of the state.  On the CPU autograd differentiates the plain
-version.
+Both are `torch.library` custom ops (`repro_torch::wkv`,
+`repro_torch::wkv_bwd`; `kernels.library`): one op on every device, with
+a fake implementation that returns outputs of the kernels' shapes and
+launches nothing.  The forward's autograd keeps the chunk-start states
+that the forward's state scan leaves in its scratch and the final
+state, and its backward is `repro_torch::wkv_bwd`, which on the card
+launches `wkv_bwd.cu` (`wkv_backward`, counted in
+`wkv_backward.launches`, one per call; a call runs four CUDA kernels:
+chunk sums of the state gradient, the reverse scan over chunks, each
+chunk's gradients, and du's sum) and returns the gradients of r, k, v,
+w_log, u and, when a state was passed in, of the state.  On the CPU the
+backward differentiates the plain version's forward, recomputed.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import build
+from repro_torch.kernels.library import (autograd_inside, float_of,
+                                         no_states, route)
 from repro_torch.kernels.rwkv6 import ref
 
 HEAD_DIMS = (32, 64)      # rwkv6-3b's and the reduced configs'
@@ -109,72 +116,11 @@ def _forward(r, k, v, w_log, u, state):
     return o, s_out, kv
 
 
-class _WKV(torch.autograd.Function):
-    """The WKV kernel with the backward kernel as its gradient."""
-
-    @staticmethod
-    def forward(ctx, r, k, v, w_log, u, state):
-        o, s_out, s_chunks = _forward(r, k, v, w_log, u, state)
-        ctx.save_for_backward(r, k, v, w_log, u, s_chunks, s_out)
-        ctx.has_state = state is not None
-        ctx.set_materialize_grads(False)
-        return o, s_out
-
-    @staticmethod
-    def backward(ctx, d_o, d_state):
-        r, k, v, w_log, u, s_chunks, s_out = ctx.saved_tensors
-        if d_o is None:                  # only the final state was used
-            d_o = torch.zeros_like(r)
-        dr, dk, dv, dw, du, ds = wkv_backward(
-            r, k, v, w_log, u, s_chunks, d_o, d_state,
-            need_state=ctx.has_state, s_out=s_out)
-        return dr, dk, dv, dw, du, ds
-
-
-def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        w_log: torch.Tensor, u: torch.Tensor,
-        state: torch.Tensor | None = None):
-    """r/k/v/w_log: [B, T, H, D]; u: [H, D]; state [B, H, D, D] or None
-    (zeros) -> (o [B, T, H, D], final state [B, H, D, D]), float32.
-    w_log = log(decay) <= 0.  Differentiable on both devices.  The CUDA
-    kernels take float32 only; on the CPU float64 inputs give float64."""
-    _check(r, k, v, w_log, u, state)
-    xs = [r, k, v, w_log, u] + ([] if state is None else [state])
-    if {x.device for x in xs} == {torch.device("cpu")}:
-        return ref.wkv(r, k, v, w_log, u, state=state)
-    _check_cuda("wkv", xs)
-    return _WKV.apply(r, k, v, w_log, u, state)
-
-
-wkv.launches = 0
-
-
-def wkv_backward(r, k, v, w_log, u, s_chunks, d_o, d_state=None,
-                 need_state: bool = False, s_out=None):
-    """The backward kernel on CUDA tensors: r/k/v/w_log and the output's
-    gradient d_o [B, T, H, D], u [H, D], the forward's chunk-start
-    states `s_chunks` [ceil(T / 64), B, H, D, D], the final state's
-    gradient [B, H, D, D] or None (zeros) and, when that is given, the
-    forward's final state `s_out` [B, H, D, D] -> (dr, dk, dv, dw_log
-    [B, T, H, D], du [H, D], the initial state's gradient [B, H, D, D]
-    or None unless `need_state`)."""
-    _check(r, k, v, w_log, u, None)
+def _backward(r, k, v, w_log, u, s_chunks, d_o, d_state, need_state,
+              s_out):
+    """Launch the backward kernel (inputs checked by `wkv_backward`)."""
     b, t, h, d = r.shape
-    if d_state is None:
-        s_out = None                  # the last chunk's end term is 0
-    elif s_out is None:
-        raise ValueError("wkv_backward: a final state's gradient needs the "
-                         "final state s_out")
-    given = [] if d_state is None else [d_state, s_out]
-    xs = [r, k, v, w_log, u, s_chunks, d_o] + given
-    _check_cuda("wkv_backward", xs)
     n_chunks = -(-t // CHUNK)
-    if tuple(d_o.shape) != (b, t, h, d) or tuple(s_chunks.shape) != (
-            n_chunks, b, h, d, d) or any(tuple(x.shape) != (b, h, d, d)
-                                         for x in given):
-        raise ValueError(f"wkv_backward: d_o {tuple(d_o.shape)}, chunk "
-                         f"states {tuple(s_chunks.shape)}, final state or "
-                         f"its gradient do not match r {tuple(r.shape)}")
     r, k, v, w_log, d_o = _d_contiguous(r, k, v, w_log, d_o)
     u, s_chunks = u.contiguous(), s_chunks.contiguous()
     if d_state is not None:
@@ -208,6 +154,142 @@ def wkv_backward(r, k, v, w_log, u, s_chunks, d_o, d_state=None,
     return dr, dk, dv, dw, du, ds
 
 
+# ------------------------------------------------------------ custom ops
+@torch.library.custom_op("repro_torch::wkv", mutates_args=(),
+                         device_types="cpu")
+def _wkv_op(r: Tensor, k: Tensor, v: Tensor, w_log: Tensor, u: Tensor,
+            state: Optional[Tensor]) -> tuple[Tensor, Tensor, Tensor]:
+    """(o, final state, the chunk-start states).  On the CPU the plain
+    version, which keeps no chunk-start states (`library.no_states`):
+    its backward recomputes the forward."""
+    o, s = ref.wkv(r, k, v, w_log, u, state=state)
+    b, t, h, d = r.shape
+    return o, s, no_states(o, (-(-t // CHUNK), b, h, d, d))
+
+
+@_wkv_op.register_kernel("cuda")
+def _(r, k, v, w_log, u, state):
+    return _forward(r, k, v, w_log, u, state)
+
+
+@_wkv_op.register_fake
+def _(r, k, v, w_log, u, state):
+    b, t, h, d = r.shape
+    f = float_of(r)
+    return (r.new_empty((b, t, h, d), dtype=f),
+            r.new_empty((b, h, d, d), dtype=f),
+            r.new_empty((-(-t // CHUNK), b, h, d, d), dtype=f))
+
+
+@torch.library.custom_op("repro_torch::wkv_bwd", mutates_args=(),
+                         device_types="cpu")
+def _wkv_bwd_op(r: Tensor, k: Tensor, v: Tensor, w_log: Tensor, u: Tensor,
+                s_chunks: Tensor, d_o: Tensor, d_state: Optional[Tensor],
+                s_out: Optional[Tensor], state: Optional[Tensor],
+                need_state: bool) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                           Tensor, Tensor]:
+    """(dr, dk, dv, dw_log, du, the initial state's gradient or an empty
+    tensor).  On the CPU autograd through the plain version's forward,
+    recomputed from `state`."""
+    if need_state and state is None:
+        b, _, h, d = r.shape
+        state = r.new_zeros((b, h, d, d), dtype=float_of(r))
+    with autograd_inside():
+        *g, ds = ref.wkv_backward(r, k, v, w_log, u, d_o,
+                                  state=state if need_state else None,
+                                  d_state=d_state)
+    return (*g, ds if need_state else r.new_empty(0))
+
+
+@_wkv_bwd_op.register_kernel("cuda")
+def _(r, k, v, w_log, u, s_chunks, d_o, d_state, s_out, state, need_state):
+    *g, ds = _backward(r, k, v, w_log, u, s_chunks, d_o, d_state,
+                       need_state, s_out)
+    return (*g, ds if need_state else r.new_empty(0))
+
+
+@_wkv_bwd_op.register_fake
+def _(r, k, v, w_log, u, s_chunks, d_o, d_state, s_out, state, need_state):
+    b, _, h, d = r.shape
+    f = float_of(r)
+    return (*(r.new_empty(r.shape, dtype=f) for _ in range(4)),
+            r.new_empty((h, d), dtype=f),
+            r.new_empty((b, h, d, d) if need_state else (0,), dtype=f))
+
+
+def _wkv_setup(ctx, inputs, output):
+    r, k, v, w_log, u, state = inputs
+    ctx.save_for_backward(r, k, v, w_log, u, state, output[2], output[1])
+    ctx.set_materialize_grads(False)
+
+
+def _wkv_grad(ctx, d_o, d_state, _):
+    r, k, v, w_log, u, state, s_chunks, s_out = ctx.saved_tensors
+    if d_o is None:                  # only the final state was used
+        d_o = torch.zeros_like(r)
+    *g, ds = torch.ops.repro_torch.wkv_bwd(
+        r, k, v, w_log, u, s_chunks, d_o, d_state,
+        None if d_state is None else s_out, state, state is not None)
+    return (*g, ds if state is not None else None)
+
+
+_wkv_op.register_autograd(_wkv_grad, setup_context=_wkv_setup)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        w_log: torch.Tensor, u: torch.Tensor,
+        state: torch.Tensor | None = None):
+    """r/k/v/w_log: [B, T, H, D]; u: [H, D]; state [B, H, D, D] or None
+    (zeros) -> (o [B, T, H, D], final state [B, H, D, D]), float32.
+    w_log = log(decay) <= 0.  Differentiable on both devices.  The CUDA
+    kernels take float32 only; on the CPU float64 inputs give float64.
+    The op `repro_torch::wkv`: one op on every device, fake tensors
+    included (outputs of the kernel's shapes, nothing launched)."""
+    _check(r, k, v, w_log, u, state)
+    xs = [r, k, v, w_log, u] + ([] if state is None else [state])
+    if route("wkv", xs) == "cuda":
+        _check_cuda("wkv", xs)
+    o, s, _ = _wkv_op(r, k, v, w_log, u, state)
+    return o, s
+
+
+wkv.launches = 0
+
+
+def wkv_backward(r, k, v, w_log, u, s_chunks, d_o, d_state=None,
+                 need_state: bool = False, s_out=None, state=None):
+    """The backward kernel (`repro_torch::wkv_bwd`): r/k/v/w_log and the
+    output's gradient d_o [B, T, H, D], u [H, D], the forward's
+    chunk-start states `s_chunks` [ceil(T / 64), B, H, D, D], the final
+    state's gradient [B, H, D, D] or None (zeros) and, when that is
+    given, the forward's final state `s_out` [B, H, D, D] -> (dr, dk,
+    dv, dw_log [B, T, H, D], du [H, D], the initial state's gradient
+    [B, H, D, D] or None unless `need_state`).  On the CPU the plain
+    version differentiates the forward recomputed from the initial state
+    `state` (None: zeros), and `s_chunks` is not read."""
+    _check(r, k, v, w_log, u, None)
+    b, t, h, d = r.shape
+    if d_state is None:
+        s_out = None                  # the last chunk's end term is 0
+    elif s_out is None:
+        raise ValueError("wkv_backward: a final state's gradient needs the "
+                         "final state s_out")
+    given = [] if d_state is None else [d_state, s_out]
+    xs = [r, k, v, w_log, u, s_chunks, d_o] + given
+    if route("wkv_backward", xs) == "cuda":
+        _check_cuda("wkv_backward", xs)
+    n_chunks = -(-t // CHUNK)
+    if tuple(d_o.shape) != (b, t, h, d) or tuple(s_chunks.shape) != (
+            n_chunks, b, h, d, d) or any(tuple(x.shape) != (b, h, d, d)
+                                         for x in given):
+        raise ValueError(f"wkv_backward: d_o {tuple(d_o.shape)}, chunk "
+                         f"states {tuple(s_chunks.shape)}, final state or "
+                         f"its gradient do not match r {tuple(r.shape)}")
+    *g, ds = _wkv_bwd_op(r, k, v, w_log, u, s_chunks, d_o, d_state, s_out,
+                         state, need_state)
+    return (*g, ds if need_state else None)
+
+
 wkv_backward.launches = 0
 
 
@@ -224,10 +306,11 @@ def wkv_flops(b, t, h, d, chunk: int = CHUNK) -> int:
     return b * h * (full * per_chunk(chunk) + per_chunk(rest))
 
 
-def wkv_hbm_bytes(b, t, h, d) -> int:
-    """Bytes a call from a zero state must move: r, k, v, w_log and u read
-    once, o and the final state written once."""
-    return 4 * (5 * b * t * h * d + h * d + b * h * d * d)
+def wkv_hbm_bytes(b, t, h, d, state: bool = False) -> int:
+    """Bytes a call must move: r, k, v, w_log and u read once, o and the
+    final state written once (and the initial state read, when given)."""
+    return 4 * (5 * b * t * h * d + h * d
+                + b * h * d * d * (1 + int(state)))
 
 
 def wkv_bwd_flops(b, t, h, d) -> int:

@@ -89,7 +89,10 @@ def _ensure_world(device_type: str) -> None:
     """Start the default process group for `device_type` if there is none:
     from the environment when it names a world of several ranks, else a
     world of one over a `dist.HashStore`.  An existing group must serve
-    the device type's backend."""
+    the device type's backend; a world of the "fake" backend (the dry
+    run's, `launch.dryrun.fake_world`) serves any device type."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return
     backend = _backend(device_type)
     if dist.is_initialized():
         if backend not in dist.get_backend():

@@ -89,6 +89,15 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """`F.one_hot(idx, n)` in `dtype`, as `jax.nn.one_hot` computes it
+    (idx[..., None] == arange(n)): the same ops on every device and on
+    fake tensors, where `F.one_hot` checks its indices' range on real
+    tensors alone (a host synchronisation on the card); an index past
+    n - 1 gives a row of zeros."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out [B, S, d], auxiliary loss, a 0-d tensor)."""
@@ -124,19 +133,19 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     # load-balancing auxiliary loss (Switch-style), over all G * S rows
     me = probs.mean((0, 1))                                    # [E]
     ce = pspec.dp_mean(
-        F.one_hot(gate_idx[..., 0], e).to(logits.dtype).mean((0, 1)))
+        one_hot(gate_idx[..., 0], e, logits.dtype).mean((0, 1)))
     aux = e * torch.sum(me * ce)
 
     dispatch = torch.zeros((g, s, e, c), dtype=dt, device=x.device)
     combine = torch.zeros((g, s, e, c), dtype=logits.dtype, device=x.device)
     used = torch.zeros((g, e), dtype=logits.dtype, device=x.device)
     for slot in range(k):
-        mask = F.one_hot(gate_idx[..., slot], e).to(logits.dtype)
+        mask = one_hot(gate_idx[..., slot], e, logits.dtype)
         pos_in_e = torch.cumsum(mask, dim=1) - 1 + used[:, None, :]
         my_pos = (pos_in_e * mask).sum(-1)                     # [G,S]
         ok = my_pos < c
-        pos_oh = F.one_hot(torch.where(ok, my_pos, c).long(),
-                           c + 1).to(logits.dtype)[..., :c]    # [G,S,C]
+        pos_oh = one_hot(torch.where(ok, my_pos, c).long(), c,
+                         logits.dtype)                         # [G,S,C]
         admitted = mask * ok[..., None]
         sel = admitted[..., None] * pos_oh[..., None, :]       # [G,S,E,C]
         dispatch = dispatch + sel.to(dt)

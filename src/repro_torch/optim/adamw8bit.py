@@ -4,8 +4,11 @@
 Each moment is stored int8 with a float32 absmax per row of its last
 axis, on a power-law code (power 2 for m, 4 for v): q = round(127 *
 (|x| / absmax)^(1 / power)) * sign.  `torch.round` rounds half to even,
-as `jnp.round` does; `x ** (1 / power)` may differ from XLA's in the last
-bit, which can move a code by one (the CPU tests count such flips).
+as `jnp.round` does; `x ** (1 / power)` is taken as square roots and
+`x ** power` as products, correctly rounded (`_sqrt`, `_root`, `_pow`)
+so that the card and the CPU give the same bits; either may differ from
+XLA's in the last bit, which can move a code by one (the CPU tests count
+such flips).
 With `inplace` the codes, scales and parameters are written where they
 lie, row slices at a time (`adamw.slices`).
 
@@ -41,16 +44,53 @@ def _quant(x: torch.Tensor, power: float = 2.0, row_groups=()) -> QTensor:
     for g in row_groups:
         dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=g)
     absmax = torch.clamp_min(absmax, 1e-24)
-    r = (x2.abs() / absmax) ** (1.0 / power)
+    r = _root(x2.abs() / absmax, power)
     q = (torch.sign(x2) * torch.clamp(torch.round(127.0 * r), 0, 127)
          ).to(torch.int8)
     return QTensor(q.reshape(x.shape), absmax)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x), correctly rounded on every device: the card's float32
+    `torch.sqrt` may be one ulp off; taken in float64 and rounded once it
+    is the correctly rounded float32 root (float64 has more than twice
+    float32's bits), as the CPU's own."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _root(x: torch.Tensor, power: float) -> torch.Tensor:
+    """x ** (1 / power) for power 2 or 4 as square roots, the same bits
+    on every device (a general `pow` is the device's own)."""
+    if power == 2.0:
+        return _sqrt(x)
+    if power == 4.0:
+        return torch.sqrt(torch.sqrt(x.double())).to(x.dtype)
+    return x ** (1.0 / power)
+
+
+def _pow(x: torch.Tensor, power: float) -> torch.Tensor:
+    """x ** power for power 2 or 4 as products (the fourth power in
+    float64, rounded once), the same bits on every device."""
+    if power == 2.0:
+        return x * x
+    if power == 4.0:
+        x2 = x.double() * x.double()
+        return (x2 * x2).to(x.dtype)
+    return x ** power
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, correctly rounded on every device: torch divides a CUDA
+    tensor by a Python number as a product with its reciprocal, which can
+    differ from the quotient in the last bit (`runtime.compression`
+    keeps the same helper)."""
+    return x / torch.full_like(x, c)
+
+
 def _dequant(t: QTensor, shape, size=None, power: float = 2.0):
     qf = t.q.float()
     qr = qf if qf.dim() >= 1 else qf.reshape(1)
-    mag = (qr.abs() / 127.0) ** power * t.scale
+    mag = _pow(_div(qr.abs(), 127.0), power) * t.scale
     return (torch.sign(qr) * mag).reshape(shape)
 
 
@@ -119,7 +159,7 @@ def adamw8_update(grads, state: AdamW8State, params, lr,
             v = b2 * _dequant(QTensor(vqs, vss), ps.shape, power=4.0) \
                 + (1 - b2) * gs * gs
             v = torch.clamp_min(v, 0.0)
-            u = (m / b1c) / (torch.sqrt(v / b2c) + eps)
+            u = (m / b1c) / (_sqrt(v / b2c) + eps)
             pf = ps.float()
             ps.copy_(pf - lr * (u + wd * pf))
             for (q, s), new in (((mqs, mss), _quant(m, 2.0, groups)),

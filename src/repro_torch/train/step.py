@@ -90,12 +90,19 @@ def _trainable(params, bufs):
             for k in params}
 
 
+def _shares(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether `a` starts where `b` does in the same storage (compared
+    by storage, not address: a fake tensor has none)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
 def _fold(work, bufs) -> None:
     """Add the gradients of leaves without a preset buffer into theirs
     (cast to the buffer's dtype) and clear them."""
     def per_leaf(x, g):
         for xi, gi in (zip(x, g) if isinstance(x, list) else ((x, g),)):
-            if xi.grad is not None and xi.grad.data_ptr() != gi.data_ptr():
+            if xi.grad is not None and not _shares(xi.grad, gi):
                 gi.add_(xi.grad.to(gi.dtype))
                 xi.grad = None
 

@@ -399,7 +399,7 @@ def test_port_run_covers_every_port_driver():
                      "fig4_system", "fig4_profiled", "fig_bank", "fig_region",
                      "sim_bench", "thermal_bench", "power", "repeatability",
                      "multi_timing", "fleet_bench", "fault_bench",
-                     "traffic_bench"}
+                     "traffic_bench", "framework", "roofline"}
     assert port_run.DEFAULT_OUT.endswith(str(Path("chiprun_out") / "bench"))
 
 

@@ -321,8 +321,10 @@ Phases (any failure exits non-zero and prints no result line):
      the card's name and power limit; one more full-width gradient,
      whose largest leaf goes through the top-k (with error feedback)
      and int8 gradient compressors on the card and on the CPU, bit for
-     bit, and through one 8-bit AdamW update (with its parameter, from
-     a zero state, no clipping) on the card and on the CPU: moment codes,
+     bit, and one layer of that leaf (its first [0] slice, the 2560 x
+     8960 a training step updates per layer) through one 8-bit AdamW
+     update (with its parameter, from a zero state, no clipping) on the
+     card and on the CPU: moment codes,
      row scales and parameters bit for bit; a reduced rwkv6-3b mesh
      trainer's checkpoint restored with `shardings=` onto
      `make_mesh_for(1, model_parallel=1)`, bit for bit; the process
@@ -371,14 +373,22 @@ Phases (any failure exits non-zero and prints no result line):
      depth with phase 17's recipe: no hand-written kernel launched, losses
      finite, every MoE layer's aux in (0, 32], seconds per step, tokens
      per second, peak memory, a fourth step under torch.profiler;
-  24. (last) the selective-scan backward kernel against autograd through
+  24. the selective-scan backward kernel against autograd through
      its plain version at jamba's (1, 4096, 16384, 16), a ragged T =
      1300 with B = 2 and ds = 8, and from a nonzero state with a nonzero
      final-state gradient, every gradient within rtol = atol = 1e-3; its
      time beside its bound and the plain version's; then one full-width
      Jamba Mamba mixer at T = 4096: every parameter gradient through the
      kernels and through the plain scan within a relative norm gap of
-     1e-3.
+     1e-3;
+  25. (last) each LLM kernel on one rank's shard at the full-width
+     shapes a "model" axis gives it, against the same slice of the whole
+     call: flash attention float32 and bf16 on glm4-9b's 2 q heads of
+     rank 9 of 16 with their KV head, wkv and wkv_bwd on the 5 of
+     rwkv6-3b's 40 heads of rank 3 of 8, mamba_scan and mamba_scan_bwd
+     on 1,024 of Jamba's 16,384 channels (the 16 shards' partial dB and
+     dC summed against the whole's): `shard ...` lines, each output
+     bitwise or within the kernel's own bound with the reason printed.
 
 Phases 13-19 run after phase 11; glm4-9b's weights are freed before
 rwkv6-3b's are drawn, those before jamba's, jamba's before granite's,
@@ -4240,7 +4250,9 @@ def train_mesh(train: dict) -> dict:
     check(all(same.values()), f"the compressors differ card vs CPU: {same}")
     check(err <= bound, f"int8 round trip {err} above its bound {bound}")
     del outs
-    adamw8_card_cpu(name, g, p0)
+    # one layer of the leaf (the per-layer slice a training step updates):
+    # the same code as the whole leaf at 1/32 of its CPU time
+    adamw8_card_cpu(f"{name}[0]", g[0].clone(), p0[0].clone())
     del g, p0
     torch.cuda.empty_cache()
 
@@ -4279,7 +4291,8 @@ def train_mesh(train: dict) -> dict:
 
 def adamw8_card_cpu(name: str, g, p) -> None:
     """Phase 17c's 8-bit AdamW check: one update of the parameter leaf
-    `p` by its gradient `g` (rwkv6-3b's largest leaf, from a zero state,
+    `p` by its gradient `g` (one layer of rwkv6-3b's largest leaf, from
+    a zero state,
     lr 3e-4, no clipping: the global norm is a reduction whose order is
     the device's own) on the card and on the CPU: the moment codes, the
     row scales and the parameters bit for bit."""
@@ -5011,6 +5024,149 @@ def kernel_mamba_bwd(launches: int) -> dict:
             "max_abs_err": worst, "mixer_grad_gap": mixer, **times}
 
 
+# a rank's shard of each LLM kernel's full-width call: (model ranks, the
+# rank) -- glm4-9b's 32 q heads and rwkv6-3b's 40 heads (on 8: 40 does
+# not divide 16) and Jamba's 16,384 channels
+SHARD_FLASH = (16, 9)
+SHARD_WKV = (8, 3)
+SHARD_SCAN = (16, 5)
+
+
+def _shard_match(label: str, got, want, tol, why: str) -> float:
+    """`got` (a shard's call) against `want` (the same slice of the
+    whole call): bitwise, or within rtol = atol = `tol` with the reason
+    printed; returns the max abs difference."""
+    import torch
+    if torch.equal(got, want):
+        print(f"  {label}: bitwise")
+        return 0.0
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    print(f"  {label}: max abs {err:.3e} within rtol = atol = {tol:g}: "
+          f"{ok} (not bitwise: {why})")
+    check(ok, f"{label}: the shard's call is beyond {tol:g} of the whole's")
+    return err
+
+
+def kernel_shards() -> None:
+    """Phase 25 (last): each LLM kernel on one rank's shard at the
+    full-width shapes a "model" axis gives it, against the same slice of
+    the whole call on the same inputs: flash attention float32 and bf16
+    on glm4-9b's 2 q heads of rank 9 of 16 with the KV head they read
+    (32 q heads on 2 KV heads at 4096 tokens); wkv and wkv_bwd on the 5
+    of rwkv6-3b's 40 heads that rank 3 of 8 holds; mamba_scan and
+    mamba_scan_bwd on the 1,024 of Jamba's 16,384 channels that rank 5
+    of 16 holds, and the 16 shards' partial dB and dC summed against the
+    whole call's.  Each bitwise, or within the kernel's own bound with
+    the reason printed.  These launches are comparisons: no path's count
+    includes them."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as F
+    from repro_torch.kernels.mamba_scan import ops as M
+    from repro_torch.kernels.rwkv6 import ops as W
+
+    b, s, hq, hkv, d, _ = FLASH_SHAPES["glm4 4096"]
+    m, r = SHARD_FLASH
+    lo, hi = r * hq // m, (r + 1) * hq // m
+    kv = lo // (hq // hkv)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_inputs(FLASH_SHAPES["glm4 4096"], dtype, SEED + 90)
+        whole = F.flash_attention(q, k, v, causal=True)
+        part = F.flash_attention(q[:, :, lo:hi].contiguous(),
+                                 k[:, :, kv:kv + 1].contiguous(),
+                                 v[:, :, kv:kv + 1].contiguous(),
+                                 causal=True)
+        name = str(dtype).removeprefix("torch.")
+        print(f"shard flash_attention {name} glm4 4096: q heads "
+              f"[{lo}, {hi}) of {hq} (rank {r} of {m}) on KV head {kv}, "
+              f"{tuple(part.shape)}")
+        _shard_match(f"flash_attention {name} out", part,
+                     whole[:, :, lo:hi], FLASH_TOL[name],
+                     "the kernel's blocks differ with the head count")
+        del q, k, v, whole, part
+
+    b, t, h, d, _ = WKV_SHAPES["rwkv6-3b 4096"]
+    m, r = SHARD_WKV
+    lo, hi = r * h // m, (r + 1) * h // m
+    g = torch.Generator("cuda").manual_seed(SEED + 91)
+
+    def n(*shp):
+        return torch.randn(shp, generator=g, device="cuda")
+    rr, kk, vv = (0.5 * n(b, t, h, d) for _ in range(3))
+    ww = -torch.exp(n(b, t, h, d) - 2.0)
+    uu, d_o = 0.3 * n(h, d), n(b, t, h, d)
+    o, s_out, chunks = W._forward(rr, kk, vv, ww, uu, None)
+    grads = W.wkv_backward(rr, kk, vv, ww, uu, chunks, d_o)
+
+    def heads(x):
+        return x[:, :, lo:hi].contiguous()
+    o_p, s_p, ch_p = W._forward(heads(rr), heads(kk), heads(vv), heads(ww),
+                                uu[lo:hi].contiguous(), None)
+    grads_p = W.wkv_backward(heads(rr), heads(kk), heads(vv), heads(ww),
+                             uu[lo:hi].contiguous(), ch_p, heads(d_o))
+    print(f"shard wkv rwkv6-3b 4096: heads [{lo}, {hi}) of {h} (rank {r} "
+          f"of {m})")
+    _shard_match("wkv out", o_p, o[:, :, lo:hi], SSM_TOL,
+                 "the kernel's blocks differ with the head count")
+    _shard_match("wkv final state", s_p, s_out[:, lo:hi], SSM_TOL,
+                 "the kernel's blocks differ with the head count")
+    for label, a, w_ in zip(("dr", "dk", "dv", "dw_log"), grads_p, grads):
+        _shard_match(f"wkv_bwd {label}", a, w_[:, :, lo:hi], WKV_BWD_TOL,
+                     "the kernel's blocks differ with the head count")
+    _shard_match("wkv_bwd du", grads_p[4], grads[4][lo:hi], WKV_BWD_TOL,
+                 "du sums over blocks in another order")
+    del rr, kk, vv, ww, uu, d_o, o, s_out, chunks, grads, grads_p, o_p
+
+    b, t, di, ds, _ = SCAN_BWD_SHAPES["jamba 4096"]
+    m, r = SHARD_SCAN
+    step = di // m
+    g = torch.Generator("cuda").manual_seed(SEED + 92)
+    x = 0.5 * n(b, t, di)
+    dt = torch.nn.functional.softplus(n(b, t, di) - 1.0)
+    bm, cm = 0.5 * n(b, t, ds), 0.5 * n(b, t, ds)
+    a = -torch.exp(0.3 * n(di, ds))
+    dy = n(b, t, di)
+    y, h_out, hc = M._forward(x, dt, bm, cm, a, None, None, save_chunks=True)
+    whole = M.mamba_scan_backward(x, dt, bm, cm, a, hc, dy)
+    del hc
+    db = torch.zeros_like(bm)
+    dc = torch.zeros_like(cm)
+    print(f"shard mamba_scan jamba 4096: channels of {m} ranks of {step} "
+          f"(rank {r} held to the whole call's slice; every rank's dB and "
+          f"dC partials summed)")
+    for j in range(m):
+        c = slice(j * step, (j + 1) * step)
+
+        def ch(z):
+            return z[..., c].contiguous()
+        y_p, h_p, hc_p = M._forward(ch(x), ch(dt), bm, cm,
+                                    a[c].contiguous(), None, None,
+                                    save_chunks=True)
+        part = M.mamba_scan_backward(ch(x), ch(dt), bm, cm,
+                                     a[c].contiguous(), hc_p, ch(dy))
+        db += part[2]
+        dc += part[3]
+        if j == r:
+            _shard_match("mamba_scan y", y_p, y[..., c], SSM_TOL,
+                         "the kernel's plan differs with the channels")
+            _shard_match("mamba_scan final state", h_p, h_out[:, c],
+                         SSM_TOL, "the kernel's plan differs with the "
+                         "channels")
+            for label, a_, w_ in (("dx", part[0], whole[0][..., c]),
+                                  ("ddt", part[1], whole[1][..., c]),
+                                  ("dA", part[4], whole[4][c])):
+                _shard_match(f"mamba_scan_bwd {label}", a_, w_, MAMBA_BWD_TOL,
+                             "the kernel's plan differs with the channels")
+        del y_p, h_p, hc_p, part
+    for label, a_, w_ in (("dB", db, whole[2]), ("dC", dc, whole[3])):
+        _shard_match(f"mamba_scan_bwd {label} (the {m} shards' partials "
+                     "summed)", a_, w_, MAMBA_BWD_TOL,
+                     "partial sums over each rank's channels, added")
+    del x, dt, bm, cm, a, dy, y, h_out, whole, db, dc
+    torch.cuda.empty_cache()
+
+
 def _mamba_mixer_check() -> float:
     """Phase 24b: one Mamba mixer of jamba-1.5-large at full width
     (d_model 8192, d_inner 16384, d_state 16), seeded float32 weights, one
@@ -5384,6 +5540,7 @@ def main() -> int:
         k12["launches"] += trained["mamba_scan"]
         phase(launchers_finish, launchers)
         k14 = phase(kernel_mamba_bwd, trained["mamba_scan_bwd"])
+        phase(kernel_shards)
         print("phase seconds: " + json.dumps(PHASE_SECONDS))
         print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}")
         print(host_probe())

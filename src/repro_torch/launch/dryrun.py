@@ -15,18 +15,25 @@ Nothing is allocated.  This is the counterpart of the reference forcing
 512 host devices: fake CPU tensors on a CPU mesh.
 
 What the port runs, a rank of it runs at production size:
-  * train: ZeRO-3 (`train.step`): every parameter gathered whole on
-    every rank, each data-parallel rank's slice of every microbatch,
-    the gradients reduce-scattered into the parameters' shards, AdamW
-    (or 8-bit AdamW) on the shards in place, as the `Trainer` runs it;
-    `accum_steps = max(1, global_batch // dp)`, as the reference sets it;
-  * prefill and decode: the parameters (bf16) gathered whole, and the
-    rank's data-parallel rows of the tokens and the decode cache
-    (gathered along "model", which shards the cache's sequence): the
-    "model" axis partitions storage only, until ROADMAP queue A, "LLM
-    scaffold, what PR 16-17 left", item 9.3b partitions the activations.
+  * train (`train.step`): each layer gathers its parameters' shards over
+    the data-parallel axes where it runs (inside its remat region) and
+    keeps their "model" shards; the layer partitions its activations
+    over "model" (heads, MLP hidden, experts, Mamba channels; scores by
+    key positions where the heads do not divide); each data-parallel
+    rank takes its slice of every microbatch; the gather's backward
+    reduce-scatters the gradients into the parameters' shards; AdamW
+    (or 8-bit AdamW) runs on the shards in place, as the `Trainer` runs
+    it; `accum_steps = max(1, global_batch // dp)`, as the reference
+    sets it;
+  * prefill and decode (`models.transformer.prefill`, `decode_step` on
+    the placed bf16 parameters, tokens and cache): the same per-layer
+    gathers and "model" partitions, the rank's data-parallel rows, the
+    decode cache split by sequence over "model" (each shard's softmax
+    maximum and sum reduced, the cache never gathered), a prefill's
+    cache written into the rank's block.
 Attention runs the plain path (`use_flash=False`), as the reference's
-cells do; Mamba and RWKV6 layers count their kernels as one op each.
+cells do; Mamba and RWKV6 layers count their kernels as one op each,
+on the rank's heads or channels.
 
 The record keeps the reference's keys, with `trace_s` (the seconds the
 run on fake tensors took) for its `lower_s` / `compile_s`, and
@@ -34,8 +41,9 @@ run on fake tensors took) for its `lower_s` / `compile_s`, and
 `cost_analysis()`, which undercounts loops, and eager torch has no
 counterpart.  A `long_500k` cell of an architecture outside
 `LONG_CONTEXT_ARCHS` is the reference's skip record.  `seq_parallel`
-raises NotImplementedError (item 9.3b); `mamba_unroll` is recorded and
-has no effect on one scan kernel.
+splits the residual stream between layer groups by sequence over
+"model" (`models.transformer`); `mamba_unroll` is recorded and has no
+effect on one scan kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
         --both-meshes --out chiprun_out/dryrun_results.json
@@ -53,7 +61,6 @@ import traceback
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.registry import (ARCHS, LONG_CONTEXT_ARCHS, SHAPES,
                                           get_config, input_shapes)
@@ -65,8 +72,6 @@ from repro_torch.optim import adamw_init
 from repro_torch.optim.adamw8bit import adamw8_init
 from repro_torch.train.step import TrainConfig, serve_step, train_step
 
-A9_3B = ("ROADMAP queue A, \"LLM scaffold, what PR 16-17 left\", item "
-         "9.3b (the activations partitioned over \"model\")")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -182,33 +187,6 @@ def argument_bytes(specs: dict) -> int:
 
 
 # ------------------------------------------------------------------- steps
-def _rows(x):
-    """This rank's data-parallel rows of a `DTensor`, whole along
-    "model" (gathered where "model" shards it), or `x`."""
-    if not isinstance(x, DTensor):
-        return x
-    names = x.device_mesh.mesh_dim_names
-    where = tuple(Replicate() if n == "model" else p
-                  for n, p in zip(names, x.placements))
-    if where != tuple(x.placements):
-        x = x.redistribute(x.device_mesh, where)
-    return x.to_local()
-
-
-def serve_prefill(params, tokens, cfg):
-    """A rank's prefill: the parameters gathered whole, its rows of the
-    prompts."""
-    return TF.prefill(SH.tree_map(SH.gather, params), _rows(tokens), cfg)
-
-
-def serve_decode(params, cache, tokens, pos, cfg):
-    """A rank's decode step: the parameters gathered whole, its rows of
-    the tokens and of the cache."""
-    return serve_step(SH.tree_map(SH.gather, params),
-                      SH.tree_map(_rows, cache), _rows(tokens),
-                      SH.local(pos), cfg)
-
-
 def count_step(kind: str, cfg, specs: dict, tcfg: TrainConfig | None = None,
                grad_shardings=None):
     """Run one step on `specs` (`fake_inputs`) under the cost counter:
@@ -220,11 +198,11 @@ def count_step(kind: str, cfg, specs: dict, tcfg: TrainConfig | None = None,
                 specs["batch"], cfg, tcfg, grad_shardings=grad_shardings,
                 inplace=True)
         elif kind == "prefill":
-            _, mode, mem = hlo_cost.count(serve_prefill, specs["params"],
+            _, mode, mem = hlo_cost.count(TF.prefill, specs["params"],
                                           specs["tokens"], cfg)
         else:
             _, mode, mem = hlo_cost.count(
-                serve_decode, specs["params"], specs["cache"],
+                serve_step, specs["params"], specs["cache"],
                 specs["tokens"], specs["pos"], specs["_cfg_ctx"])
     return mode, mem
 
@@ -243,11 +221,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     """One cell's record (see the module docstring); `cfg` overrides the
     arch's config (a reduced one, in the tests), and `multiply` (see
     `count_train`) may trace a long step's microbatches in part."""
-    if seq_parallel:
-        raise NotImplementedError(
-            f"dryrun: seq_parallel shards the residual stream over "
-            f"\"model\", which the port does not yet: {A9_3B}")
     cfg = cfg or get_config(arch)
+    if seq_parallel:
+        cfg = dataclasses.replace(cfg, seq_parallel=True)
     if attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     if mamba_unroll:

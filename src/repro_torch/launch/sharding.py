@@ -16,10 +16,10 @@ a mesh axis whose size does not divide the dim (granite's 49,155 vocab,
 rwkv's 40 heads on 16), so every shard is even.  A `NamedSharding` turns
 a spec into `DTensor` placements: a dim sharded over several mesh axes
 takes `Shard(d)` on each, the major axis first, as JAX's tuple order.
-Only the storage follows "model": the train step gathers parameters to
-plain tensors on each rank (`train.step`), so activations are not
-partitioned over it (ROADMAP queue A, "LLM scaffold, what PR 16-17
-left", item 9.3b).
+A layer runs on its parameters' "model" shards: `Local` views of the
+local shards are gathered over the data-parallel axes only, one layer
+at a time, where the layer runs (`pspec.gather_param`), and the model
+code partitions its activations over "model" to match (`pspec`).
 
 The campaign half: a replay campaign's trace axis partitions over the
 campaign mesh (`launch.mesh.make_campaign_mesh`), and everything else
@@ -155,6 +155,71 @@ def sanitize(spec: Spec, shape: tuple, mesh) -> Spec:
                 size *= sizes[a]
         out.append(_entry(keep))
     return tuple(out)
+
+
+# ------------------------------------------------------ per-layer views
+# leaves that a layer gathers whole over "model" as well: Mamba's
+# in_proj [d, 2 di] is stored split over its 2 di columns, so a rank's
+# block is not its channels' x and z halves
+WHOLE_OVER_MODEL = ("in_proj",)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Local:
+    """A rank's shard of a parameter as a layer runs it: `tensor` (the
+    local shard, or one layer's slice of a stacked one; often an
+    autograd leaf) of a whole tensor of `shape` and `stride` placed by
+    `placements` on `mesh`; `gathered`, the placements the layer runs it
+    with (the data-parallel dims whole); `grad_placements`, where each
+    microbatch's gradient is reduced to before it is placed like the
+    shard (None: straight there)."""
+
+    tensor: torch.Tensor
+    mesh: Any
+    placements: tuple
+    shape: torch.Size
+    stride: tuple
+    gathered: tuple
+    grad_placements: tuple | None = None
+
+
+def local_view(x: DTensor, t: torch.Tensor, leaf: str, layer: bool = False,
+               grad_sharding: NamedSharding | None = None) -> Local:
+    """`t`, the local shard of `x` (or, with `layer`, one layer's slice
+    [i] of it, x being stacked [R, ...]), as a `Local`; `leaf` is the
+    parameter's name (its path's last key)."""
+    mesh = x.device_mesh
+    where, shape, stride = tuple(x.placements), x.shape, x.stride()
+    gp = None if grad_sharding is None else tuple(grad_sharding.placements)
+    if layer:
+        def drop(ps):
+            return tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                         for p in ps)
+        where, shape, stride = drop(where), shape[1:], stride[1:]
+        gp = None if gp is None else drop(gp)
+    gathered = tuple(
+        Replicate() if mesh.size(i) > 1 and (
+            n != "model" or leaf in WHOLE_OVER_MODEL) else p
+        for i, (n, p) in enumerate(zip(mesh.mesh_dim_names, where)))
+    if gp == where:
+        gp = None
+    return Local(t, mesh, where, torch.Size(shape), tuple(stride), gathered,
+                 gp)
+
+
+def layer_views(tree, path: tuple = ()):
+    """A tree of `DTensor` parameters as the model runs it on their mesh:
+    every leaf a `Local` of its local shard, a stage leaf [R, ...] a list
+    of R per-layer views; plain tensors as they are."""
+    if isinstance(tree, dict):
+        return {k: layer_views(v, path + (k,)) for k, v in tree.items()}
+    if not isinstance(tree, DTensor):
+        return tree
+    t = tree.to_local()
+    if path and path[0] == "stage":
+        return [local_view(tree, t[i], path[-1], True)
+                for i in range(t.shape[0])]
+    return local_view(tree, t, path[-1])
 
 
 # ------------------------------------------------------------- placements

@@ -4,8 +4,18 @@ functions over parameter dicts of tensors; initialisers return nested
 dicts of float32 tensors.
 
 Attention parameters are head-structured ([d, H, dh]) as in the
-reference.  The reference's mesh annotations (`pspec.constrain`,
-`axis_size`) do nothing on one device and are left out.
+reference.  Under a mesh (`pspec.set_mesh`) each function runs on the
+rank's parameter shards and partitions its activations over "model"
+where the reference constrains them (Megatron-style, `pspec`): the
+heads (`wq` column-parallel, `wo` row-parallel and its output summed,
+the reference's layers.py:138, :195, :290), or, where the heads do not
+divide the "model" ranks (qwen2.5's 40, arctic's 56 on 16), the scores'
+key positions (:125, :129); the MLP hidden (:306); a decode cache split
+by sequence (:266-267), whose softmax takes each shard's maximum and
+sum and reduces them.  With GQA the K/V projections are replicated over
+"model" and each rank projects the KV heads its q heads read.  On one
+device, or a mesh of one rank, every collective is the identity and the
+ops are the mesh-free ones.
 
 Attention has two prefill paths with identical math: the plain path
 below (`sdpa_ref`, or `sdpa_online` when `cfg.attn_impl == "online"`)
@@ -21,6 +31,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import pspec
 from repro_torch.configs.base import ModelConfig
 
 Params = dict[str, Any]
@@ -112,26 +123,79 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+def _kv_heads(cfg: ModelConfig):
+    """The KV heads that this rank's q heads read, as an index of the
+    KV axis (a slice where they group evenly, else one KV head per q
+    head), or None where the q heads are not split over "model"."""
+    hs = pspec.split(cfg.n_heads)
+    if hs is None:
+        return None
+    lo, hi = hs
+    g = cfg.n_heads // cfg.n_kv_heads
+    if lo // g == (hi - 1) // g or (lo % g == 0 and hi % g == 0):
+        return slice(lo // g, (hi - 1) // g + 1)
+    return torch.tensor([h // g for h in range(lo, hi)])
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
+         whole_kv: bool = False):
+    """q of this rank's heads (all without a split) and k/v of the KV
+    heads they read (`_kv_heads`), or of every KV head with `whole_kv`
+    (the decode cache holds them all)."""
     dt = x.dtype
-    q, k, v = (_proj(x, p[w]) for w in ("wq", "wk", "wv"))
+    sel = _kv_heads(cfg)
+    if sel is not None:
+        x = pspec.tp_enter(x)
+    wk, wv, bk, bv = (p.get(n) for n in ("wk", "wv", "bk", "bv"))
+    if sel is not None:                 # replicated, read in part
+        wk, wv = pspec.tp_enter(wk), pspec.tp_enter(wv)
+        if cfg.qkv_bias:
+            bk, bv = pspec.tp_enter(bk), pspec.tp_enter(bv)
+        if not whole_kv:
+            wk, wv = wk[:, sel], wv[:, sel]
+            if cfg.qkv_bias:
+                bk, bv = bk[sel], bv[sel]
+    q, k, v = (_proj(x, w) for w in (p["wq"], wk, wv))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        k = k + bk.to(dt)
+        v = v + bv.to(dt)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if sel is not None:
+            qn, kn = ({"scale": pspec.tp_enter(n["scale"])} for n in (qn, kn))
+        q = rmsnorm(qn, q, cfg.norm_eps)
+        k = rmsnorm(kn, k, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _scores_block(q, k, v, mask, dh, score_dtype=torch.float32):
+def kv_for_heads(k, v, cfg: ModelConfig):
+    """From k/v of every KV head, those this rank's q heads read."""
+    sel = _kv_heads(cfg)
+    return (k, v) if sel is None else (k[:, :, sel], v[:, :, sel])
+
+
+def _by_keys(cfg: ModelConfig) -> bool:
+    """Whether scores split over "model" by key position: the heads do
+    not divide its ranks (the reference's layers.py:128-129)."""
+    return pspec.model_size() > 1 and pspec.split(cfg.n_heads) is None
+
+
+def _scores_block(q, k, v, mask, dh, score_dtype=torch.float32,
+                  by_keys: bool = False):
     """One (possibly full) query block.  q: [B,Sq,Hq,Dh];
     k/v: [B,Sk,Hkv,Dh]; mask: [Sq,Sk] bool.  score_dtype=bf16 stores
     scores and probabilities in bf16; the softmax row statistics stay
-    float32."""
+    float32.  With `by_keys` (and Sk split over "model") each rank
+    scores its block of key positions: the row maxima and denominators
+    are reduced over "model", and so is the output."""
+    keys = pspec.split(k.shape[1]) if by_keys else None
+    if keys is not None:
+        q, k, v = (pspec.tp_enter(a) for a in (q, k, v))
+        k, v, mask = (k[:, keys[0]:keys[1]], v[:, keys[0]:keys[1]],
+                      mask[:, keys[0]:keys[1]])
     b, sq, hq, _ = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -142,12 +206,17 @@ def _scores_block(q, k, v, mask, dh, score_dtype=torch.float32):
     scores = torch.where(mask[None, None], scores,
                          torch.tensor(NEG_INF, dtype=score_dtype))
     m = scores.amax(-1, keepdim=True).float()
+    if keys is not None:
+        m = pspec.tp_max(m)
     p = torch.exp(scores.float() - m).to(score_dtype)
     denom = p.float().sum(-1, keepdim=True)
+    if keys is not None:
+        denom = pspec.tp_sum(denom)
     probs = (p / denom.to(score_dtype)).to(v.dtype)
     probs = probs.reshape(b, hkv, g, sq, sk)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, hq, dh)
+    out = out.reshape(b, sq, hq, dh)
+    return pspec.tp_exit(out) if keys is not None else out
 
 
 def sdpa_online(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -191,12 +260,13 @@ def sdpa_online(q, k, v, *, causal: bool = True, window: int | None = None,
 
 def sdpa_ref(q, k, v, *, causal: bool = True, window: int | None = None,
              q_offset: int = 0, q_block: int = _QBLOCK,
-             score_dtype=torch.float32) -> torch.Tensor:
+             score_dtype=torch.float32, by_keys: bool = False
+             ) -> torch.Tensor:
     """Reference GQA attention.  q: [B,Sq,Hq,Dh], k/v: [B,Sk,Hkv,Dh].
     Long queries are processed in blocks of `q_block` to bound the score
     tensor at [B, H, q_block, Sk]; a query length above `q_block` must
     be a multiple of it (the reference asserts it; this raises
-    ValueError)."""
+    ValueError).  `by_keys`: see `_scores_block`."""
     b, sq, hq, dh = q.shape
     sk = k.shape[1]
     kpos = torch.arange(sk, device=q.device)[None, :]
@@ -214,20 +284,23 @@ def sdpa_ref(q, k, v, *, causal: bool = True, window: int | None = None,
 
     if sq <= q_block:
         return _scores_block(q, k, v, mask_for(qpos_from(0, sq)), dh,
-                             score_dtype)
+                             score_dtype, by_keys)
     if sq % q_block:
         raise ValueError(f"sdpa_ref: query length {sq} above q_block "
                          f"{q_block} must be a multiple of it "
                          f"{(sq, q_block)}")
     return torch.cat([
         _scores_block(q[:, i:i + q_block], k, v,
-                      mask_for(qpos_from(i, q_block)), dh, score_dtype)
+                      mask_for(qpos_from(i, q_block)), dh, score_dtype,
+                      by_keys)
         for i in range(0, sq, q_block)], dim=1)
 
 
-def decode_attend(q, ck, cv, valid, dh):
+def decode_attend(q, ck, cv, valid, dh, seq_split: bool = False):
     """Decode attention over a cache.  q: [B,1,Hq,Dh]; ck/cv:
-    [B,S,Hkv,Dh]; valid: [S] bool."""
+    [B,S,Hkv,Dh]; valid: [S] bool.  With `seq_split` the cache is this
+    rank's block of positions: the softmax's maximum and sum, and the
+    output, are reduced over "model" (no cache is gathered)."""
     b, _, hq, _ = q.shape
     hkv = ck.shape[2]
     g = hq // hkv
@@ -236,15 +309,24 @@ def decode_attend(q, ck, cv, valid, dh):
                           ck.to(qg.dtype)).float()
     scores = scores * (dh ** -0.5)
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    if seq_split:
+        m = pspec.tp_max(scores.amax(-1, keepdim=True))
+        e = torch.exp(scores - m)
+        probs = (e / pspec.tp_sum(e.sum(-1, keepdim=True))).to(cv.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, cv)
-    return out.reshape(b, 1, hq, dh)
+    out = out.reshape(b, 1, hq, dh)
+    return pspec.tp_exit(out) if seq_split else out
 
 
 def attend(p: Params, q, k, v, x_dtype, cfg: ModelConfig,
            window: int | None, use_flash: bool) -> torch.Tensor:
     """Causal attention of a whole prompt and the output projection:
-    q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,S,d]."""
+    q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,S,d] (this rank's heads, and
+    the KV heads they read, under a split).  The flash kernel and the
+    online path run whole heads; scores split by key positions run the
+    plain path."""
     if use_flash:
         from repro_torch.kernels.flash_attention import ops as flash_ops
         out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
@@ -252,14 +334,38 @@ def attend(p: Params, q, k, v, x_dtype, cfg: ModelConfig,
         out = sdpa_online(q, k, v, causal=True, window=window)
     else:
         sdt = torch.bfloat16 if cfg.attn_dtype == "bf16" else torch.float32
-        out = sdpa_ref(q, k, v, causal=True, window=window, score_dtype=sdt)
-    return _out_proj(out, p["wo"], x_dtype)
+        out = sdpa_ref(q, k, v, causal=True, window=window, score_dtype=sdt,
+                       by_keys=_by_keys(cfg))
+    return _out_proj_tp(out, p["wo"], x_dtype, cfg)
 
 
 def _out_proj(out, wo, dt):
     """einsum("bshk,hkd->bsd") as one matrix product."""
     h, k, d = wo.shape
     return out.flatten(-2) @ wo.to(dt).reshape(h * k, d)
+
+
+def _out_proj_tp(out, wo, dt, cfg: ModelConfig):
+    """The output projection of this rank's heads, summed over "model"
+    where they are split (row-parallel `wo`; the reference's
+    `constrain(proj, "dp", None, None)`, layers.py:290)."""
+    proj = _out_proj(out, wo, dt)
+    return pspec.tp_exit(proj) if pspec.split(cfg.n_heads) else proj
+
+
+def _write_row(buf, slot, row, seq):
+    """Write `row` [B,1,...] at position `slot` (a [1] tensor) of a cache
+    whose positions are this rank's block `seq` ([lo, hi)) of the whole,
+    or all of it (None): only the rank that holds the slot changes its
+    buffer, read on the device without a host round trip."""
+    if seq is None:
+        buf.index_copy_(1, slot, row.to(buf.dtype))
+        return
+    at = slot - seq[0]
+    mine = (at >= 0) & (at < seq[1] - seq[0])
+    at = torch.clamp(at, 0, seq[1] - seq[0] - 1)
+    buf.index_copy_(1, at, torch.where(mine, row.to(buf.dtype),
+                                       buf.index_select(1, at)))
 
 
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -272,28 +378,47 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     position `positions[0, 0]` (uniform over the batch), read on the
     device without a host round trip.  As the reference's
     `dynamic_update_slice`, a position past the buffer writes its last
-    slot."""
+    slot.  Under a mesh the cache may hold this rank's block of the
+    sequence (`launch.sharding.cache_shardings`): a buffer shorter than
+    the config's (`cfg.max_seq_len`, or the window) is that block."""
     dh = cfg.head_dim
     window = cfg.sliding_window if local else None
-    q, k, v = _qkv(p, x, cfg, positions)
     if cache is None:
+        q, k, v = _qkv(p, x, cfg, positions)
         return attend(p, q, k, v, x.dtype, cfg, window, use_flash), None
 
+    q, k, v = _qkv(p, x, cfg, positions, whole_kv=True)
     ck, cv = cache["k"], cache["v"]
-    s_cache = ck.shape[1]
+    s_local = ck.shape[1]
+    whole = (min(cfg.sliding_window, cfg.max_seq_len) if local
+             else cfg.max_seq_len)
+    seq = pspec.split(whole) if s_local != whole else None
+    if seq is not None and seq[1] - seq[0] != s_local:
+        raise ValueError(f"attention_apply: a cache block of {s_local} "
+                         f"positions is not this rank's block {seq} of "
+                         f"the config's {whole}")
+    s_cache = s_local if seq is None else whole
     pos = positions[0, 0]
     slot = pos % s_cache if window is not None else pos
     slot = torch.clamp(slot, 0, s_cache - 1).reshape(1)
-    ck.index_copy_(1, slot, k.to(ck.dtype))
-    cv.index_copy_(1, slot, v.to(cv.dtype))
-    kpos = torch.arange(s_cache, device=x.device)
+    _write_row(ck, slot, k, seq)
+    _write_row(cv, slot, v, seq)
+    kpos = torch.arange(s_local, device=x.device) + (0 if seq is None
+                                                     else seq[0])
     if window is not None:
         abs_pos = pos - ((pos - kpos) % s_cache)
         valid = (abs_pos >= 0) & (pos - abs_pos < min(window, s_cache))
     else:
         valid = kpos <= pos
-    out = decode_attend(q, ck, cv, valid, dh)
-    return _out_proj(out, p["wo"], x.dtype), cache
+    if seq is None:
+        out = decode_attend(q, *kv_for_heads(ck, cv, cfg), valid, dh)
+    else:                       # every head over this rank's positions
+        heads = pspec.split(cfg.n_heads)
+        qa = pspec.tp_gather(q, 2) if heads else q
+        out = decode_attend(qa, ck, cv, valid, dh, seq_split=True)
+        if heads:
+            out = out[:, :, heads[0]:heads[1]]
+    return _out_proj_tp(out, p["wo"], x.dtype, cfg), cache
 
 
 # ------------------------------------------------------------------ SwiGLU
@@ -305,7 +430,16 @@ def mlp_init(gen, d: int, d_ff: int, lead=(), *, device) -> Params:
     }
 
 
-def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor,
+              d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU.  `d_ff`, the whole hidden width, tells whether the hidden
+    is split over "model" (column-parallel `w_gate`/`w_up`, row-parallel
+    `w_down`, the output summed; the reference's layers.py:306); None:
+    the parameters are whole."""
+    tp = d_ff is not None and pspec.split(d_ff) is not None
+    if tp:
+        x = pspec.tp_enter(x)
     h = (F.silu(x @ p["w_gate"].to(x.dtype))
          * (x @ p["w_up"].to(x.dtype)))
-    return h @ p["w_down"].to(x.dtype)
+    out = h @ p["w_down"].to(x.dtype)
+    return pspec.tp_exit(out) if tp else out

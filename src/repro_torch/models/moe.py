@@ -20,16 +20,20 @@ to x's dtype before the last contraction.  The gradient reaches the
 router through the gate values and the auxiliary loss' mean
 probabilities; the one-hot masks and positions carry none.
 
-Under a mesh each data-parallel rank routes its own shard of the batch.
-Its routing groups are the reference's when its token count is a
-multiple of the global batch's group (a group spanning ranks raises).
-The experts' top-1 fractions are averaged over those ranks
-(`pspec.dp_mean`; they carry no gradient), and the auxiliary loss is
-linear in the mean probabilities, so the ranks' mean loss is the global
-batch's, as the reference's.  The reference's three `pspec.constrain`
-calls partition activations over "model"; they are left out until the
-forward runs on `DTensor`s (ROADMAP queue A, "LLM scaffold, what PR
-16-17 left", item 9.3b).
+Under a mesh the groups are the reference's, over the global batch's
+tokens.  Where a rank's tokens make whole groups, each data-parallel
+rank routes its own (the reference's `constrain(xg, "dp", None, None)`,
+moe.py:70, with its groups split over "dp"), the experts' top-1
+fractions are averaged over those ranks (`pspec.dp_mean`; they carry no
+gradient), and the auxiliary loss is linear in the mean probabilities,
+so the ranks' mean loss is the global batch's.  Where a group spans
+ranks, the ranks' tokens are gathered (`pspec.dp_gather`), every rank
+routes every group, as the reference's replicated groups, and keeps
+its own rows.  Routing is replicated over "model"; the experts are
+split over it (expert parallelism, the reference's constraints of the
+expert inputs and outputs, moe.py:101 and :106): a rank dispatches to
+and combines from its own experts, and the outputs are summed over
+"model".
 
 Covers arctic-480b (128e top-2 + parallel dense residual),
 granite-moe-1b-a400m (32e top-8) and jamba (16e top-2, every 2nd layer).
@@ -107,20 +111,18 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     if not 0 < k <= e:
         raise ValueError(f"moe_apply: top_k {k} must lie in [1, n_experts "
                          f"{e}]")
-    s = min(group_size(cfg), t)
     dp = pspec.dp_size()
-    if dp > 1 and t % min(group_size(cfg), dp * t):
-        raise NotImplementedError(
-            f"moe_apply: {t} tokens on each of {dp} data-parallel ranks do "
-            f"not make whole routing groups of {group_size(cfg)}; a group "
-            "spanning ranks waits for ROADMAP queue A, \"LLM scaffold, what "
-            "PR 16-17 left\", item 9.3b")
+    s = min(group_size(cfg), dp * t)
+    spans = dp > 1 and t % s != 0       # a group spans data-parallel ranks
+    dt = x.dtype
+    xt = x.reshape(t, d)
+    if spans:
+        xt = pspec.dp_gather(xt, 0)     # every rank's tokens, in order
+        t = dp * t
     pad = (-t) % s
     g = (t + pad) // s
     c = capacity(s, e, k)
-    dt = x.dtype
 
-    xt = x.reshape(t, d)
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
     xg = xt.reshape(g, s, d)
@@ -132,10 +134,12 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     # load-balancing auxiliary loss (Switch-style), over all G * S rows
     me = probs.mean((0, 1))                                    # [E]
-    ce = pspec.dp_mean(
-        one_hot(gate_idx[..., 0], e, logits.dtype).mean((0, 1)))
-    aux = e * torch.sum(me * ce)
+    ce = one_hot(gate_idx[..., 0], e, logits.dtype).mean((0, 1))
+    aux = e * torch.sum(me * ce if spans else me * pspec.dp_mean(ce))
 
+    es = pspec.split(e)                 # this rank's experts, or None
+    if es is not None:
+        gate_vals = pspec.tp_enter(gate_vals)
     dispatch = torch.zeros((g, s, e, c), dtype=dt, device=x.device)
     combine = torch.zeros((g, s, e, c), dtype=logits.dtype, device=x.device)
     used = torch.zeros((g, e), dtype=logits.dtype, device=x.device)
@@ -151,14 +155,22 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
         dispatch = dispatch + sel.to(dt)
         combine = combine + sel * gate_vals[..., slot][..., None, None]
         used = used + admitted.sum(1)
+    if es is not None:
+        dispatch = dispatch[:, :, es[0]:es[1]]
+        combine = combine[:, :, es[0]:es[1]]
+        xg = pspec.tp_enter(xg)
 
     xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)          # [G,E,C,d]
     h = (F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt)))
          * torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt)))
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
     out = torch.einsum("gsec,gecd->gsd", combine.to(dt), ye)
+    if es is not None:
+        out = pspec.tp_exit(out)
     out = out.reshape(t + pad, d)[:t]
+    if spans:
+        out = pspec.dp_rows(out, 0)
 
     if "residual" in p:
-        out = out + L.mlp_apply(p["residual"], xt[:t])
+        out = out + L.mlp_apply(p["residual"], x.reshape(-1, d), cfg.d_ff)
     return out.reshape(b, s_len, d), aux

@@ -11,6 +11,17 @@ tensor runs its plain version.  RWKV6's single-token decode keeps the
 reference's one-step einsum; Mamba's decode is the scan at T = 1 from
 the cached state.  Token shift, projections, decay, conv, softplus,
 D-skip, gate and norms stay plain torch, in the reference's order.
+
+Under a mesh (`pspec.set_mesh`) a layer runs on its parameters' "model"
+shards where `launch.sharding.param_spec` splits them: RWKV6 on the
+rank's heads (wr/wk/wv/wg column-parallel, u, the WKV kernel and its
+state on those heads, wo row-parallel and its output summed), Mamba on
+the rank's inner channels (in_proj gathered whole and cut to the
+channels' x and z columns, the conv, dt_proj, A, the scan kernel and
+its states on those channels, x_proj row-parallel with its B/C/dt
+inputs summed, out_proj row-parallel).  Where the heads or channels do
+not divide the "model" ranks (rwkv6-3b's 40 heads on 16) the layer runs
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import pspec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -73,13 +85,25 @@ def rwkv6_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return x + (x_prev - x) * mu.to(dt)
 
     xr, xk, xv, xg, xw = (mix(p[f"mu_{c}"]) for c in "rkvgw")
+    hs = pspec.split(h)                 # this rank's heads, or None
+    w0, lora_b, ln_out = p["w0"], p["w_lora_b"], p["ln_out"]
+    if hs is not None:
+        xr, xk, xv, xg = (pspec.tp_enter(a) for a in (xr, xk, xv, xg))
+        ch = slice(hs[0] * dh, hs[1] * dh)
+        w0 = pspec.tp_enter(w0)[ch]
+        lora_b = pspec.tp_enter(lora_b)[:, ch]
+        ln_out = {"scale": pspec.tp_enter(ln_out["scale"])[hs[0]:hs[1]]}
+        h = hs[1] - hs[0]
     r = L._proj(xr, p["wr"])
     k = L._proj(xk, p["wk"])
     v = L._proj(xv, p["wv"])
     g = F.silu(L._proj(xg, p["wg"]))
     # data-dependent decay: log w = -exp(w0 + lora(xw))  (<= 0 always)
-    lora = torch.tanh(xw @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
-    w_log = -torch.exp(torch.clamp(L.widen(p["w0"]) + L.widen(lora),
+    lora = torch.tanh(xw @ p["w_lora_a"].to(dt))
+    if hs is not None:
+        lora = pspec.tp_enter(lora)
+    lora = lora @ lora_b.to(dt)
+    w_log = -torch.exp(torch.clamp(L.widen(w0) + L.widen(lora),
                                    -12.0, 2.0))
     w_log = w_log.reshape(b, s, h, dh)
     u = L.widen(p["u"])
@@ -100,8 +124,9 @@ def rwkv6_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     new_state = {"x_prev": x[:, -1:], "wkv": wkv}
 
     # per-head group-norm, gate, head-merging output projection
-    out = L.rmsnorm(p["ln_out"], out.to(dt), cfg.norm_eps) * g
-    return L._out_proj(out, p["wo"], dt), new_state
+    out = L.rmsnorm(ln_out, out.to(dt), cfg.norm_eps) * g
+    out = L._out_proj(out, p["wo"], dt)
+    return (pspec.tp_exit(out) if hs is not None else out), new_state
 
 
 # ================================================================== Mamba-1
@@ -145,8 +170,16 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     r = _dt_rank(cfg)
     dt = x.dtype
 
-    xz = x @ p["in_proj"].to(dt)
-    xi, z = xz[..., :di], xz[..., di:]
+    cs = pspec.split(di)                # this rank's channels, or None
+    if cs is None:
+        xz = x @ p["in_proj"].to(dt)
+        xi, z = xz[..., :di], xz[..., di:]
+    else:                               # in_proj is whole here
+        x = pspec.tp_enter(x)
+        w = p["in_proj"]
+        xi = x @ w[:, cs[0]:cs[1]].to(dt)
+        z = x @ w[:, di + cs[0]:di + cs[1]].to(dt)
+        di = cs[1] - cs[0]
 
     # causal depthwise conv (carried tail = the conv state)
     prev = (state["conv"].to(dt) if state is not None
@@ -158,6 +191,8 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xc = F.silu(xc)
 
     proj = xc @ p["x_proj"].to(dt)
+    if cs is not None:                  # row-parallel, read by channels
+        proj = pspec.tp_sum(proj)
     dt_in, bmat, cmat = (proj[..., :r], proj[..., r:r + ds],
                          proj[..., r + ds:])
     # softplus as JAX writes it (log(1 + e^x) without a threshold)
@@ -171,4 +206,6 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                      bmat.float(), cmat.float(), a, h0=h0)
     y = y.to(dt) + xc * p["d_skip"].to(dt)
     out = (y * F.silu(z)) @ p["out_proj"].to(dt)
+    if cs is not None:
+        out = pspec.tp_exit(out)
     return out, {"conv": new_conv.float(), "h": h_final}

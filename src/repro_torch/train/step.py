@@ -12,20 +12,25 @@ stacked leaf would give in its backward).  With `inplace` (the
 where they lie; at rwkv6-3b's full width that keeps the state at 16 bytes
 a parameter (57.6 GB), which a functional update would not fit on 80 GB.
 
-Parameters may be `DTensor`s on a mesh (`launch.sharding`, ZeRO-3):
-each step gathers them to whole tensors for compute (on a mesh of one
-rank those share the shards' storage, and the step is the mesh-free
-one), each data-parallel rank takes its slice of every microbatch, and
-each microbatch's gradients are summed over the data-parallel ranks and
-scattered into buffers placed like the parameters (or first to
-`grad_shardings`), then divided by the data-parallel size: the mean over
-the global batch, as the reference's loss.  Ranks along "model" hold the
-same batch slice, so their gradients are replicas and are not summed.
+Parameters may be `DTensor`s on a mesh (`launch.sharding`, ZeRO-3 over
+the data-parallel axes, tensor parallelism over "model"): the leaves
+are then the local shards (`Local` views, `.grad` preset to the
+buffer's local slice), each layer gathers its shards over the
+data-parallel axes where it runs, inside its remat region, and keeps
+its "model" shard (`models.transformer`), and the gather's backward
+reduce-scatters each microbatch's gradient (to `grad_shardings` first,
+where given) and adds it into the buffer's shard.  Each data-parallel
+rank takes its slice of every microbatch; the buffers are divided by
+the data-parallel size at the end: the mean over the global batch, as
+the reference's loss.  Along "model" every rank computes the same loss,
+and each gradient a rank takes is complete for what it holds: a
+parameter split over "model" gets its own block's, one replicated over
+it is summed over "model" only where the layer used it on a split (the
+model code's `pspec.tp_enter`), so no gradient is summed twice.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
@@ -34,11 +39,11 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor
 
 from repro_torch import pspec
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import gather, local
+from repro_torch.launch.sharding import Local, gather, local, local_view
 from repro_torch.models import transformer as TF
 from repro_torch.models.layers import widen
 from repro_torch.optim import adamw_update, warmup_cosine
@@ -69,25 +74,36 @@ def microbatch_loss(params, tokens, targets, cfg: ModelConfig,
     return nll.mean() + tcfg.aux_weight * aux
 
 
-def _trainable(params, bufs):
-    """Autograd leaves sharing storage with `params`, the stacked stage
-    leaves [R, ...] as lists of R per-layer leaves.  A leaf whose buffer
-    has its dtype gets the buffer (slice) as its `.grad`; with `bufs`
-    None no leaf gets one."""
-    def leaf(t, g):
+def _trainable(params, bufs, grad_shardings=None):
+    """Autograd leaves sharing storage with `params`' local shards, the
+    stacked stage leaves [R, ...] as lists of R per-layer leaves, and
+    each leaf of a `DTensor` parameter wrapped as a `Local` view of it
+    (`grad_shardings` supplies its gradient placements).  A leaf whose
+    buffer has its dtype gets the buffer's (local) slice as its `.grad`;
+    with `bufs` None no leaf gets one."""
+    def leaf(p, g, gsh, name, layer=None):
+        t = local(p) if layer is None else local(p)[layer]
         x = t.detach().requires_grad_()
-        if g is not None and g.dtype == t.dtype:
-            x.grad = g
-        return x
+        if g is not None:
+            gt = local(g) if layer is None else local(g)[layer]
+            if gt.dtype == x.dtype:
+                x.grad = gt
+        if not isinstance(p, DTensor):
+            return x
+        return local_view(p, x, name, layer is not None, gsh)
 
-    def stacked(t, g):
-        return [leaf(t[i], None if g is None else g[i])
-                for i in range(t.shape[0])]
+    def tree(p, g, gsh, path, stacked):
+        if isinstance(p, dict):
+            return {k: tree(p[k], None if g is None else g[k],
+                            None if gsh is None else gsh[k], path + (k,),
+                            stacked) for k in p}
+        if stacked:
+            return [leaf(p, g, gsh, path[-1], i) for i in range(p.shape[0])]
+        return leaf(p, g, gsh, path[-1])
 
-    return {k: tree_map(stacked if k == "stage" else leaf, params[k],
-                        bufs[k] if bufs is not None
-                        else tree_map(lambda _: None, params[k]))
-            for k in params}
+    return {k: tree(params[k], None if bufs is None else bufs[k],
+                    None if grad_shardings is None else grad_shardings[k],
+                    (k,), k == "stage") for k in params}
 
 
 def _shares(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -102,42 +118,12 @@ def _fold(work, bufs) -> None:
     (cast to the buffer's dtype) and clear them."""
     def per_leaf(x, g):
         for xi, gi in (zip(x, g) if isinstance(x, list) else ((x, g),)):
+            xi = xi.tensor if isinstance(xi, Local) else xi
             if xi.grad is not None and not _shares(xi.grad, gi):
                 gi.add_(xi.grad.to(gi.dtype))
                 xi.grad = None
 
     tree_map(per_leaf, work, bufs)
-
-
-def _fold_sharded(work, bufs, grad_shardings, dp_dims) -> None:
-    """Sum each leaf's gradient (whole on every rank) over the mesh dims
-    `dp_dims`, scatter it to its `grad_shardings` placements, then to the
-    buffer's, and add it into the buffer's local shard; one reduction per
-    parameter leaf (a stacked leaf's R layers together)."""
-    def per_leaf(x, buf, gsh):
-        xs = x if isinstance(x, list) else [x]
-        gs = [xi.grad if xi.grad is not None else torch.zeros_like(xi)
-              for xi in xs]
-        g = torch.stack(gs) if isinstance(x, list) else gs[0]
-        for xi in xs:
-            xi.grad = None
-        mesh = buf.device_mesh
-        src = [Partial() if i in dp_dims else Replicate()
-               for i in range(mesh.ndim)]
-        dst = buf.placements if gsh is None else gsh.placements
-        r = DTensor.from_local(g, mesh, src, run_check=False)
-        r = r.redistribute(mesh, dst).redistribute(mesh, buf.placements)
-        buf.to_local().add_(r.to_local().to(buf.dtype))
-
-    tree_map(per_leaf, work, bufs,
-             grad_shardings if grad_shardings is not None
-             else tree_map(lambda _: None, bufs))
-
-
-def _mesh_of(params):
-    """The mesh of a param tree's `DTensor` leaves, or None."""
-    leaf = tree_leaves(params)[0]
-    return leaf.device_mesh if isinstance(leaf, DTensor) else None
 
 
 def _dp_rows(x, mesh, dims: list[int], a: int) -> torch.Tensor:
@@ -170,9 +156,8 @@ def accumulate_grads(params, batch, cfg: ModelConfig, tcfg: TrainConfig,
     placed like them and the loss is the global batch's (see the module
     docstring).  Returns (grads, mean loss)."""
     a = tcfg.accum_steps
-    mesh = _mesh_of(params)
-    spread = mesh is not None and mesh.size() > 1
-    dims = pspec.dp_dims(mesh) if spread else []
+    mesh = TF.mesh_of(params)
+    dims = pspec.dp_dims(mesh) if mesh is not None else []
     mb_tok, mb_tgt = (_dp_rows(batch[k], mesh, dims, a)
                       for k in ("tokens", "targets"))
 
@@ -183,22 +168,15 @@ def accumulate_grads(params, batch, cfg: ModelConfig, tcfg: TrainConfig,
         return torch.zeros(p.shape, dtype=dt, device=p.device)
 
     bufs = tree_map(zeros, params)
-    if spread:
-        work = _trainable(tree_map(gather, params), None)
-    else:
-        work = _trainable(tree_map(local, params), tree_map(local, bufs))
+    work = _trainable(params, bufs, grad_shardings)
     loss = 0.0
-    with pspec.set_mesh(mesh) if mesh is not None else \
-            contextlib.nullcontext():
+    with pspec.set_mesh(mesh):
         for i in range(a):
             mb_loss = microbatch_loss(work, mb_tok[i], mb_tgt[i], cfg, tcfg)
             mb_loss.backward()
-            if spread:
-                _fold_sharded(work, bufs, grad_shardings, dims)
-            else:
-                _fold(work, tree_map(local, bufs))
+            _fold(work, tree_map(local, bufs))
             loss = loss + mb_loss.detach()
-    n = math.prod(mesh.size(d) for d in dims)
+    n = math.prod(mesh.size(d) for d in dims) if dims else 1
     if n > 1:
         for d in dims:
             dist.all_reduce(loss, group=mesh.get_group(d))

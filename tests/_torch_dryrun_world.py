@@ -12,7 +12,8 @@ import traceback
 import torch
 import torch.multiprocessing as mp
 
-TIMEOUT_S = 240              # a fake world's wall before it is killed
+TIMEOUT_S = 600              # a fake world's wall before it is killed (a
+                             # full-width training cell takes ~100 s alone)
 
 
 def collectives_body(_payload) -> dict:
@@ -45,6 +46,32 @@ def fake_world_cells(multi_pod: bool) -> dict:
     if not multi_pod:
         out["granite"] = dryrun.run_cell("granite-moe-1b-a400m",
                                          "decode_32k", False)
+    return out
+
+
+def full_cell(args) -> dict:
+    """One full-width dry-run cell, (arch, shape, seq_parallel), on the
+    16x16 mesh's fake world."""
+    from repro_torch.launch import dryrun
+    arch, shape, seq_parallel = args
+    return dryrun.run_cell(arch, shape, False, seq_parallel=seq_parallel)
+
+
+def sharded_compute(cfg) -> dict:
+    """A training step of `cfg` (8 x 256 tokens, one microbatch) counted
+    by one rank of fake worlds of 1 and 4 ranks on the (1, 1) and (1, 4)
+    ("data", "model") meshes: {model ranks: (flops, temp_bytes)}."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.step import TrainConfig
+    out = {}
+    for m in (1, 4):
+        dryrun.fake_world(m)
+        mesh = make_mesh((1, m), ("data", "model"), "cpu")
+        specs = dryrun.fake_inputs(cfg, "train", 8, 256, mesh)
+        mode, mem = dryrun.count_step("train", cfg, specs,
+                                      TrainConfig(accum_steps=1))
+        out[m] = (mode.costs.flops, mem["temp_bytes"])
     return out
 
 

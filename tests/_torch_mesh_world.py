@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-TIMEOUT_S = 240              # a world's wall before its ranks are killed
+TIMEOUT_S = 480              # a world's wall before its ranks are killed
 
 
 def run_world(n: int, body, payload, tmp_path) -> list:
@@ -25,7 +25,7 @@ def run_world(n: int, body, payload, tmp_path) -> list:
     the world with its traceback; every rank is joined or killed."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    store = os.path.join(str(tmp_path), f"store{n}")
+    store = os.path.join(str(tmp_path), f"store{n}_{body.__name__}")
     procs = [ctx.Process(target=_rank_main, args=(r, n, store, body,
                                                   payload, q))
              for r in range(n)]
@@ -156,6 +156,49 @@ def _train(arch_in, mesh, opt, steps, ckpt=None, start=None):
             "step": int(state.step)}
 
 
+def _rows_whole(x, mesh):
+    """Rank 0's numpy copy of a [B, ...] tensor whose rows are split over
+    the mesh's data-parallel dims (every rank gathers)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.pspec import dp_dims
+    dims = dp_dims(mesh)
+    where = [Shard(0) if i in dims else Replicate()
+             for i in range(mesh.ndim)]
+    return DTensor.from_local(x, mesh, where,
+                              run_check=False).full_tensor().numpy()
+
+
+def _serve(arch_in, mesh, shape):
+    """float32 prefill of the arch's prompt and decode steps on `mesh`:
+    each call's logits (whole) and the sequence length of a rank's
+    block of the first attention cache (None without attention)."""
+    from repro_torch import convert
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as TF
+    prompt, decodes, max_len = shape
+    cfg = arch_in["cfg"]
+    params = SH.distribute_params(convert.model_params(
+        arch_in["params"], cfg, device="cpu"), cfg, mesh)
+    toks = torch.tensor(arch_in["serve_tokens"])
+
+    def place(t):
+        return SH.place(t, SH.NamedSharding(mesh, SH.sanitize(
+            SH.batch_sharding(mesh).spec, tuple(t.shape), mesh)))
+
+    with torch.no_grad():
+        lg, cache = TF.prefill(params, place(toks[:, :prompt]), cfg,
+                               max_len=max_len, dtype=torch.float32)
+        out = [_rows_whole(lg, mesh)]
+        for i in range(decodes):
+            step = place(toks[:, prompt + i:prompt + i + 1].contiguous())
+            lg, cache = TF.decode_step(params, cache, step, prompt + i, cfg,
+                                       dtype=torch.float32)
+            out.append(_rows_whole(lg, mesh))
+    kv = [c["k"] for c in cache.values() if "k" in c]
+    return {"logits": out,
+            "cache_seq_block": kv[0].to_local().shape[2] if kv else None}
+
+
 # ------------------------------------------------------------ the worlds
 def world4(payload) -> dict:
     """Layouts, training and resharding on (2, 2) and (2, 1, 2) meshes."""
@@ -167,7 +210,8 @@ def world4(payload) -> dict:
     meshes = _meshes()
     out: dict = {"layout": {}, "bytes": {}, "train": {}}
     for mname, mesh in meshes.items():
-        for arch, a in payload["archs"].items():
+        for arch in payload["specs"][mname]:
+            a = payload["archs"][arch]
             whole = convert.model_params(a["params"], a["cfg"], device="cpu")
             placed = SH.distribute_params(whole, a["cfg"], mesh)
             bad = []
@@ -208,17 +252,35 @@ def world4(payload) -> dict:
             bad.append(name)
     out["reshard"] = {"mesh": tuple(new_mesh.shape), "bad": bad}
 
-    # a routing group that would span the two data-parallel ranks raises
+    return out if dist.get_rank() == 0 else None
+
+
+def world4_tp(payload) -> dict:
+    """The variants of tensor parallelism trained on (2, 2) (whether a
+    run's MoE gathered routing groups across ranks is recorded), and
+    the served models' prefill and decode steps."""
     from repro_torch import pspec
-    from repro_torch.models import moe
-    layer = {k: v[0] for k, v in whole["stage"]["l0"]["ffn"].items()}
-    x = torch.zeros(1, moe.group_size(a["cfg"]) // 2, a["cfg"].d_model)
-    out["moe_refusal"] = None
-    with pspec.set_mesh(meshes["2x2"]):
-        try:
-            moe.moe_apply(layer, x, a["cfg"])
-        except NotImplementedError as e:
-            out["moe_refusal"] = str(e)
+    meshes = _meshes()
+    out: dict = {"train": {}}
+    gathered = []
+    dp_gather = pspec.dp_gather
+
+    def counted(x, dim):                # MoE groups spanning ranks
+        gathered.append(tuple(x.shape))
+        return dp_gather(x, dim)
+
+    pspec.dp_gather = counted
+    try:
+        for (mname, arch, opt) in payload["tp_runs"]:
+            gathered.clear()
+            run = _train(payload["archs"][arch], meshes[mname], opt, 3)
+            run["spans"] = bool(gathered)
+            out["train"][(mname, arch, opt)] = run
+    finally:
+        pspec.dp_gather = dp_gather
+    out["serve"] = {arch: _serve(payload["archs"][arch], meshes["2x2"],
+                                 payload["serve_shape"])
+                    for arch in payload["serve"]}
     return out if dist.get_rank() == 0 else None
 
 

@@ -13,8 +13,13 @@ the JAX reference computed in the test:
     CPU tensors in a world of one (no process group), flops, HBM bytes
     and collectives exactly, and a step traced at 2 and 3 microbatches
     and multiplied out equals the whole trace of 4;
-  * `seq_parallel` raises, naming the queue item it waits for, and a
-    long_500k cell of a full-attention arch is the reference's skip
+  * the compute is split over "model": a reduced dense arch's training
+    step counts at most 0.4 of its flops per rank on a (1, 4) mesh of
+    what it counts on (1, 1), and less of its temporary bytes;
+  * at full width on 16x16: glm4-9b's train_4k and prefill_32k cells
+    peak below 80 GB a rank, and a `seq_parallel` cell (glm4-9b
+    prefill_32k) runs and is ok;
+  * a long_500k cell of a full-attention arch is the reference's skip
     record.
 """
 
@@ -30,15 +35,28 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import reduced
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import dryrun, hlo_cost
+from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.launch.sharding import param_shardings
 from repro_torch.models import transformer as TF
 from repro_torch.optim import adamw_init
 from repro_torch.train.step import TrainConfig, train_step
-from _torch_dryrun_world import fake_world_cells, run_fake
+from _torch_dryrun_world import (fake_world_cells, full_cell, run_fake,
+                                 sharded_compute)
 from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 SHAPES = ("train_4k", "decode_32k")
+# full-width cells on 16x16: (arch, shape, seq_parallel)
+CELLS = [("glm4-9b", "train_4k", False), ("glm4-9b", "prefill_32k", False),
+         ("glm4-9b", "prefill_32k", True)]
+# a reduced dense arch whose heads, MLP hidden and vocabulary divide 4
+DENSE = dict(n_layers=2, d_model=512, n_heads=8, d_ff=2048, vocab=512)
+# (1, 4)'s temporary bytes over (1, 1)'s in that step: 0.3716 measured
+# (torch 2.13 on the CPU, fake tensors), held below 0.4: the
+# activations of the split layers shrink, the embedding, the whole
+# logits and the norms' do not
+TEMP_RATIO = 0.4
 
 
 def _ref_dryrun():
@@ -55,10 +73,14 @@ def _ref_dryrun():
 
 @pytest.fixture(scope="module")
 def worlds():
-    """Each mesh's fake world, in a spawned process of its own."""
-    pod, multipod = run_fake([(fake_world_cells, False),
-                              (fake_world_cells, True)])
-    return {"16x16": pod, "2x16x16": multipod}
+    """Each mesh's fake world, the full-width `CELLS` and the sharded
+    compute's two worlds, each in a spawned process of its own."""
+    pod, multipod, *cells, split = run_fake(
+        [(fake_world_cells, False), (fake_world_cells, True)]
+        + [(full_cell, c) for c in CELLS]
+        + [(sharded_compute, reduced(get_config("glm4-9b"), **DENSE))])
+    return {"16x16": pod, "2x16x16": multipod,
+            "cells": dict(zip(CELLS, cells)), "split": split}
 
 
 def _ref_arg_bytes(arch, shape, mesh_name) -> int:
@@ -86,12 +108,22 @@ def test_reference_cell_runs_in_a_fake_world(worlds):
     rec = worlds["16x16"]["granite"]
     assert rec["ok"] and rec["mesh"] == "16x16"
     assert rec["cost"]["flops"] > 0 and rec["cost"]["hbm_bytes"] > 0
-    # ZeRO-3 serving gathers the bf16 parameters: all-gather bytes at
-    # least the whole model's
-    n = sum(x.numel() for x in hlo_cost._tensors(TF.init_params(
-        torch.Generator(), get_config("granite-moe-1b-a400m"),
-        device="meta")))
-    assert rec["collectives"]["all-gather"] >= 2 * n
+    # each layer gathers its bf16 parameters over "data" where it runs
+    # and keeps their "model" shards: all-gather bytes at least those
+    # shards' of every leaf split over "data", and below the whole
+    # model's
+    cfg = get_config("granite-moe-1b-a400m")
+    shapes = TF.init_params(torch.Generator(), cfg, device="meta")
+    sh = param_shardings(cfg, AbstractMesh((16, 16), ("data", "model")),
+                         shapes)
+    shards, whole = 0, 0
+    for x, s in zip(_leaves(shapes), _leaves(sh)):
+        whole += 2 * x.numel()
+        axes = [a for e in s.spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)]
+        if "data" in axes:
+            shards += 2 * x.numel() // (16 if "model" in axes else 1)
+    assert shards <= rec["collectives"]["all-gather"] < whole
     mem = rec["memory"]
     assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
     assert mem["generated_code_bytes"] is None and "trace_s" in rec
@@ -140,10 +172,48 @@ def test_multiplied_microbatches_equal_the_whole_trace(arch):
     assert mem["argument_bytes"] == dryrun.argument_bytes(specs)
 
 
-def test_seq_parallel_waits_for_its_queue_item():
-    with pytest.raises(NotImplementedError,
-                       match="LLM scaffold, what PR 16-17 left.*9.3b"):
-        dryrun.run_cell("glm4-9b", "train_4k", False, seq_parallel=True)
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def test_seq_parallel_cell_runs(worlds):
+    """glm4-9b prefill_32k with the residual stream split by sequence
+    over "model" between layer groups, at full width on 16x16."""
+    rec = worlds["cells"][("glm4-9b", "prefill_32k", True)]
+    plain = worlds["cells"][("glm4-9b", "prefill_32k", False)]
+    assert rec["ok"] and rec["seq_parallel"] is True, rec
+    assert rec["cost"]["flops"] > 0
+    print(f"glm4-9b prefill_32k on 16x16: peak "
+          f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB with "
+          f"seq_parallel, {plain['memory']['peak_bytes'] / 2**30:.2f} "
+          f"without")
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_cells_fit_one_card(worlds, shape):
+    """glm4-9b's cells, the cheapest above 80 GB a rank before the
+    activations were split over "model", peak below it."""
+    rec = worlds["cells"][("glm4-9b", shape, False)]
+    assert rec["ok"], rec
+    peak = rec["memory"]["peak_bytes"]
+    print(f"glm4-9b {shape} on 16x16: peak {peak / 2**30:.2f} GiB a rank")
+    assert peak < 80e9
+
+
+def test_compute_is_split_over_model(worlds):
+    """A reduced dense arch's training step: per rank on (1, 4) at most
+    0.4 of the flops of (1, 1), and at most TEMP_RATIO of its temporary
+    bytes."""
+    split = worlds["split"]
+    (f1, t1), (f4, t4) = split[1], split[4]
+    print(f"reduced dense train step: flops per rank (1, 4) / (1, 1) = "
+          f"{f4 / f1:.4f}, temporary bytes {t4 / t1:.4f}")
+    assert f4 <= 0.4 * f1
+    assert t4 <= TEMP_RATIO * t1
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])

@@ -2,8 +2,13 @@
 the CPU (`tests/_torch_mesh_world.py`), held to the JAX reference
 computed here.
 
-One world of 4 ranks runs everything on the (2, 2) ("data", "model")
-and (2, 1, 2) ("pod", "data", "model") meshes:
+Two worlds of 4 ranks (the layouts, the reference archs' training and
+resharding; then the variants below and serving) run on the (2, 2)
+("data", "model") and (2, 1, 2) ("pod", "data", "model") meshes,
+where each layer runs
+on its parameters' "model" shards and partitions its activations over
+"model" (heads, MLP hidden, experts, RWKV6 heads, Mamba channels,
+vocabulary):
   * layouts: every rank's local block of every parameter of reduced
     rwkv6-3b and granite-moe-1b-a400m (32 experts) is the block the
     reference's sanitized spec gives it (`param_spec`, `sanitize` on a
@@ -18,7 +23,19 @@ and (2, 1, 2) ("pod", "data", "model") meshes:
     max(1e-5, twice the reference's own 1-ulp spread), every parameter
     within atol 1e-6 + rtol 1e-4).  granite's batch is 8 x 128 tokens,
     so that a rank's 256 tokens of a microbatch make whole routing
-    groups of 256;
+    groups of 256.  On (2, 2) with AdamW also: reduced glm4-9b with
+    glm4's GQA at 16 "model" ranks (4 q heads on 1 KV head: a rank's 2
+    q heads read one KV head), with and without `seq_parallel`; 6 q
+    heads on 3 KV heads (a rank's 3 q heads span a KV-head boundary); 3
+    q heads (they do not divide the ranks: scores split by key
+    position); and granite at 4 x 64 tokens, whose routing groups span
+    the data-parallel ranks;
+  * serving: float32 `prefill` logits and three `decode_step`s on (2,
+    2) (the cache split by sequence over "model"), against the
+    reference's unsharded `prefill` / `decode_step`, within 1e-5
+    (rtol = atol), for the GQA glm4, the 3-head glm4, granite (decode
+    groups spanning ranks), rwkv6-3b and one period of Jamba with its
+    experts;
   * elastic: `reshard_state` from (2, 2) to `make_mesh_for(4,
     model_parallel=1)` puts each block where the rules say, bitwise.
 A second world of 2 ranks restores the 4-rank run's checkpoint (after 2
@@ -34,21 +51,87 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import dataclasses
+
+from repro.configs import get_config as ref_get_config
+from repro.configs.base import reduced as ref_reduced
 from repro.launch import sharding as RSH
+from repro.models import transformer as RTF
 from repro.optim import adamw_init as ref_adamw_init
 from repro.optim.adamw8bit import adamw8_init as ref_adamw8_init
 from repro.train import step as RS
-from _torch_mesh_world import run_world, world2, world4
+from repro_torch.configs import get_config
+from repro_torch.configs.base import reduced
+from _torch_mesh_world import run_world, world2, world4, world4_tp
 from test_torch_train import REL, _model, _rel, _tokens
 from _torch_parity import one_thread as _one_thread  # noqa: F401
 
 ARCHS = ("rwkv6-3b", "granite-moe-1b-a400m")
-TOKENS = {"rwkv6-3b": (4, 33), "granite-moe-1b-a400m": (8, 129)}
+# variants: (config, reduced() arguments, fields replaced in both
+# packages' configs, fields replaced in the port's alone)
+GLM = dict(n_layers=2, d_model=96, d_ff=128, vocab=128)
+VARIANTS = {
+    "glm4-9b:gqa": ("glm4-9b", dict(GLM, n_heads=4), {}, {}),
+    "glm4-9b:gqa+sp": ("glm4-9b", dict(GLM, n_heads=4), {},
+                       {"seq_parallel": True}),
+    "glm4-9b:kv-span": ("glm4-9b", dict(GLM, n_heads=6),
+                        {"n_kv_heads": 3}, {}),
+    "glm4-9b:by-keys": ("glm4-9b", dict(GLM, n_heads=3), {}, {}),
+    "granite-moe-1b-a400m:span": ("granite-moe-1b-a400m",
+                                  {"n_experts": 32}, {}, {}),
+    "jamba-1.5-large-398b+experts": ("jamba-1.5-large-398b",
+                                     {"n_layers": 8}, {}, {}),
+}
+TOKENS = {"rwkv6-3b": (4, 33), "granite-moe-1b-a400m": (8, 129),
+          "granite-moe-1b-a400m:span": (4, 65)}
 OPTS = ("adamw", "adamw8bit")
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
-RUNS = [(m, a, o) for m in MESHES for a in ARCHS for o in OPTS]
+TP_ARCHS = ("glm4-9b:gqa", "glm4-9b:gqa+sp", "glm4-9b:kv-span",
+            "glm4-9b:by-keys", "granite-moe-1b-a400m:span")
+BASE_RUNS = [(m, a, o) for m in MESHES for a in ARCHS for o in OPTS]
+TP_RUNS = [("2x2", a, "adamw") for a in TP_ARCHS]
+RUNS = BASE_RUNS + TP_RUNS
+SERVE = ("glm4-9b:gqa", "glm4-9b:by-keys", "granite-moe-1b-a400m",
+         "rwkv6-3b", "jamba-1.5-large-398b+experts")
+PROMPT, DECODES, MAX_LEN = 32, 3, 48
 CKPT_RUN = ("2x2", "rwkv6-3b", "adamw")
+
+
+@functools.lru_cache(maxsize=None)
+def _arch(arch):
+    """Both configs, the reference's parameters and their 1-ulp
+    grad_norm spread (`test_torch_train._model`) of a test arch."""
+    if arch in ARCHS:
+        return _model(arch)
+    name, red, both, port_only = VARIANTS[arch]
+    if arch.partition(":")[2] == "gqa+sp":
+        cfg, _, params, spread = _arch("glm4-9b:gqa")
+        return cfg, dataclasses.replace(_arch("glm4-9b:gqa")[1],
+                                        **port_only), params, spread
+    if arch == "granite-moe-1b-a400m:span":
+        return _model("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(ref_reduced(ref_get_config(name), **red),
+                              **both)
+    pcfg = dataclasses.replace(reduced(get_config(name), **red), **both)
+    params = RTF.init_params(jax.random.PRNGKey(0), cfg)
+    if arch not in TP_ARCHS:                    # served only: no spread
+        return cfg, pcfg, params, None
+    toks = _tokens(cfg, 10)
+    grad = jax.jit(jax.grad(lambda p: RTF.loss_fn(
+        p, toks[:, :-1], toks[:, 1:], cfg, dtype=jnp.float32)))
+
+    def norm(g):
+        return float(jnp.sqrt(sum(jnp.sum(x * x)
+                                  for x in jax.tree.leaves(g))))
+    g0 = norm(grad(params))
+    spread = 0.0
+    for seed in range(3):
+        rng = np.random.default_rng(100 + seed)
+        noisy = jax.tree.map(lambda x: x * (1 + 2.0 ** -23 * rng.choice(
+            [-1, 0, 1], size=x.shape).astype(np.float32)), params)
+        spread = max(spread, abs(norm(grad(noisy)) / g0 - 1))
+    return cfg, pcfg, params, spread
 
 
 def _ref_specs(cfg, params, mesh_name) -> dict:
@@ -61,17 +144,23 @@ def _ref_specs(cfg, params, mesh_name) -> dict:
     return out
 
 
+def _ref_key(arch):
+    """The reference's run an arch is held to (`seq_parallel` changes
+    nothing without a mesh)."""
+    return "glm4-9b:gqa" if arch == "glm4-9b:gqa+sp" else arch
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_run(arch, opt):
     """The reference's 3 unsharded float32 steps: metrics and params."""
-    cfg, _, params, _ = _model(arch)
+    cfg, _, params, _ = _arch(arch)
     rt = RS.TrainConfig(accum_steps=2, optimizer=opt, dtype=jnp.float32)
     step = jax.jit(lambda p, o, b: RS.train_step(p, o, b, cfg, rt))
     p, o = params, (ref_adamw8_init if opt == "adamw8bit"
                     else ref_adamw_init)(params)
     metrics = []
     for i in range(3):
-        toks = _tokens(cfg, 10 + i, TOKENS[arch])
+        toks = _tokens(cfg, 10 + i, TOKENS.get(arch, (4, 33)))
         p, o, m = step(p, o, {"tokens": jnp.asarray(toks[:, :-1]),
                               "targets": jnp.asarray(toks[:, 1:])})
         metrics.append({k: float(v) for k, v in m.items()})
@@ -80,22 +169,51 @@ def _ref_run(arch, opt):
     return metrics, flat
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_serve(arch):
+    """The reference's unsharded float32 prefill of PROMPT tokens and
+    DECODES steps: its tokens and the logits of each call."""
+    cfg, _, params, _ = _arch(arch)
+    toks = _tokens(cfg, 20, (4, PROMPT + DECODES))
+    lg, cache = RTF.prefill(params, jnp.asarray(toks[:, :PROMPT]), cfg,
+                            max_len=MAX_LEN, dtype=jnp.float32)
+    out = [np.asarray(lg)]
+    for i in range(DECODES):
+        lg, cache = RTF.decode_step(
+            params, cache, jnp.asarray(toks[:, PROMPT + i:PROMPT + i + 1]),
+            jnp.int32(PROMPT + i), dataclasses.replace(cfg,
+                                                       max_seq_len=MAX_LEN),
+            dtype=jnp.float32)
+        out.append(np.asarray(lg))
+    return toks, out
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_world")
     archs, specs = {}, {m: {} for m in MESHES}
-    for arch in ARCHS:
-        cfg, pcfg, params, _ = _model(arch)
+    for arch in sorted({a for _, a, _ in RUNS} | set(SERVE)):
+        cfg, pcfg, params, _ = _arch(arch)
         archs[arch] = {"cfg": pcfg,
                        "params": jax.tree.map(np.asarray, params),
-                       "tokens": [_tokens(cfg, 10 + i, TOKENS[arch])
+                       "tokens": [_tokens(cfg, 10 + i,
+                                          TOKENS.get(arch, (4, 33)))
                                   for i in range(3)]}
+        if arch in SERVE:
+            archs[arch]["serve_tokens"] = _ref_serve(arch)[0]
+    for arch in ARCHS:
+        cfg, _, params, _ = _arch(arch)
         for m in MESHES:
             specs[m][arch] = _ref_specs(cfg, params, m)
-    payload = {"archs": archs, "specs": specs, "runs": RUNS,
+    payload = {"archs": archs, "specs": specs, "runs": BASE_RUNS,
+               "tp_runs": TP_RUNS,
+               "serve": SERVE, "serve_shape": (PROMPT, DECODES, MAX_LEN),
                "ckpt": str(tmp / "ckpt"), "ckpt_run": CKPT_RUN,
                "reshard_arch": "granite-moe-1b-a400m"}
     out4 = run_world(4, world4, payload, tmp)[0]
+    tp = run_world(4, world4_tp, payload, tmp)[0]
+    out4["train"].update(tp["train"])
+    out4["serve"] = tp["serve"]
     out2 = run_world(2, world2, payload, tmp)[0]
     return out4, out2
 
@@ -103,8 +221,8 @@ def worlds(tmp_path_factory):
 def _hold(arch, opt, metrics, params, first=0):
     """check_train_step's bounds against the reference's steps `first`..
     2 and its final parameters."""
-    _, _, _, spread = _model(arch)
-    r_metrics, r_params = _ref_run(arch, opt)
+    _, _, _, spread = _arch(arch)
+    r_metrics, r_params = _ref_run(_ref_key(arch), opt)
     gaps = []
     for pm, rm in zip(metrics, r_metrics[first:]):
         assert _rel(pm["loss"], rm["loss"]) <= REL, (pm, rm)
@@ -129,7 +247,8 @@ def test_every_block_is_the_references(worlds, mesh, arch):
           f"{b['adamw']} B with AdamW, {b['adamw8bit']} B with 8-bit AdamW")
 
 
-@pytest.mark.parametrize("mesh,arch,opt", RUNS)
+@pytest.mark.parametrize("mesh,arch,opt", [r for r in RUNS if r[1] !=
+                                           "granite-moe-1b-a400m:span"])
 def test_mesh_training_matches_reference(worlds, mesh, arch, opt):
     out4, _ = worlds
     run = out4["train"][(mesh, arch, opt)]
@@ -145,11 +264,37 @@ def test_reshard_places_every_block(worlds):
     assert out4["reshard"] == {"mesh": (4, 1), "bad": []}
 
 
-def test_moe_group_spanning_ranks_raises(worlds):
-    """Half a routing group on each of 2 data-parallel ranks would make
-    one group across them: `moe_apply` refuses, naming the item."""
+def test_moe_groups_spanning_ranks_match_reference(worlds):
+    """granite at 4 x 64 tokens: a microbatch's 128 tokens make one
+    routing group across the two data-parallel ranks' 64 each; the
+    ranks gather the group, route it and keep their rows, and the run
+    is held to the reference's step."""
     out4, _ = worlds
-    assert "9.3b" in (out4["moe_refusal"] or "")
+    run = out4["train"][("2x2", "granite-moe-1b-a400m:span", "adamw")]
+    assert run["step"] == 3 and run["spans"]
+    gaps, spread = _hold("granite-moe-1b-a400m:span", "adamw",
+                         run["metrics"], run["params"])
+    print(f"granite groups spanning ranks on 2x2: grad_norm gaps "
+          f"{[f'{g:.2e}' for g in gaps]} (spread {spread:.2e})")
+
+
+@pytest.mark.parametrize("arch", SERVE)
+def test_mesh_serving_matches_reference(worlds, arch):
+    """float32 prefill logits and three decode steps on (2, 2), the
+    decode cache split by sequence over "model", within 1e-5 of the
+    reference's unsharded calls."""
+    out4, _ = worlds
+    got = out4["serve"][arch]
+    _, want = _ref_serve(arch)
+    assert len(got["logits"]) == len(want) == DECODES + 1
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got["logits"], want)):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{arch} call {i}")
+        worst = max(worst, float(np.max(np.abs(g - w))))
+    assert got["cache_seq_block"] in (None, MAX_LEN // 2)
+    print(f"{arch} serving on 2x2: max |logit gap| {worst:.2e}; a rank's "
+          f"cache block {got['cache_seq_block']} of {MAX_LEN} positions")
 
 
 def test_checkpoint_restores_on_a_smaller_world(worlds):
